@@ -1,0 +1,35 @@
+// Shared helpers of the hand-written CUDA kernels (sm_90a).
+//
+// Every entry point has a plain C interface (loaded with ctypes): device
+// pointers and the stream arrive as void*, and each entry returns the
+// cudaError_t of cudaGetLastError() right after its launch, so a refused
+// launch (too many threads, too much shared memory) reaches the Python
+// wrapper, which raises. Kernels launch on the caller's stream, never
+// synchronise and allocate nothing.
+//
+// Build without --use_fast_math: depth labels come out of these kernels,
+// so sqrtf and divisions stay IEEE-exact (nvcc's default -prec-sqrt=true
+// -prec-div=true). nvcc contracts a*b+c into FMA by default, which is why
+// the kernels are held to their plain versions by a tolerance, not bits.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#define CSPE_API extern "C" __attribute__((visibility("default")))
+
+namespace cspe {
+
+constexpr float kInf = 1e10f;  // render/raycast.INF: a miss, not IEEE inf
+constexpr float kEps = 1e-7f;  // render/raycast.EPS
+constexpr int kPayloadMask = (1 << 6) - 1;
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// Replace a near-zero denominator by +EPS (jnp.where(|d| < EPS, EPS, d)).
+__device__ __forceinline__ float safe_den(float d) {
+  return fabsf(d) < kEps ? kEps : d;
+}
+
+}  // namespace cspe

@@ -1,0 +1,175 @@
+"""The batched datagen step (port of ``Pipeline.make_generate_fn`` of the
+JAX ``parallel/pipeline.py``).
+
+``generate(seed, frame_ids)`` samples scene placements on the reference's
+10-frame cadence (one scene per group of ``cadence`` consecutive frames,
+sampled once per batch and gathered: the scene-cadence dedup), a camera
+and a light per frame, then renders and annotates every frame and rasterizes
+the heatmap targets, all with the batch dimension written out.
+
+Random numbers: each scene group and each frame has its own CPU
+``torch.Generator`` (utils/prng.py), so a frame's scene, camera and light
+do not depend on the batch it falls in. The few thousand uniforms a batch
+consumes are drawn on the host and moved to the device in one copy; the
+sampling arithmetic then runs on the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Sequence
+
+import torch
+
+from ..config import Config
+from ..core import camera as cam_mod
+from ..ops import heatmap as heatmap_ops
+from ..render import annotate, raycast, shading
+from ..render.sweep_kernel import PixelSweeper
+from ..sample import camera_sampler, lighting as lighting_mod, placement
+from ..scene import assets, world as world_mod
+from ..utils import prng
+
+Tensor = torch.Tensor
+
+
+class FrameBatch(NamedTuple):
+    """Everything the writers need, per frame (leading batch dim)."""
+
+    frame_id: Tensor  # (B,) int32
+    rgb: Tensor  # (B, H, W, 3) uint8
+    depth: Tensor  # (B, H, W) f32 (inf on sky)
+    instance: Tensor  # (B, H, W) int32
+    camera_pose7: Tensor  # (B, 7)
+    inst_visible: Tensor  # (B, O) bool
+    inst_pixel_count: Tensor  # (B, O) int32
+    bbox2d: Tensor  # (B, O, 4) int32
+    center: Tensor  # (B, O, 3)
+    size: Tensor  # (B, O, 3)
+    euler_deg: Tensor  # (B, O, 3)
+    kpt_uv: Tensor  # (B, O, K, 2)
+    kpt_visible: Tensor  # (B, O, K) bool
+    kpt_in_image: Tensor  # (B, O, K) bool
+    heatmaps: Tensor  # (B, C, h, w) f32
+    pointcloud_count: Tensor  # (B,) int32
+
+
+class FrameInputs(NamedTuple):
+    """The sampled inputs of a batch: scene, camera and light per frame."""
+
+    pose: world_mod.ScenePose
+    cam_pos: Tensor  # (B, 3)
+    target: Tensor  # (B, 3)
+    lighting: shading.Lighting
+
+
+@dataclasses.dataclass
+class Pipeline:
+    """The generate step for a fixed ``Config`` on one ``device``."""
+
+    cfg: Config
+    device: str | torch.device = "cpu"
+
+    def __post_init__(self):
+        # Geometry is f32: no TF32 in matmuls or convolutions.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.device = torch.device(self.device)
+        pc = self.cfg.pipeline
+        self.roster = world_mod.make_roster(self.cfg.scene)
+        self.caster = raycast.Raycaster(self.roster)
+        self.intr = cam_mod.intrinsics_from_apertures(
+            self.cfg.camera.focal_length, self.cfg.camera.horizontal_aperture,
+            pc.render_width, pc.render_height)
+        self.sweeper = PixelSweeper(self.roster, self.intr, self.caster)
+        self.hm_w = pc.render_width // pc.heatmap_stride
+        self.hm_h = pc.render_height // pc.heatmap_stride
+        self.num_channels = assets.NUM_KEYPOINT_CHANNELS
+
+    def sample_inputs(self, seed: int, frame_ids: Sequence[int]) -> FrameInputs:
+        """Scenes (one per cadence group present), cameras and lights."""
+        cfg = self.cfg
+        fids = [int(f) for f in frame_ids]
+        cadence = cfg.randomization.cadence_frames
+        groups = sorted({f // cadence for f in fids})
+        gidx = [groups.index(f // cadence) for f in fids]
+
+        scene = placement.stack_draws([
+            placement.scene_draws(prng.scene_generator(seed, g * cadence, cadence),
+                                  cfg.scene, cfg.randomization) for g in groups])
+        frame = []
+        for f in fids:
+            gen = prng.frame_generator(seed, f)
+            frame.append(torch.cat([camera_sampler.camera_draws(gen, 1)[0],
+                                    lighting_mod.lighting_draws(gen, 1)[0]]))
+        host = dict(scene, frame=torch.stack(frame), gidx=torch.tensor(gidx, dtype=torch.float32))
+        dev = _to_device(host, self.device)
+
+        poses, _ = placement.randomize_scene(dev, self.roster, cfg.scene, cfg.randomization,
+                                             articulate_crane=True)
+        n_cam = camera_sampler.CAMERA_DRAWS
+        cam_pos, target = camera_sampler.cameras_from_draws(dev["frame"][:, :n_cam], cfg.camera)
+        lit = lighting_mod.lighting_from_draws(dev["frame"][:, n_cam:], cfg.lighting)
+        return FrameInputs(poses.index(dev["gidx"].long()), cam_pos, target, lit)
+
+    def render(self, frame_ids: Tensor, inputs: FrameInputs,
+               include_heatmaps: bool = True) -> FrameBatch:
+        cfg = self.cfg
+        pc = cfg.pipeline
+        world = world_mod.build_world(self.roster, inputs.pose)
+        ann = annotate.render_frame(
+            self.roster, self.caster, self.sweeper, world, inputs.cam_pos, inputs.target,
+            self.intr, inputs.lighting, shade_rgb=pc.write_rgb,
+            bug_compatible=pc.bug_compatible_schema, far_clip=cfg.camera.clipping[1])
+        B = frame_ids.shape[0]
+        if include_heatmaps:
+            hms = heatmap_ops.frame_heatmaps(
+                ann.kpt_uv, ann.kpt_visible, self.roster.tensor("inst_kpt_channel", self.device),
+                self.num_channels, self.hm_h, self.hm_w, pc.heatmap_sigma, pc.heatmap_stride)
+        else:
+            hms = torch.zeros(B, 0, self.hm_h, self.hm_w, device=self.device)
+        return FrameBatch(
+            frame_id=frame_ids, rgb=ann.rgb, depth=ann.depth, instance=ann.instance,
+            camera_pose7=ann.camera_pose7, inst_visible=ann.inst_visible,
+            inst_pixel_count=ann.inst_pixel_count, bbox2d=ann.bbox2d, center=ann.center,
+            size=ann.size, euler_deg=ann.euler_deg, kpt_uv=ann.kpt_uv,
+            kpt_visible=ann.kpt_visible, kpt_in_image=ann.kpt_in_image, heatmaps=hms,
+            pointcloud_count=ann.pointcloud_count)
+
+    def make_generate_fn(self, include_heatmaps: bool = True):
+        """``generate(seed: int, frame_ids) -> FrameBatch``.
+
+        ``include_heatmaps=False`` (the dataset-writing path) returns a
+        zero-channel heatmap array instead of rasterizing targets."""
+        def generate(seed: int, frame_ids: Sequence[int]) -> FrameBatch:
+            fids = torch.as_tensor([int(f) for f in frame_ids], dtype=torch.int32)
+            inputs = self.sample_inputs(seed, fids.tolist())
+            return self.render(fids.to(self.device), inputs, include_heatmaps)
+
+        return generate
+
+
+def _to_device(host: Dict[str, Tensor], device: torch.device) -> Dict[str, Tensor]:
+    """Move a dict of float tensors to ``device`` in one copy."""
+    flat = torch.cat([v.reshape(-1) for v in host.values()]).to(device)
+    out, i = {}, 0
+    for k, v in host.items():
+        out[k] = flat[i:i + v.numel()].reshape(v.shape)
+        i += v.numel()
+    return out
+
+
+def quality_stats(batch: FrameBatch, min_points: int) -> Dict[str, Tensor]:
+    """The DataQualityLogger counters: modality validity, object counts,
+    point-cloud sufficiency."""
+    pc_valid = batch.pointcloud_count >= min_points
+    n_obj = torch.sum(batch.inst_visible, dim=-1)
+    return {
+        "total_frames": torch.tensor(batch.frame_id.shape[0]),
+        "pointcloud_valid": torch.sum(pc_valid),
+        "pointcloud_insufficient": torch.sum((batch.pointcloud_count > 0) & ~pc_valid),
+        "pointcloud_empty": torch.sum(batch.pointcloud_count == 0),
+        "labels_valid": torch.sum(n_obj > 0),
+        "labels_empty": torch.sum(n_obj == 0),
+        "objects_total": torch.sum(n_obj),
+    }

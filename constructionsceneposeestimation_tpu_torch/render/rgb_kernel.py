@@ -1,0 +1,152 @@
+"""The RGB epilogue: hit distance + instance map -> (B, H, W, 3) uint8.
+
+Kernel: ``csrc/rgb.cu`` (replaces the Pallas TPU kernel of the JAX
+``render/rgb_kernel.py``; its header says what bounds it on an H100).
+Plain version: ``plain_rgb``, the shading tier of ``render/shading.py``
+(screen-space normals, per-pixel table gather, local coordinates,
+procedural patterns, contact AO, shade, gamma). ``fused_rgb`` dispatches on
+the device of its inputs.
+
+Inputs shared by both versions, per frame:
+* ``table`` (B, O + 2, 16) f32 rows [albedo 3 | world->local rotation
+  (R row-major) 9 | instance position 3 | class 1]: instances, then the
+  ground (class -1), then the sky (class -2). It stays f32.
+* ``ao`` (B, A, 4) f32 rows [x, y, footprint radius, 0] of the contact-AO
+  instances (``ao_rows``).
+* ``params`` (B, 32) f32 per-frame scalars: ``camera.ray_params`` 0-15
+  (ray basis 0-8, cx 9, cy 10, fx 11, fy 12, camera 13-15), sun_dir
+  16-18, sun intensity 19, dome
+  intensity 20, dome rgb 21-23, tex_phase 24, tex_strength 25, dirt 26.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import camera as cam_mod
+from ..scene import world as world_mod
+from ..utils import kernels
+from . import shading as sh
+
+Tensor = torch.Tensor
+
+N_PAR = 32
+
+
+def ao_rows(roster: world_mod.Roster):
+    """Contact-AO rows: every non-fence instance, with its footprint radius
+    capped at 2 m -> (rows (A,) int, foot_r (A,) f32)."""
+    O = roster.num_instances
+    f0, f1 = roster.fence_slice
+    rows = np.concatenate([np.arange(f0), np.arange(f1, O)]).astype(np.int64)
+    if rows.size == 0:
+        rows = np.arange(O)
+    foot_r = np.minimum(np.maximum(np.abs(roster.inst_aabb_min[rows, :2]),
+                                   np.abs(roster.inst_aabb_max[rows, :2])).max(-1), 2.0)
+    return rows, foot_r.astype(np.float32)
+
+
+def instance_table(roster: world_mod.Roster, inst_rot: Tensor, inst_pos: Tensor) -> Tensor:
+    """(B, O + 2, 16) per-instance table, ground and sky rows last."""
+    B, O = inst_pos.shape[:2]
+    dev = inst_pos.device
+    albedo = torch.cat([roster.tensor("inst_albedo", dev),
+                        torch.tensor([[0.45, 0.40, 0.35], [0.0, 0.0, 0.0]], device=dev)])
+    rot = torch.cat([inst_rot.reshape(B, O, 9),
+                     torch.eye(3, device=dev).reshape(1, 1, 9).expand(B, 2, 9)], dim=1)
+    pos = torch.cat([inst_pos, torch.zeros(B, 2, 3, device=dev)], dim=1)
+    cls = torch.cat([roster.tensor("inst_class_id", dev).float(),
+                     torch.tensor([-1.0, -2.0], device=dev)])
+    return torch.cat([albedo.expand(B, -1, -1), rot, pos, cls.expand(B, -1)[..., None]],
+                     dim=2).contiguous()
+
+
+def ao_table(roster: world_mod.Roster, inst_pos: Tensor) -> Tensor:
+    """(B, A, 4) [x, y, footprint radius, 0] of the contact-AO rows."""
+    rows, foot_r = ao_rows(roster)
+    B = inst_pos.shape[0]
+    dev = inst_pos.device
+    xy = inst_pos[:, torch.as_tensor(rows, device=dev), :2]
+    r = torch.as_tensor(foot_r, device=dev).expand(B, -1)[..., None]
+    return torch.cat([xy, r, torch.zeros_like(r)], dim=2).contiguous()
+
+
+def rgb_params(M: Tensor, cam_pos: Tensor, intr: cam_mod.Intrinsics,
+               lighting: sh.Lighting) -> Tensor:
+    """(B, 32) per-frame scalars in the layout of the module docstring."""
+    B = M.shape[0]
+    col = lambda v: v.reshape(B, 1)
+    vals = torch.cat([cam_mod.ray_params(M, cam_pos, intr), lighting.sun_dir,
+                      col(lighting.sun_intensity), col(lighting.dome_intensity),
+                      lighting.dome_color, col(lighting.tex_phase),
+                      col(lighting.tex_strength), col(lighting.dirt)], dim=1)
+    return torch.cat([vals, vals.new_zeros(B, N_PAR - vals.shape[1])], dim=1).contiguous()
+
+
+def plain_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor) -> Tensor:
+    """Plain version of the kernel: (B, H, W, 3) uint8."""
+    B, H, W = t.shape
+    dev = t.device
+    p = lambda k: params[:, k].reshape(B, 1, 1)
+    x = (torch.arange(W, dtype=torch.float32, device=dev)[None, None, :] - p(9)) / p(11)
+    y = (torch.arange(H, dtype=torch.float32, device=dev)[None, :, None] - p(10)) / p(12)
+    r = [p(3 * i) * x + p(3 * i + 1) * y + p(3 * i + 2) for i in range(3)]
+    n = torch.sqrt(r[0] * r[0] + r[1] * r[1] + r[2] * r[2])
+    rd = tuple(c / n for c in r)
+    hit = torch.isfinite(t)
+    ts = torch.where(hit, t, 0.0)
+    pw = tuple(p(13 + i) + ts * rd[i] for i in range(3))
+    normal = sh.screen_space_normals(pw, rd)
+
+    n_inst = table.shape[1] - 2
+    idx = torch.where(inst >= 0, inst, n_inst - 1 - inst).long()
+    tab = table[torch.arange(B, device=dev)[:, None, None], idx]  # (B, H, W, 16)
+    albedo = (tab[..., 0], tab[..., 1], tab[..., 2])
+    dw = tuple(pw[i] - tab[..., 12 + i] for i in range(3))
+    lx = tab[..., 3] * dw[0] + tab[..., 6] * dw[1] + tab[..., 9] * dw[2]
+    ly = tab[..., 4] * dw[0] + tab[..., 7] * dw[1] + tab[..., 10] * dw[2]
+    lz = tab[..., 5] * dw[0] + tab[..., 8] * dw[1] + tab[..., 11] * dw[2]
+    cls = tab[..., 15]
+    albedo = sh.procedural_albedo(albedo, lx, ly, lz, cls, p(24), p(26))
+
+    prox = torch.ones_like(t)
+    for a in range(ao.shape[1]):
+        q = lambda k: ao[:, a, k].reshape(B, 1, 1)
+        dxa, dya = pw[0] - q(0), pw[1] - q(1)
+        d = torch.sqrt(dxa * dxa + dya * dya)
+        prox = torch.minimum(prox, torch.clamp((d - q(2)) / 0.6, 0.0, 1.0))
+    ao_f = torch.where(inst == -1, 0.45 + 0.55 * prox, 1.0)
+
+    lighting = sh.Lighting(sun_dir=params[:, 16:19], sun_intensity=params[:, 19],
+                           dome_intensity=params[:, 20], dome_color=params[:, 21:24],
+                           tex_phase=params[:, 24], tex_strength=params[:, 25],
+                           dirt=params[:, 26])
+    planes = sh.shade(t, normal, pw, rd, albedo, lighting, ao=ao_f)
+    return sh.linear_to_srgb_u8(planes)
+
+
+def rgb_cuda(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor) -> Tensor:
+    """Launch csrc/rgb.cu: (B, H, W, 3) uint8."""
+    B, H, W = t.shape
+    R, A = table.shape[1], ao.shape[1]
+    kernels.check_cuda("rgb t", t, torch.float32)
+    kernels.check_cuda("rgb inst", inst, torch.int32, (B, H, W))
+    kernels.check_cuda("rgb table", table, torch.float32, (B, R, 16))
+    kernels.check_cuda("rgb ao", ao, torch.float32, (B, A, 4))
+    kernels.check_cuda("rgb params", params, torch.float32, (B, N_PAR))
+    if (N_PAR + R * 16 + A * 4) * 4 > kernels.SMEM_LIMIT:
+        raise ValueError(f"rgb: a {R}-row table exceeds shared memory")
+    out = torch.empty(B, H, W, 3, dtype=torch.uint8, device=t.device)
+    kernels.launch("cspe_rgb", t, inst, table, R, ao, A, params, B, H, W, out)
+    rgb_cuda.launches += 1
+    return out
+
+
+rgb_cuda.launches = 0
+
+
+def fused_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor) -> Tensor:
+    """(B, H, W, 3) uint8: the kernel for CUDA tensors, else the plain version."""
+    fn = rgb_cuda if t.is_cuda else plain_rgb
+    return fn(t, inst, table, ao, params)

@@ -1,0 +1,115 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+All ``.cu`` sources compile with nvcc, in one call, into one shared library
+with a plain C interface for ``sm_90a`` (Hopper), which is loaded with
+ctypes: no PyTorch headers are compiled, so a cold build takes seconds.
+The library lands in ``build/torch_kernels/`` of the checkout, named by a
+hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads the existing build. Nothing is built at import time:
+the first kernel launch builds. A failed build raises; there is no
+fallback.
+
+Each wrapper passes device pointers and PyTorch's current stream as
+integers and raises if the entry point's ``cudaGetLastError()`` code is
+not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+# Shared memory a block may take without the opt-in attribute; the wrappers
+# refuse larger rosters rather than have the launch fail.
+SMEM_LIMIT = 48 * 1024
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+SIGNATURES = {
+    "cspe_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "cspe_rgb": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P],
+    "cspe_heatmap": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P],
+}
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (CUDA_HOME); cannot build the kernels")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` into the build directory unless a build of the
+    same sources and flags is there. Returns the library's path."""
+    h = hashlib.sha256()
+    for f in sources():
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    lib = BUILD_DIR / f"libcspe_kernels_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, *[str(f) for f in sorted(CSRC.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if verbose or proc.returncode != 0:
+        print(proc.stdout + proc.stderr, flush=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.cspe_error_string.argtypes = [ctypes.c_int]
+    lib.cspe_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call entry point ``name`` on the current stream; raise on a launch
+    error. Tensor arguments pass as device pointers."""
+    lib = library()
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = getattr(lib, name)(*conv, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: {lib.cspe_error_string(err).decode()}")
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and of
+    ``shape`` where given)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")

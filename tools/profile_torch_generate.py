@@ -1,0 +1,83 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch port's generate step goes, on one GPU.
+
+    python3 tools/profile_torch_generate.py [--batch 64] [--res 512] [--out DIR]
+
+Runs a warm-up batch and times 3 batches on the host clock, then profiles
+3 more with ``torch.profiler`` (CPU and CUDA activities): prints the
+device time by kernel name and the device's busy share of the profiled
+wall time (the profiler slows the host, so that share is a lower bound),
+and writes the Chrome trace under ``--out`` (``build/profile`` of the
+checkout by default).
+Needs a CUDA device; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--res", type=int, default=512)
+    ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_torch_generate: needs a CUDA device", file=sys.stderr)
+        return 3
+    from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
+
+    cfg = Config(pipeline=PipelineConfig(render_width=args.res, render_height=args.res,
+                                         batch_size=args.batch))
+    gen = Pipeline(cfg, device="cuda").make_generate_fn()
+    B = args.batch
+    gen(0, range(B))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(4, 7):
+        gen(0, range(i * B, (i + 1) * B))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1000.0 / 3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(1, 4):
+            gen(0, range(i * B, (i + 1) * B))
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1000.0
+    # Device kernels only (the operator rows above them repeat their time).
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1000.0
+    print(f"without the profiler: {plain_ms:.1f} ms/batch ({B * 1000.0 / plain_ms:.1f} "
+          f"frames/s, host clock, 3 batches)")
+    print(f"3 batches of {B} x {args.res}^2: wall {wall_ms:.1f} ms under the profiler "
+          f"({wall_ms / 3:.1f} ms/batch), device busy {busy_ms:.1f} ms "
+          f"({100.0 * busy_ms / wall_ms:.1f}% of wall)")
+    print(f"{'device ms':>10} {'share':>6} {'calls':>6}  name")
+    for e in kernels[:args.top]:
+        ms = e.self_device_time_total / 1000.0
+        print(f"{ms:10.3f} {100.0 * ms / busy_ms:5.1f}% {e.count:6d}  {e.key[:100]}")
+    n_kernels = sum(e.count for e in kernels)
+    print(f"{n_kernels} kernel launches in total ({n_kernels / 3:.0f} per batch)")
+    out = ROOT / args.out
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / "generate_trace.json"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
