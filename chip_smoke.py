@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's datagen main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's two paths once on one NVIDIA GPU: datagen and
+evaluation.
 
     python3 chip_smoke.py
 
@@ -7,15 +8,27 @@ Run from the root of a checkout. Phases, each reported on its own line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the CUDA kernels of ``constructionsceneposeestimation_tpu_torch/csrc``;
-3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (512^2, batches of 64 frames), with the stated tolerances;
-4. the main path: ``Pipeline(...).make_generate_fn()`` for 3 batches of 64
-   contiguous frames; every kernel's launch count must rise in every batch;
-   fields, labels and ``quality_stats`` are checked, a repeat with the same
-   seed must be bit-equal, and a small batch must agree with the plain
-   (CPU) path;
-5. timing with CUDA events: generate frames/s and each kernel against its
-   plain version.
+3. each datagen kernel against its plain PyTorch version on the card, at
+   the main path's shapes (512^2, batches of 64 frames), with the stated
+   tolerances;
+4. the datagen path: ``Pipeline(...).make_generate_fn()`` for 3 batches of
+   64 contiguous frames; every kernel's launch count must rise in every
+   batch; fields, labels and ``quality_stats`` are checked, a repeat with
+   the same seed must be bit-equal, and a small batch must agree with the
+   plain (CPU) path;
+5. the peak kernel against its plain version at (64, 71, 128, 128), K = 8,
+   on the GT heatmaps, the full-width network's heatmaps and a noisy map
+   with negative values, and at the odd shape (3, 5, 37, 61): scores
+   bit-equal, uv within 1e-3 heatmap px;
+6. the evaluation path (``eval/pipeline.evaluate_model``: preprocess, the
+   full-width ``HeatmapBackbone`` under bf16 autocast, focal heatmaps, every
+   evaluator on the GT and the model heatmaps) on 2 fresh batches of 64
+   frames at 512^2; the peak kernel must launch at least twice per batch;
+   shapes, finiteness, the decode floor (PCK > 0.5) and ADD with GT
+   keypoints are checked, then the card against the plain CPU path on 4
+   frames at 128^2 with an f32 forward;
+7. timing with CUDA events: generate frames/s, the forward, the evaluation
+   step, and each kernel against its plain version and its bound.
 
 Prints the kernels' JSON line, then the card line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, on
@@ -34,16 +47,42 @@ ROOT = Path(__file__).resolve().parent
 B = 64
 RES = 512
 SEED = 0
+K_PEAKS = 8
 REPLACES = {
     "pixel_sweep": "constructionsceneposeestimation_tpu/render/sweep_kernel.py:107",
     "rgb_epilogue": "constructionsceneposeestimation_tpu/render/rgb_kernel.py:51",
     "heatmap_targets": "constructionsceneposeestimation_tpu/ops/heatmap.py:58",
+    "peak_decode": "constructionsceneposeestimation_tpu/ops/peak_kernel.py:56",
 }
 SOURCES = {
     "pixel_sweep": "constructionsceneposeestimation_tpu_torch/csrc/sweep.cu",
     "rgb_epilogue": "constructionsceneposeestimation_tpu_torch/csrc/rgb.cu",
     "heatmap_targets": "constructionsceneposeestimation_tpu_torch/csrc/heatmap.cu",
+    "peak_decode": "constructionsceneposeestimation_tpu_torch/csrc/peaks.cu",
 }
+# The least time the card could take: the larger of the bytes the function
+# must move (each input read once, each output written once) over the
+# memory rate, and its operations over the FP32 rate outside the tensor
+# cores (NVIDIA's published H100 SXM peaks, at a 700 W power limit).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations a pixel-ray needs for each primitive kind of the sweep's
+# schedule, and for the ray itself, counted from csrc/sweep.cu (each add,
+# multiply, compare, min/max, select, divide and square root as one):
+# plane, sphere, upright cylinder, upright cone, axis-aligned box, yaw box,
+# capsule, general box, general cylinder.
+SWEEP_RAY_OPS = 43
+SWEEP_KIND_OPS = {0: 12, 1: 27, 2: 44, 3: 97, 4: 37, 5: 57, 6: 97, 7: 79, 8: 83}
+# csrc/rgb.cu: operations a pixel outside the contact-AO loop (three rays,
+# normal, local frame, patterns, hash noise, shading, three gamma chains),
+# and per AO row on a ground pixel.
+RGB_PIXEL_OPS = 259
+RGB_AO_ROW_OPS = 11
+# csrc/heatmap.cu: per (pixel, visible keypoint of the map's channel).
+HEATMAP_KPT_OPS = 9
+# csrc/peaks.cu, per pixel: relu 1, separable blur 10, separable 3x3 max 4,
+# compare and select 2, one compare per selection round.
+PEAK_PIXEL_OPS = 17
 
 
 class SmokeFailure(Exception):
@@ -74,6 +113,14 @@ def cuda_ms(fn, iters=5, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, nops: float):
+    """(bound_ms, bound_by) of a function that moves ``nbytes`` and does
+    ``nops`` operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def main() -> int:
     if not (ROOT / "constructionsceneposeestimation_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout; the port's package is missing", file=sys.stderr)
@@ -87,7 +134,10 @@ def main() -> int:
         return 3
 
     from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
+    from constructionsceneposeestimation_tpu_torch.eval import pipeline as ev
+    from constructionsceneposeestimation_tpu_torch.models import pose_net
     from constructionsceneposeestimation_tpu_torch.ops import heatmap as hm
+    from constructionsceneposeestimation_tpu_torch.ops import peak_kernel, preprocess
     from constructionsceneposeestimation_tpu_torch.parallel.pipeline import (
         FrameBatch, Pipeline, quality_stats)
     from constructionsceneposeestimation_tpu_torch.render import (annotate, raycast,
@@ -161,8 +211,14 @@ def main() -> int:
           f"max rel {rel.max().item():.3e}, {rel_same.max().item():.3e} on same-instance hits")
     check(hit_agree > 0.9995 and frac_big < 1e-5 and frac_1e5 < 0.005 and inst_agree > 0.999,
           "sweep kernel disagrees with its plain version")
+    n_px = B * RES * RES
+    kinds = torch.bincount(si[:, 0].long().cpu(), minlength=9).tolist()
+    sweep_ops = n_px * (SWEEP_RAY_OPS + sum(SWEEP_KIND_OPS[k] * n for k, n in enumerate(kinds)))
+    sweep_bytes = (n_px * 4 + B * 16 * 4 + world["prim_pos"].numel() * 4 * 4
+                   + si.numel() * 4 + sf.numel() * 4)
     results["pixel_sweep"] = {"max_abs_err": torch.abs(tk - tp)[same].max().item(),
-                              "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, iters=2, warmup=1)}
+                              "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, iters=2, warmup=1),
+                              "bound": bound(sweep_bytes, sweep_ops)}
 
     # 3b. RGB epilogue vs the shading tier, noise off and on. Inputs as the
     # annotation pass builds them (far clip included).
@@ -190,8 +246,13 @@ def main() -> int:
             ds = abs(rk.std().item() - rp.std().item())
             phase("rgb", f"noise on: |mean diff| {dm:.4f} (< 1.0), |std diff| {ds:.4f} (< 2.0)")
             check(dm < 1.0 and ds < 2.0, "rgb kernel statistics disagree (noise on)")
+            rgb_bytes = (n_px * (4 + 4 + 3)
+                         + 4 * (table.numel() + ao.numel() + par.numel()))
+            rgb_ops = (n_px * RGB_PIXEL_OPS
+                       + int((inst == -1).sum()) * ao.shape[1] * RGB_AO_ROW_OPS)
             results["rgb_epilogue"] = {"max_abs_err": rgb_err, "ms": cuda_ms(k_fn),
-                                       "plain_ms": cuda_ms(p_fn, iters=2, warmup=1)}
+                                       "plain_ms": cuda_ms(p_fn, iters=2, warmup=1),
+                                       "bound": bound(rgb_bytes, rgb_ops)}
         else:
             d = torch.abs(rk - rp)
             sky_exact = bool(torch.equal(rk[sky], rp[sky]))
@@ -221,15 +282,19 @@ def main() -> int:
         check(err < 2e-4, f"heatmap kernel disagrees at width {w}, sigma {sigma}")
         worst = max(worst, err)
     args = (uv, ch, vis, C, RES // 4, RES // 4, cfg.pipeline.heatmap_sigma, 4)
+    hm_px = (RES // 4) ** 2
+    hm_bytes = B * C * hm_px * 4 + uv.numel() * 4 + ch.numel() * 4 + vis.numel()
     results["heatmap_targets"] = {
         "max_abs_err": worst, "ms": cuda_ms(lambda: hm.heatmap_cuda(*args)),
-        "plain_ms": cuda_ms(lambda: hm.render_heatmaps(*args), iters=2, warmup=1)}
+        "plain_ms": cuda_ms(lambda: hm.render_heatmaps(*args), iters=2, warmup=1),
+        "bound": bound(hm_bytes, int(vis.sum()) * hm_px * HEATMAP_KPT_OPS)}
     del ann, rd, depth, table, ao, t, inst, tk, tp, ck, cp
 
     # 4. The main path.
     gen = pipe.make_generate_fn()
     counters = {"pixel_sweep": sweep_kernel.sweep_cuda, "rgb_epilogue": rgb_kernel.rgb_cuda,
-                "heatmap_targets": hm.heatmap_cuda}
+                "heatmap_targets": hm.heatmap_cuda, "peak_decode": peak_kernel.peaks_cuda}
+    datagen = ("pixel_sweep", "rgb_epilogue", "heatmap_targets")
     for fn in counters.values():
         fn.launches = 0
     batches = []
@@ -237,9 +302,9 @@ def main() -> int:
         before = {k: fn.launches for k, fn in counters.items()}
         batches.append(gen(SEED, range(i * B, (i + 1) * B)))
         torch.cuda.synchronize()
-        rose = {k: fn.launches - before[k] for k, fn in counters.items()}
+        rose = {k: counters[k].launches - before[k] for k in datagen}
         check(all(v > 0 for v in rose.values()), f"batch {i}: a kernel did not launch: {rose}")
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = {k: counters[k].launches for k in datagen}
     phase("main", f"3 batches of {B} frames at {RES}^2; launches {launches}")
 
     O = pipe.roster.num_instances
@@ -304,7 +369,117 @@ def main() -> int:
           and agree["kpt_visible"] >= 0.99 and agree["heatmaps"] < 2e-4
           and agree["rgb_mean"] < 1.0, "device path disagrees with the plain CPU path")
 
-    # 5. Timing: generate frames/s (every field consumed), min of 4 regions.
+    # 5. The peak kernel against its plain version at the evaluation path's
+    # shapes: the GT heatmaps, the full-width network's heatmaps, a noisy
+    # map with negative values, and an odd shape.
+    model = pose_net.make_model(device=dev)
+    with torch.inference_mode():
+        images = preprocess.preprocess_frame(batches[0].rgb, RES, RES)
+        hm_model = pose_net.output_to_heatmaps(pose_net.forward(model, images), "focal")
+    gen_noise = torch.Generator(device=dev).manual_seed(SEED)
+    gt_hm = batches[0].heatmaps
+    peak_inputs = {
+        "GT heatmaps": gt_hm,
+        "model heatmaps": hm_model,
+        "noisy": (gt_hm + 0.05 * torch.randn(gt_hm.shape, generator=gen_noise,
+                                              device=dev)).contiguous(),
+        "odd (3, 5, 37, 61)": torch.randn(3, 5, 37, 61, generator=gen_noise, device=dev),
+    }
+    peak_err = 0.0
+    for name, x in peak_inputs.items():
+        uv_k, sc_k = peak_kernel.peaks_cuda(x, K_PEAKS)
+        uv_p, sc_p = peak_kernel.extract_peaks_plain(x, K_PEAKS)
+        torch.cuda.synchronize()
+        scores_equal = bool(torch.equal(sc_k, sc_p))
+        d = torch.abs(uv_k - uv_p).max().item()
+        pos = sc_p > 0
+        uv_bits = bool(torch.equal(uv_k[pos], uv_p[pos]))
+        phase("peaks", f"{name} {tuple(x.shape)}: scores bit-equal {scores_equal}, "
+              f"{int(pos.sum())} positive peaks, max |uv diff| {d:.3e} px (<= 1e-3), "
+              f"uv bit-equal where score > 0 {uv_bits}")
+        check(scores_equal and d <= 1e-3, f"peak kernel disagrees with its plain version: {name}")
+        peak_err = max(peak_err, d)
+    N_maps = gt_hm.shape[0] * gt_hm.shape[1]
+    peak_px = N_maps * gt_hm.shape[2] * gt_hm.shape[3]
+    results["peak_decode"] = {
+        "max_abs_err": peak_err,
+        "ms": cuda_ms(lambda: peak_kernel.peaks_cuda(gt_hm, K_PEAKS), iters=20),
+        "plain_ms": cuda_ms(lambda: peak_kernel.extract_peaks_plain(gt_hm, K_PEAKS), iters=3),
+        "bound": bound(peak_px * 4 + N_maps * K_PEAKS * 3 * 4,
+                       peak_px * (PEAK_PIXEL_OPS + K_PEAKS))}
+    del images, hm_model, peak_inputs
+
+    # 6. The evaluation path: fresh frames, preprocess, the full-width
+    # network (bf16 body, f32 head), focal heatmaps, every evaluator on the
+    # GT and the model heatmaps.
+    stride = cfg.pipeline.heatmap_stride
+    eval_seed = SEED + 1000
+    for fn in counters.values():
+        fn.launches = 0
+    for i in range(2):
+        before = {k: fn.launches for k, fn in counters.items()}
+        batch = gen(eval_seed, range(i * B, (i + 1) * B))
+        out, hm_pred = ev.evaluate_model(model, batch, pipe.roster, intr, stride, "focal",
+                                         pnp_threshold=0.15)
+        torch.cuda.synchronize()
+        rose = {k: fn.launches - before[k] for k, fn in counters.items()}
+        check(rose["peak_decode"] >= 2 and all(v > 0 for v in rose.values()),
+              f"eval batch {i}: a kernel did not launch: {rose}")
+        check(tuple(hm_pred.shape) == (B, C, h, h) and hm_pred.dtype == torch.float32
+              and bool(torch.isfinite(hm_pred).all()), "model heatmaps: shape or finiteness")
+        for group, metrics in out.items():
+            for k, v in metrics.items():
+                check(v.device == dev and bool(torch.isfinite(v).all()), f"{group}.{k} not finite")
+            phase("eval", f"batch {i} {group}: " + ", ".join(
+                f"{k} {v.item():.4f}" if v.numel() == 1 else f"{k} (mean) {v.float().mean():.4f}"
+                for k, v in metrics.items()))
+        floor = out["decode_floor"]
+        check(float(floor["pck"]) > 0.5 and int(floor["n_keypoints"]) > 0,
+              f"decode floor PCK {float(floor['pck']):.4f} <= 0.5")
+        # GT keypoints through the ground-prior solve: on a far frame with
+        # 3-4 visible corners the solve can settle in a wrong depth basin,
+        # as the JAX package's does on the same inputs (frame 25 of the
+        # first batch; tests/test_torch_pnp.py holds both there), so one
+        # such frame in 20 may miss 0.1d.
+        gt = out["dumper_gt_kpts"]
+        if int(gt["n_valid"]) > 0:
+            check(float(gt["add_0_1d"]) >= 0.95 and float(gt["add_mean"]) < 0.2,
+                  f"dumper ADD with GT keypoints: {float(gt['add_0_1d'])}, "
+                  f"{float(gt['add_mean'])} m")
+    launches["peak_decode"] = counters["peak_decode"].launches
+    phase("eval", f"2 batches of {B} frames at {RES}^2; launches "
+          f"{ {k: fn.launches for k, fn in counters.items()} }")
+
+    # The card against the plain CPU path: the same FrameBatch and the same
+    # weights, the forward in f32.
+    g_cpu = FrameBatch(*(v.cpu() for v in g_dev))
+    m_dev = pose_net.make_model(device=dev, dtype=torch.float32)
+    m_cpu = pose_net.make_model(device="cpu", dtype=torch.float32)
+    small_pipe = Pipeline(small, device="cpu")
+    out_d, hm_d = ev.evaluate_model(m_dev, g_dev, small_pipe.roster, small_pipe.intr, stride)
+    out_c, hm_c = ev.evaluate_model(m_cpu, g_cpu, small_pipe.roster, small_pipe.intr, stride)
+    hm_err = torch.abs(hm_d.cpu() - hm_c).max().item()
+    dens = {"pck": "n_keypoints", "recall": "n_keypoints", "pck_per_kpt": "n_per_kpt",
+            "add_0_1d": "n_accepted"}
+    worst_ratio = 0.0
+    for group in out_c:
+        mc, md = out_c[group], {k: v.cpu() for k, v in out_d[group].items()}
+        for k in mc:
+            if k.startswith("n_"):
+                check(torch.equal(md[k], mc[k]), f"card vs CPU: {group}.{k} {md[k]} != {mc[k]}")
+            elif k in dens:
+                den = "n_instances_evaluated" if "multi" in group and k == "add_0_1d" else dens[k]
+                tol = 1.0 / torch.clamp_min(mc[den].float(), 1) + 1e-6
+                dr = torch.abs(md[k] - mc[k])
+                check(bool((dr <= tol).all()), f"card vs CPU: {group}.{k} {md[k]} vs {mc[k]}")
+                worst_ratio = max(worst_ratio, dr.max().item())
+    phase("eval", f"card vs plain CPU path (4 x 128^2, f32 forward): model heatmaps max |d| "
+          f"{hm_err:.2e} (< 1e-3), counts equal, worst ratio diff {worst_ratio:.4f} "
+          f"(<= one count over its denominator)")
+    check(hm_err < 1e-3, "model heatmaps: card vs CPU")
+    del m_dev, m_cpu
+
+    # 7. Timing: generate frames/s (every field consumed), min of 4 regions.
     def consume(fb):
         return sum(v.float().sum() if v.dtype != torch.float32
                    else torch.nan_to_num(v, posinf=0.0).sum() for v in fb)
@@ -325,14 +500,40 @@ def main() -> int:
     phase("time", f"generate {B} x {RES}^2, all modalities: regions "
           f"{[round(x, 3) for x in region_ms]} ms; min {best:.3f} ms = "
           f"{B * 1000.0 / best:.1f} frames/s on {card}")
+    with torch.inference_mode():
+        images = preprocess.preprocess_frame(batch.rgb, RES, RES)
+        fwd_ms = cuda_ms(lambda: pose_net.forward(model, images), iters=5)
+    del images
+    region_ms = []
+    for r in range(4):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out, _ = ev.evaluate_model(model, batch, pipe.roster, intr, stride, "focal",
+                                   pnp_threshold=0.15)
+        total = sum(v.float().sum() for m in out.values() for v in m.values())
+        e1.record()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(total)), "evaluation step: total not finite")
+        if r > 0:  # region 0 is the warm-up
+            region_ms.append(e0.elapsed_time(e1))
+    best = min(region_ms)
+    phase("time", f"forward, full-width HeatmapBackbone, bf16, {B} x {RES}^2: {fwd_ms:.3f} ms "
+          f"on {card}")
+    phase("time", f"evaluation step {B} x {RES}^2 (preprocess, forward, every evaluator on GT "
+          f"and model heatmaps): regions {[round(x, 3) for x in region_ms]} ms; min "
+          f"{best:.3f} ms = {B * 1000.0 / best:.1f} frames/s on {card}")
     for name, r in results.items():
-        phase("time", f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
-              f"(B={B}, {RES}^2) on {card}")
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+        phase("time", f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; roofline share "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}%) at the main path's shapes on {card}")
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]} for name, r in results.items()]}
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": None} for name, r in results.items()]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

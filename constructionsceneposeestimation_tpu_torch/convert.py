@@ -1,8 +1,9 @@
 """Convert the JAX package's state into the port's, through numpy.
 
-This is the slice's "weights": one sampled scene, camera and light handed
-to both packages. Inputs are anything ``np.asarray`` accepts (numpy or
-JAX arrays), read by attribute, so this module imports no JAX.
+The "weights" of the two slices: one sampled scene, camera and light, one
+``FrameBatch``, or one flax parameter tree, handed to both packages.
+Inputs are anything ``np.asarray`` accepts (numpy or JAX arrays), read by
+attribute or key, so this module imports no JAX.
 """
 
 from __future__ import annotations
@@ -12,6 +13,10 @@ from typing import Dict
 import numpy as np
 import torch
 
+from torch import nn
+
+from .models import backbone
+from .parallel.pipeline import FrameBatch
 from .render.shading import Lighting
 from .scene.world import ScenePose
 
@@ -57,3 +62,68 @@ def roster_arrays(roster) -> Dict[str, object]:
     out = {k: np.asarray(getattr(roster, k)) for k in ROSTER_ARRAYS}
     out.update({k: getattr(roster, k) for k in ROSTER_STATIC})
     return out
+
+
+def frame_batch(batch, device="cpu") -> FrameBatch:
+    """A JAX ``FrameBatch`` -> the port's, with the same dtypes."""
+    return FrameBatch(*(torch.as_tensor(np.array(getattr(batch, f)), device=device)
+                        for f in FrameBatch._fields))
+
+
+def _flax_paths(model: backbone._Backbone) -> Dict[str, tuple]:
+    """{the port's layer name: its path in the flax parameter tree}, in
+    the flax modules' order of creation (Conv_i, GroupNorm_i, ... per
+    scope)."""
+    out = {"stem": ("Conv_0",), "stem_norm": ("GroupNorm_0",)}
+    for i, blk in enumerate(model.blocks):
+        scope = f"ResBlock_{i}"
+        for j, (conv, norm) in enumerate((("conv1", "norm1"), ("conv2", "norm2"))):
+            out[f"blocks.{i}.{conv}"] = (scope, f"Conv_{j}")
+            out[f"blocks.{i}.{norm}"] = (scope, f"GroupNorm_{j}")
+        if blk.proj is not None:
+            out[f"blocks.{i}.proj"] = (scope, "Conv_2")
+            out[f"blocks.{i}.proj_norm"] = (scope, "GroupNorm_2")
+    n_conv = 1
+    for d in range(len(model.deconvs)):
+        out[f"deconvs.{d}"] = (f"ConvTranspose_{d}",)
+        if getattr(model, "use_skips", False):
+            out[f"laterals.{d}"] = (f"Conv_{n_conv}",)
+            n_conv += 1
+        out[f"dec_norms.{d}"] = (f"GroupNorm_{d + 1}",)
+    out["head"] = (f"Conv_{n_conv}",)
+    return out
+
+
+def pose_net_params(flax_params, model: backbone._Backbone) -> Dict[str, torch.Tensor]:
+    """A flax ``HeatmapBackbone`` / ``LiteBackbone`` parameter tree (with or
+    without its ``"params"`` level) -> the port model's ``state_dict``.
+
+    Conv kernels go from HWIO to OIHW. Transposed-conv kernels go from
+    (kh, kw, in, out) to (in, out, kh, kw) and are flipped spatially: flax's
+    ``ConvTranspose`` (no kernel transpose) is a correlation of the dilated
+    input, PyTorch's the adjoint of a convolution. GroupNorm scale and bias
+    and the head's kernel and bias carry over."""
+    tree = flax_params.get("params", flax_params)
+    modules = dict(model.named_modules())
+    sd = {}
+    for name, path in _flax_paths(model).items():
+        node = tree
+        for key in path:
+            node = node[key]
+        m = modules[name]
+        if isinstance(m, nn.GroupNorm):
+            sd[f"{name}.weight"] = np.asarray(node["scale"])
+            sd[f"{name}.bias"] = np.asarray(node["bias"])
+            continue
+        k = np.asarray(node["kernel"])
+        if isinstance(m, nn.ConvTranspose2d):
+            sd[f"{name}.weight"] = k[::-1, ::-1].transpose(2, 3, 0, 1)
+        else:
+            sd[f"{name}.weight"] = k.transpose(3, 2, 0, 1)
+        if m.bias is not None:
+            sd[f"{name}.bias"] = np.asarray(node["bias"])
+    want = model.state_dict()
+    if set(sd) != set(want):
+        raise ValueError(f"flax tree does not match the model: {sorted(set(sd) ^ set(want))}")
+    return {k: torch.as_tensor(np.array(v, np.float32), device=want[k].device)
+            for k, v in sd.items()}

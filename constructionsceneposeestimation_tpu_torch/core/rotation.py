@@ -1,9 +1,9 @@
 """Batched rotation math on tensors (port of the JAX ``core/rotation.py``).
 
-Only what the datagen path needs: Shepperd matrix -> quaternion, the
-extrinsic-xyz euler extraction of the label pipeline, the Newton-polar
-``orthonormalize`` and the elementary axis rotations. Every function takes
-any leading batch shape.
+Only what the datagen and evaluation paths need: Shepperd matrix ->
+quaternion and back, the extrinsic-xyz euler extraction of the label
+pipeline, the Newton-polar ``orthonormalize`` and the elementary axis
+rotations. Every function takes any leading batch shape.
 """
 
 from __future__ import annotations
@@ -47,6 +47,22 @@ def quat_xyzw_from_matrix(R: Tensor) -> Tensor:
     """Matrix -> quaternion in scipy (x, y, z, w) order."""
     q = quat_wxyz_from_matrix(R)
     return torch.cat([q[..., 1:4], q[..., 0:1]], dim=-1)
+
+
+def matrix_from_quat_wxyz(q: Tensor) -> Tensor:
+    """Quaternion (..., 4) in (w, x, y, z), normalized here -> rotation
+    matrix (..., 3, 3)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = ([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+            [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+            [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)])
+    return torch.stack([torch.stack(r, -1) for r in rows], dim=-2)
+
+
+def matrix_from_quat_xyzw(q: Tensor) -> Tensor:
+    """Quaternion in scipy (x, y, z, w) order -> rotation matrix."""
+    return matrix_from_quat_wxyz(torch.cat([q[..., 3:4], q[..., 0:3]], dim=-1))
 
 
 def _axis_matrix(deg: Tensor, axis: int) -> Tensor:

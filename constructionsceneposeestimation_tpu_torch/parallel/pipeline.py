@@ -65,10 +65,12 @@ class FrameInputs(NamedTuple):
 
 @dataclasses.dataclass
 class Pipeline:
-    """The generate step for a fixed ``Config`` on one ``device``."""
+    """The generate step for a fixed ``Config`` on one ``device``: the card
+    unless the caller passes ``device="cpu"``. Nothing touches the device
+    until the first batch, which raises where there is no card."""
 
     cfg: Config
-    device: str | torch.device = "cpu"
+    device: str | torch.device = "cuda"
 
     def __post_init__(self):
         # Geometry is f32: no TF32 in matmuls or convolutions.

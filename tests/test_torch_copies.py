@@ -102,17 +102,25 @@ def test_convert_scene_pose_and_lighting():
 
 
 def test_port_imports_no_jax():
-    """Importing the port and running one tiny generate loads neither jax
-    nor the JAX package."""
+    """Importing the port, running one tiny generate and one tiny evaluation
+    step load neither jax nor the JAX package."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(2)\n"
         "from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig\n"
         "from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline\n"
+        "from constructionsceneposeestimation_tpu_torch.eval import pipeline as ev\n"
+        "from constructionsceneposeestimation_tpu_torch.models import pose_net\n"
         "import constructionsceneposeestimation_tpu_torch.convert\n"
-        "cfg = Config(pipeline=PipelineConfig(render_width=32, render_height=32))\n"
-        "b = Pipeline(cfg).make_generate_fn()(0, range(2))\n"
-        "assert b.rgb.shape == (2, 32, 32, 3)\n"
+        "import constructionsceneposeestimation_tpu_torch.ops.peak_kernel\n"
+        "cfg = Config(pipeline=PipelineConfig(render_width=64, render_height=64))\n"
+        "pipe = Pipeline(cfg, device='cpu')\n"
+        "b = pipe.make_generate_fn()(0, range(2))\n"
+        "assert b.rgb.shape == (2, 64, 64, 3)\n"
+        "model = pose_net.make_model(lite=True, device='cpu', dtype=torch.float32)\n"
+        "out, hm = ev.evaluate_model(model, b, pipe.roster, pipe.intr, 4.0)\n"
+        "assert hm.shape == b.heatmaps.shape and bool(torch.isfinite(hm).all())\n"
+        "assert all(bool(torch.isfinite(v).all()) for r in out.values() for v in r.values())\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "       or m.startswith('constructionsceneposeestimation_tpu.')\n"
         "       or m == 'constructionsceneposeestimation_tpu']\n"

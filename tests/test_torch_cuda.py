@@ -8,7 +8,9 @@ conftest:
 
 Tolerances are those of the CPU parity tests (tests/test_torch_raycast.py,
 test_torch_rgb.py, test_torch_heatmap.py), on the TPU kernel's own test
-cameras. The sweep's 2e-4 bound on relative t excludes grazing rays (disc
+cameras. The peak kernel's blur, NMS and selection are bit-equal to its
+plain version by construction (csrc/peaks.cu), its DARK offsets are held
+to 1e-3 heatmap px. The sweep's 2e-4 bound on relative t excludes grazing rays (disc
 ~ 0 on a quadric, or a flip to the surface behind), which measured 7.2e-6
 of 9.7M hit pixels at 64 x 512^2: up to 1e-4 of the hit pixels may exceed
 it."""
@@ -19,7 +21,7 @@ import torch
 
 from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig, SceneConfig
 from constructionsceneposeestimation_tpu_torch.core import camera
-from constructionsceneposeestimation_tpu_torch.ops import heatmap
+from constructionsceneposeestimation_tpu_torch.ops import decode, heatmap, peak_kernel
 from constructionsceneposeestimation_tpu_torch.parallel.pipeline import FrameBatch, Pipeline
 from constructionsceneposeestimation_tpu_torch.render import raycast, rgb_kernel, sweep_kernel
 from constructionsceneposeestimation_tpu_torch.sample import placement
@@ -114,7 +116,7 @@ def test_generate_on_cuda_matches_cpu(dev):
     before = [c.launches for c in counters]
     g = Pipeline(cfg, device=dev).make_generate_fn()(3, range(10, 14))
     assert all(c.launches > n for c, n in zip(counters, before))
-    c = Pipeline(cfg).make_generate_fn()(3, range(10, 14))
+    c = Pipeline(cfg, device="cpu").make_generate_fn()(3, range(10, 14))
     for f in FrameBatch._fields:
         assert getattr(g, f).device.type == "cuda", f
     assert (g.instance.cpu() == c.instance).float().mean() > 0.999
@@ -123,3 +125,36 @@ def test_generate_on_cuda_matches_cpu(dev):
     assert torch.equal(g.kpt_in_image.cpu(), c.kpt_in_image)
     assert torch.allclose(g.kpt_uv.cpu(), c.kpt_uv, atol=1e-3)
     assert torch.allclose(g.heatmaps.cpu(), c.heatmaps, atol=2e-4)
+
+
+@pytest.mark.parametrize("shape", [(2, 71, 128, 128), (3, 5, 37, 61), (7, 3, 3)])
+def test_peak_kernel_matches_plain(dev, shape):
+    """Blobs, noise with negative values, an odd shape and N = 15 maps, and
+    3 x 3 maps."""
+    rng = np.random.RandomState(sum(shape))
+    x = rng.randn(*shape).astype(np.float32) * 0.1
+    H, W = shape[-2:]
+    yy, xx = np.mgrid[:H, :W]
+    for _ in range(4):
+        cy, cx = rng.uniform(0, H), rng.uniform(0, W)
+        x += rng.uniform(0.3, 1.0) * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 8.0)
+    hm = torch.tensor(x, device=dev)
+    before = peak_kernel.peaks_cuda.launches
+    uv, sc = decode.extract_peaks(hm, 8)
+    assert peak_kernel.peaks_cuda.launches == before + 1
+    uv_p, sc_p = peak_kernel.extract_peaks_plain(hm, 8)
+    torch.cuda.synchronize()
+    assert uv.shape == (*shape[:-2], 8, 2) and sc.shape == (*shape[:-2], 8)
+    assert torch.equal(sc, sc_p)
+    assert torch.abs(uv - uv_p).max() <= 1e-3
+
+
+def test_peak_kernel_refuses_oversize_maps(dev):
+    """A map that does not fit one block's shared memory raises; it never
+    falls back to the plain version."""
+    before = peak_kernel.peaks_cuda.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        decode.extract_peaks(torch.zeros(1, 192, 192, device=dev), 8)
+    with pytest.raises(ValueError):
+        peak_kernel.peaks_cuda(torch.zeros(1, 2, 16, device=dev))
+    assert peak_kernel.peaks_cuda.launches == before

@@ -64,7 +64,7 @@ def jax_render():
 
 @pytest.fixture(scope="module")
 def pipe():
-    return Pipeline(CFG)
+    return Pipeline(CFG, device="cpu")
 
 
 def _compare(mine: FrameBatch, ref, ref_hms):
@@ -131,6 +131,17 @@ def test_generate_matches_reference_on_its_own_samples(jax_render, pipe):
     assert torch.equal(pos[0], pos[1]) and torch.equal(pos[2], pos[3])
     assert not torch.equal(pos[1], pos[2])
     assert not torch.equal(inputs.cam_pos[0], inputs.cam_pos[1])
+
+
+def test_entry_points_default_to_the_card():
+    """``Pipeline`` and ``make_model`` run on the card unless the caller
+    passes ``device="cpu"``; building a Pipeline touches no device."""
+    import inspect
+
+    from constructionsceneposeestimation_tpu_torch.models import pose_net
+
+    assert Pipeline(CFG).device.type == "cuda"
+    assert inspect.signature(pose_net.make_model).parameters["device"].default == "cuda"
 
 
 def test_generate_deterministic_and_batch_independent(pipe):

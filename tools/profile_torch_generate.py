@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's generate step goes, on one GPU.
+"""Where the time of the PyTorch port's generate step, or of its evaluation
+step, goes, on one GPU.
 
-    python3 tools/profile_torch_generate.py [--batch 64] [--res 512] [--out DIR]
+    python3 tools/profile_torch_generate.py [--path generate|eval] [--batch 64] [--res 512]
+                                            [--out DIR]
 
-Runs a warm-up batch and times 3 batches on the host clock, then profiles
-3 more with ``torch.profiler`` (CPU and CUDA activities): prints the
-device time by kernel name and the device's busy share of the profiled
-wall time (the profiler slows the host, so that share is a lower bound),
-and writes the Chrome trace under ``--out`` (``build/profile`` of the
-checkout by default).
+``--path generate`` (the default) profiles ``Pipeline.make_generate_fn``;
+``--path eval`` profiles ``eval/pipeline.evaluate_model`` (preprocess, the
+full-width backbone in bf16, every evaluator on the GT and the model
+heatmaps) on one generated batch. Runs a warm-up and times 3 steps on the
+host clock, then profiles 3 more with ``torch.profiler`` (CPU and CUDA
+activities): prints the device time by kernel name and the device's busy
+share of the profiled wall time (the profiler slows the host, so that
+share is a lower bound), and writes the Chrome trace under ``--out``
+(``build/profile`` of the checkout by default).
 Needs a CUDA device; imports nothing of JAX.
 """
 
@@ -24,6 +29,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=["generate", "eval"], default="generate")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--res", type=int, default=512)
     ap.add_argument("--out", default="build/profile")
@@ -41,19 +47,33 @@ def main() -> int:
 
     cfg = Config(pipeline=PipelineConfig(render_width=args.res, render_height=args.res,
                                          batch_size=args.batch))
-    gen = Pipeline(cfg, device="cuda").make_generate_fn()
+    pipe = Pipeline(cfg, device="cuda")
+    gen = pipe.make_generate_fn()
     B = args.batch
-    gen(0, range(B))
+    if args.path == "generate":
+        def step(i):
+            gen(0, range(i * B, (i + 1) * B))
+    else:
+        from constructionsceneposeestimation_tpu_torch.eval import pipeline as ev
+        from constructionsceneposeestimation_tpu_torch.models import pose_net
+
+        model = pose_net.make_model(device="cuda")
+        batch = gen(1000, range(B))
+
+        def step(i):
+            ev.evaluate_model(model, batch, pipe.roster, pipe.intr,
+                              cfg.pipeline.heatmap_stride, "focal", 0.15)
+    step(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(4, 7):
-        gen(0, range(i * B, (i + 1) * B))
+        step(i)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1000.0 / 3
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(1, 4):
-            gen(0, range(i * B, (i + 1) * B))
+            step(i)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1000.0
     # Device kernels only (the operator rows above them repeat their time).
@@ -62,8 +82,8 @@ def main() -> int:
                       and e.self_device_time_total > 0),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1000.0
-    print(f"without the profiler: {plain_ms:.1f} ms/batch ({B * 1000.0 / plain_ms:.1f} "
-          f"frames/s, host clock, 3 batches)")
+    print(f"{args.path}, without the profiler: {plain_ms:.1f} ms/batch "
+          f"({B * 1000.0 / plain_ms:.1f} frames/s, host clock, 3 batches)")
     print(f"3 batches of {B} x {args.res}^2: wall {wall_ms:.1f} ms under the profiler "
           f"({wall_ms / 3:.1f} ms/batch), device busy {busy_ms:.1f} ms "
           f"({100.0 * busy_ms / wall_ms:.1f}% of wall)")
@@ -75,7 +95,7 @@ def main() -> int:
     print(f"{n_kernels} kernel launches in total ({n_kernels / 3:.0f} per batch)")
     out = ROOT / args.out
     out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / "generate_trace.json"))
+    prof.export_chrome_trace(str(out / f"{args.path}_trace.json"))
     return 0
 
 
