@@ -10,27 +10,40 @@ Run from the root of a checkout. Phases, each reported on its own line:
 2. build the CUDA kernels of ``constructionsceneposeestimation_tpu_torch/csrc``;
 3. each datagen kernel against its plain PyTorch version on the card, at
    the main path's shapes (512^2, batches of 64 frames), with the stated
-   tolerances;
+   tolerances; the tile-culled sweep must also be bit-equal to the same
+   kernel with every row kept (radii of 1e15); a ``[sweep]`` line gives
+   the rows kept per 32 x 8 tile (the
+   plain mirror of the kernel's cull) and the sweep's two bounds: the
+   (ray, row) pairs these inputs need (rays that meet a row's bounding
+   sphere, the plane always) and the brute-force walk of every row;
 4. the datagen path: ``Pipeline(...).make_generate_fn()`` for 3 batches of
    64 contiguous frames; every kernel's launch count must rise in every
    batch; fields, labels and ``quality_stats`` are checked, a repeat with
    the same seed must be bit-equal, and a small batch must agree with the
    plain (CPU) path;
 5. the peak kernel against its plain version at (64, 71, 128, 128), K = 8,
-   on the GT heatmaps, the full-width network's heatmaps and a noisy map
-   with negative values, and at the odd shape (3, 5, 37, 61): scores
-   bit-equal, uv within 1e-3 heatmap px;
+   on the GT heatmaps, the full-width network's heatmaps, a noisy map
+   with negative values, constant, plateau (flat-topped), all-negative and
+   all-zero maps, and at (3, 5, 37, 61), (2, 71, 192, 192) and
+   (1, 3, 300, 517): scores bit-equal, uv within 1e-3 heatmap px; a
+   ``[peaks]`` line gives the NMS survivors per map of the GT and model
+   maps;
 6. the evaluation path (``eval/pipeline.evaluate_model``: preprocess, the
    full-width ``HeatmapBackbone`` under bf16 autocast, focal heatmaps, every
    evaluator on the GT and the model heatmaps) on 2 fresh batches of 64
    frames at 512^2; the peak kernel must launch at least twice per batch;
    shapes, finiteness, the decode floor (PCK > 0.5) and ADD with GT
    keypoints are checked, then the card against the plain CPU path on 4
-   frames at 128^2 with an f32 forward;
-7. timing with CUDA events: generate frames/s, the forward, the evaluation
-   step, and each kernel against its plain version and its bound.
+   frames at 128^2 with an f32 forward (the model heatmaps to 1e-3; the
+   evaluators' counts equal on the same heatmaps, with GT + 0.1 x the
+   network's as the model's);
+7. timing: generate frames/s, the forward and the evaluation step with
+   CUDA events; each kernel's device time from torch.profiler (beside its
+   wrapper's call time by CUDA events) against its plain version and its
+   bound (the peak kernel on the GT and on the model heatmaps).
 
-Prints the kernels' JSON line, then the card line, then as the last line
+Prints the kernels' JSON line (``ms`` the device time, ``call_ms`` the
+wrapper's call by CUDA events), then the card line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, on
 any failure or when no GPU is present. Imports nothing of JAX.
 """
@@ -113,6 +126,31 @@ def cuda_ms(fn, iters=5, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, key, iters=10):
+    """Mean device milliseconds per launch of the kernels whose name holds
+    ``key``, from torch.profiler over ``iters`` calls after a warm-up: the
+    kernel's own time, without its wrapper's host work, which exceeds a
+    0.2 ms kernel and would hide it from CUDA events around the calls.
+    The profiler has dropped records of a short kernel on the H100 (9 of
+    20 peak-kernel launches seen once), so the mean is over the launches
+    it recorded, and a shortfall is printed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key]
+    seen = sum(e.count for e in evs)
+    check(0 < seen <= iters, f"profiler saw {key} launched {seen} times in {iters} calls")
+    if seen < iters:
+        phase("time", f"profiler recorded {seen} of {iters} {key} launches; mean over those")
+    return sum(e.self_device_time_total for e in evs) / 1000.0 / seen
+
+
 def bound(nbytes: float, nops: float):
     """(bound_ms, bound_by) of a function that moves ``nbytes`` and does
     ``nops`` operations."""
@@ -170,12 +208,22 @@ def main() -> int:
     results = {}
 
     # 3a. Pixel sweep vs the packed caster on pixel_rays.
-    si, sf = pipe.sweeper.schedule(dev)
-    k_fn = lambda: sweep_kernel.sweep_cuda(si, sf, world, inputs.cam_pos, M, intr)
+    si, sf, radii = pipe.sweeper.schedule(dev)
+    k_fn = lambda: sweep_kernel.sweep_cuda(si, sf, world, inputs.cam_pos, M, intr, radii)
     p_fn = lambda: sweep_kernel.plain_pixel_sweep(pipe.caster, world, inputs.cam_pos, M, intr)
-    tk, ck = raycast._unpack(k_fn())
+    packed = k_fn()
+    # With radii beyond any distance every tile keeps every row: the tile
+    # cull must leave every bit of the packed min as the full walk has it.
+    full = sweep_kernel.sweep_cuda(si, sf, world, inputs.cam_pos, M, intr,
+                                   torch.full_like(radii, 1e15))
+    cull_exact = bool(torch.equal(packed.view(torch.int32), full.view(torch.int32)))
+    phase("sweep", f"tile-culled kernel bit-equal to the kernel with every row kept: "
+          f"{cull_exact}")
+    check(cull_exact, "the sweep's tile cull changed the result")
+    tk, ck = raycast._unpack(packed)
     tp, cp = raycast._unpack(p_fn())
     torch.cuda.synchronize()
+    del packed, full
     hk, hp = tk < raycast.INF * 0.99, tp < raycast.INF * 0.99
     both = hk & hp
     same = both & (ck == cp)
@@ -211,14 +259,29 @@ def main() -> int:
           f"max rel {rel.max().item():.3e}, {rel_same.max().item():.3e} on same-instance hits")
     check(hit_agree > 0.9995 and frac_big < 1e-5 and frac_1e5 < 0.005 and inst_agree > 0.999,
           "sweep kernel disagrees with its plain version")
+    # The bound charges the (ray, row) pairs these inputs need: each ray
+    # its own cost plus, for every schedule row whose bounding sphere it
+    # meets (the plane always), that row's kind. The brute-force walk's
+    # count (every ray x every row) stands beside it.
     n_px = B * RES * RES
-    kinds = torch.bincount(si[:, 0].long().cpu(), minlength=9).tolist()
-    sweep_ops = n_px * (SWEEP_RAY_OPS + sum(SWEEP_KIND_OPS[k] * n for k, n in enumerate(kinds)))
+    kind_ops = torch.tensor([SWEEP_KIND_OPS[k] for k in range(9)], device=dev)[si[:, 0].long()]
+    row_px, px_rows = sweep_kernel.needed_pairs(si, radii, world, inputs.cam_pos, M, intr)
+    sweep_ops = n_px * SWEEP_RAY_OPS + int((row_px * kind_ops).sum())
+    brute_ops = n_px * (SWEEP_RAY_OPS + int(kind_ops.sum()))
     sweep_bytes = (n_px * 4 + B * 16 * 4 + world["prim_pos"].numel() * 4 * 4
-                   + si.numel() * 4 + sf.numel() * 4)
+                   + si.numel() * 4 + sf.numel() * 4 + radii.numel() * 4)
+    kept = sweep_kernel.tile_cull_plain(si, radii, world, inputs.cam_pos, M, intr).sum(-1).float()
+    phase("sweep", f"rows kept per {sweep_kernel.TILE[0]} x {sweep_kernel.TILE[1]} tile (plain "
+          f"mirror of the cull): mean {kept.mean().item():.2f}, max {int(kept.max())} of "
+          f"{si.shape[0]}; rows met per ray: mean {px_rows.float().mean().item():.3f}, max "
+          f"{int(px_rows.max())}; bound of the needed pairs {bound(sweep_bytes, sweep_ops)[0]:.4f}"
+          f" ms ({sweep_ops:.4e} operations), brute-force bound "
+          f"{bound(sweep_bytes, brute_ops)[0]:.4f} ms ({brute_ops:.4e} operations)")
     results["pixel_sweep"] = {"max_abs_err": torch.abs(tk - tp)[same].max().item(),
-                              "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, iters=2, warmup=1),
+                              "ms": device_ms(k_fn, "sweep_kernel"), "call_ms": cuda_ms(k_fn),
+                              "plain_ms": cuda_ms(p_fn, iters=2, warmup=1),
                               "bound": bound(sweep_bytes, sweep_ops)}
+    del row_px, px_rows, kept
 
     # 3b. RGB epilogue vs the shading tier, noise off and on. Inputs as the
     # annotation pass builds them (far clip included).
@@ -250,7 +313,8 @@ def main() -> int:
                          + 4 * (table.numel() + ao.numel() + par.numel()))
             rgb_ops = (n_px * RGB_PIXEL_OPS
                        + int((inst == -1).sum()) * ao.shape[1] * RGB_AO_ROW_OPS)
-            results["rgb_epilogue"] = {"max_abs_err": rgb_err, "ms": cuda_ms(k_fn),
+            results["rgb_epilogue"] = {"max_abs_err": rgb_err, "ms": device_ms(k_fn, "rgb_kernel"),
+                                       "call_ms": cuda_ms(k_fn),
                                        "plain_ms": cuda_ms(p_fn, iters=2, warmup=1),
                                        "bound": bound(rgb_bytes, rgb_ops)}
         else:
@@ -285,7 +349,8 @@ def main() -> int:
     hm_px = (RES // 4) ** 2
     hm_bytes = B * C * hm_px * 4 + uv.numel() * 4 + ch.numel() * 4 + vis.numel()
     results["heatmap_targets"] = {
-        "max_abs_err": worst, "ms": cuda_ms(lambda: hm.heatmap_cuda(*args)),
+        "max_abs_err": worst, "ms": device_ms(lambda: hm.heatmap_cuda(*args), "heatmap_kernel"),
+        "call_ms": cuda_ms(lambda: hm.heatmap_cuda(*args)),
         "plain_ms": cuda_ms(lambda: hm.render_heatmaps(*args), iters=2, warmup=1),
         "bound": bound(hm_bytes, int(vis.sum()) * hm_px * HEATMAP_KPT_OPS)}
     del ann, rd, depth, table, ao, t, inst, tk, tp, ck, cp
@@ -370,20 +435,38 @@ def main() -> int:
           and agree["rgb_mean"] < 1.0, "device path disagrees with the plain CPU path")
 
     # 5. The peak kernel against its plain version at the evaluation path's
-    # shapes: the GT heatmaps, the full-width network's heatmaps, a noisy
-    # map with negative values, and an odd shape.
+    # shapes: the GT heatmaps, the full-width network's heatmaps, a noisy map
+    # with negative values, the adversarial maps (every pixel an NMS
+    # survivor, flat tops, nothing positive), odd shapes and maps of several
+    # 128-column strips.
     model = pose_net.make_model(device=dev)
     with torch.inference_mode():
         images = preprocess.preprocess_frame(batches[0].rgb, RES, RES)
         hm_model = pose_net.output_to_heatmaps(pose_net.forward(model, images), "focal")
     gen_noise = torch.Generator(device=dev).manual_seed(SEED)
     gt_hm = batches[0].heatmaps
+    for name, x in (("GT", gt_hm), ("model", hm_model)):
+        surv = peak_kernel.nms_survivors(x).float()
+        phase("peaks", f"NMS survivors per map, {name} heatmaps {tuple(x.shape)}: mean "
+              f"{surv.mean().item():.2f}, max {int(surv.max())}")
+
+    def resized(shape):  # GT blobs resized, plus noise with negative values
+        x = torch.nn.functional.interpolate(gt_hm[:shape[0], :shape[1]], size=shape[2:],
+                                            mode="bilinear", align_corners=False)
+        return (x + 0.02 * torch.randn(x.shape, generator=gen_noise, device=dev)).contiguous()
+
     peak_inputs = {
         "GT heatmaps": gt_hm,
         "model heatmaps": hm_model,
         "noisy": (gt_hm + 0.05 * torch.randn(gt_hm.shape, generator=gen_noise,
                                               device=dev)).contiguous(),
+        "constant": torch.full_like(gt_hm, 0.7),
+        "plateau": torch.clamp_max(2.0 * gt_hm, 1.0),
+        "all-negative": -0.01 - torch.rand(gt_hm.shape, generator=gen_noise, device=dev),
+        "all-zero": torch.zeros_like(gt_hm),
         "odd (3, 5, 37, 61)": torch.randn(3, 5, 37, 61, generator=gen_noise, device=dev),
+        "(2, 71, 192, 192)": resized((2, C, 192, 192)),
+        "(1, 3, 300, 517)": resized((1, 3, 300, 517)),
     }
     peak_err = 0.0
     for name, x in peak_inputs.items():
@@ -396,17 +479,21 @@ def main() -> int:
         uv_bits = bool(torch.equal(uv_k[pos], uv_p[pos]))
         phase("peaks", f"{name} {tuple(x.shape)}: scores bit-equal {scores_equal}, "
               f"{int(pos.sum())} positive peaks, max |uv diff| {d:.3e} px (<= 1e-3), "
-              f"uv bit-equal where score > 0 {uv_bits}")
+              f"uv bit-equal where score > 0 {uv_bits}, everywhere "
+              f"{bool(torch.equal(uv_k, uv_p))}")
         check(scores_equal and d <= 1e-3, f"peak kernel disagrees with its plain version: {name}")
         peak_err = max(peak_err, d)
     N_maps = gt_hm.shape[0] * gt_hm.shape[1]
     peak_px = N_maps * gt_hm.shape[2] * gt_hm.shape[3]
     results["peak_decode"] = {
         "max_abs_err": peak_err,
-        "ms": cuda_ms(lambda: peak_kernel.peaks_cuda(gt_hm, K_PEAKS), iters=20),
+        "ms": device_ms(lambda: peak_kernel.peaks_cuda(gt_hm, K_PEAKS), "peak_kernel", iters=20),
+        "call_ms": cuda_ms(lambda: peak_kernel.peaks_cuda(gt_hm, K_PEAKS), iters=20),
         "plain_ms": cuda_ms(lambda: peak_kernel.extract_peaks_plain(gt_hm, K_PEAKS), iters=3),
         "bound": bound(peak_px * 4 + N_maps * K_PEAKS * 3 * 4,
                        peak_px * (PEAK_PIXEL_OPS + K_PEAKS))}
+    peak_model_ms = device_ms(lambda: peak_kernel.peaks_cuda(hm_model, K_PEAKS), "peak_kernel",
+                              iters=20)
     del images, hm_model, peak_inputs
 
     # 6. The evaluation path: fresh frames, preprocess, the full-width
@@ -451,14 +538,32 @@ def main() -> int:
           f"{ {k: fn.launches for k, fn in counters.items()} }")
 
     # The card against the plain CPU path: the same FrameBatch and the same
-    # weights, the forward in f32.
+    # weights, the forward in f32, held to 1e-3. The evaluators' counts are
+    # then held equal on the same heatmaps on both sides, with a stand-in
+    # for a trained network's as the model heatmaps: the GT heatmaps plus a
+    # tenth of the random network's. The random network's own keypoints are
+    # noise the ground-prior solve cannot fit; its cheirality test (mean
+    # camera-frame depth > 0) then sits near 0, and on the H100 the card's
+    # solve and the CPU's decided one such frame differently on identical
+    # heatmaps.
     g_cpu = FrameBatch(*(v.cpu() for v in g_dev))
     m_dev = pose_net.make_model(device=dev, dtype=torch.float32)
     m_cpu = pose_net.make_model(device="cpu", dtype=torch.float32)
     small_pipe = Pipeline(small, device="cpu")
-    out_d, hm_d = ev.evaluate_model(m_dev, g_dev, small_pipe.roster, small_pipe.intr, stride)
-    out_c, hm_c = ev.evaluate_model(m_cpu, g_cpu, small_pipe.roster, small_pipe.intr, stride)
+    out_e2e, hm_d = ev.evaluate_model(m_dev, g_dev, small_pipe.roster, small_pipe.intr, stride)
+    out_net, hm_c = ev.evaluate_model(m_cpu, g_cpu, small_pipe.roster, small_pipe.intr, stride)
     hm_err = torch.abs(hm_d.cpu() - hm_c).max().item()
+    moved = [f"{g}.{k} {v.tolist()} vs {out_net[g][k].tolist()}" for g, m in out_e2e.items()
+             for k, v in m.items()
+             if k.startswith("n_") and not torch.equal(v.cpu(), out_net[g][k])]
+    phase("eval", f"card vs plain CPU path (4 x 128^2, f32 forward): model heatmaps max |d| "
+          f"{hm_err:.2e} (< 1e-3); counts that differ on the random network's heatmaps: "
+          f"{moved or 'none'}")
+    check(hm_err < 1e-3, "model heatmaps: card vs CPU")
+    stand_in = g_cpu.heatmaps + 0.1 * hm_c
+    out_d = ev.evaluate_heatmaps(g_dev, stand_in.to(dev), small_pipe.roster, small_pipe.intr,
+                                 stride)
+    out_c = ev.evaluate_heatmaps(g_cpu, stand_in, small_pipe.roster, small_pipe.intr, stride)
     dens = {"pck": "n_keypoints", "recall": "n_keypoints", "pck_per_kpt": "n_per_kpt",
             "add_0_1d": "n_accepted"}
     worst_ratio = 0.0
@@ -473,10 +578,9 @@ def main() -> int:
                 dr = torch.abs(md[k] - mc[k])
                 check(bool((dr <= tol).all()), f"card vs CPU: {group}.{k} {md[k]} vs {mc[k]}")
                 worst_ratio = max(worst_ratio, dr.max().item())
-    phase("eval", f"card vs plain CPU path (4 x 128^2, f32 forward): model heatmaps max |d| "
-          f"{hm_err:.2e} (< 1e-3), counts equal, worst ratio diff {worst_ratio:.4f} "
-          f"(<= one count over its denominator)")
-    check(hm_err < 1e-3, "model heatmaps: card vs CPU")
+    phase("eval", f"card vs plain CPU evaluators on the same heatmaps (GT + 0.1 x the network's "
+          f"as the model's): counts equal, worst ratio diff {worst_ratio:.4f} (<= one count "
+          f"over its denominator)")
     del m_dev, m_cpu
 
     # 7. Timing: generate frames/s (every field consumed), min of 4 regions.
@@ -523,16 +627,19 @@ def main() -> int:
     phase("time", f"evaluation step {B} x {RES}^2 (preprocess, forward, every evaluator on GT "
           f"and model heatmaps): regions {[round(x, 3) for x in region_ms]} ms; min "
           f"{best:.3f} ms = {B * 1000.0 / best:.1f} frames/s on {card}")
+    phase("time", f"peak_decode on the model heatmaps: kernel {peak_model_ms:.4f} ms at "
+          f"(64 x 71, 128, 128), K = {K_PEAKS}, on {card}")
     for name, r in results.items():
         r["bound_ms"], r["bound_by"] = r.pop("bound")
-        phase("time", f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+        phase("time", f"{name}: kernel {r['ms']:.4f} ms (device time; the wrapper's call "
+              f"{r['call_ms']:.4f} ms by CUDA events), plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}; roofline share "
               f"{100 * r['bound_ms'] / r['ms']:.1f}%) at the main path's shapes on {card}")
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "call_ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": None} for name, r in results.items()]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)

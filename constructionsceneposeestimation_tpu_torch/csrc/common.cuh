@@ -22,6 +22,10 @@ namespace cspe {
 constexpr float kInf = 1e10f;  // render/raycast.INF: a miss, not IEEE inf
 constexpr float kEps = 1e-7f;  // render/raycast.EPS
 constexpr int kPayloadMask = (1 << 6) - 1;
+// Shared memory a block may take without the opt-in attribute.
+constexpr size_t kSmemLimit = 48 * 1024;
+// An entry point's own refusal, beside the cudaError_t codes (all >= 0).
+constexpr int kErrSharedMemory = -1;
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);

@@ -12,7 +12,7 @@ human and equipment evaluators of ``cmd_train_eval``).
   the labels.
 * ``evaluate_model``: the evaluation step of ``cmd_train_eval`` on one
   batch: preprocess, forward, then every evaluator above on the GT and the
-  model heatmaps.
+  model heatmaps (``evaluate_heatmaps``).
 
 Everything stays on the batch's device; a result is a dict of 0-d tensors.
 """
@@ -301,6 +301,14 @@ def evaluate_model(model, batch, roster, intr: cam_mod.Intrinsics, stride: float
     with torch.inference_mode():
         images = preprocess.preprocess_frame(batch.rgb, *batch.rgb.shape[1:3], augment=False)
         hm = pose_net.output_to_heatmaps(pose_net.forward(model, images), loss)
+    return evaluate_heatmaps(batch, hm, roster, intr, stride, pnp_threshold), hm
+
+
+def evaluate_heatmaps(batch, hm: Tensor, roster, intr: cam_mod.Intrinsics, stride: float,
+                      pnp_threshold: float = 0.15) -> Dict[str, Dict[str, Tensor]]:
+    """Every evaluator of ``evaluate_model`` on the GT heatmaps and on the
+    model heatmaps ``hm`` (B, C, h, w)."""
+    with torch.inference_mode():
         pred = batch._replace(heatmaps=hm)
         out = {
             "decode_floor": evaluate_decode(batch, roster, stride),
@@ -321,4 +329,4 @@ def evaluate_model(model, batch, roster, intr: cam_mod.Intrinsics, stride: float
                                                                   stride)
         out["dumper_multi_model"] = evaluate_equipment_6dof_multi(
             batch, roster, intr, "dumper", stride, heatmaps=hm, score_threshold=pnp_threshold)
-    return out, hm
+    return out

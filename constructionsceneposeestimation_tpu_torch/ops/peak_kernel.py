@@ -2,16 +2,21 @@
 max-and-suppress rounds -> DARK refinement, per (H, W) map.
 
 Kernel: ``csrc/peaks.cu`` (replaces the Pallas TPU kernel ``_peak_kernel``
-of the JAX ``ops/peak_kernel.py``; its header says what bounds it on an
-H100 and how it is laid out). Plain version: ``extract_peaks_plain``, with
-the same selection rule: each round takes the largest remaining value,
+of the JAX ``ops/peak_kernel.py``). Plain version: ``extract_peaks_plain``,
+with the same selection rule: each round takes the largest remaining value,
 the lowest row and then the lowest column on ties, and suppresses it to 0,
 so a map with fewer than K positive peaks repeats its first pixel with
 score 0. ``ops/decode.extract_peaks`` dispatches on the device.
 
-The kernel takes any leading dims and any H, W >= 3 (no block padding, no
-lane alignment). One block stages its whole map in shared memory, so the
-wrapper raises for maps too large for it; it never falls back.
+The kernel reads each map once and is bound by that read. It streams the
+map through registers instead of staging it in shared memory: one warp
+walks a band of rows of a 128-column strip with a rolling window of
+relu'd and blurred rows, keeps NMS survivors in a small buffer that it
+reduces to its top K, and the map's warps merge their sorted lists. So
+small blocks of many maps share an SM and one map's loads overlap
+another's work, and the kernel takes any leading dims and any H, W >= 3
+(no block padding, no lane alignment, no size limit). The header of
+``csrc/peaks.cu`` has the layout.
 """
 
 from __future__ import annotations
@@ -25,15 +30,7 @@ from . import decode
 
 Tensor = torch.Tensor
 
-PEAK_THREADS = 512  # csrc/peaks.cu kPeakThreads: one thread refines each peak
-PEAK_WARPS = PEAK_THREADS // 32
-
-
-def peak_smem_bytes(h: int, w: int, k: int) -> int:
-    """Dynamic shared memory of one block of csrc/peaks.cu: the relu'd map
-    and the blurred map (f32 each), then (value, index) candidates of every
-    warp and of the final selection."""
-    return 8 * h * w + 8 * (PEAK_WARPS + 1) * k
+MAX_PEAKS = 512  # the largest K the kernel takes
 
 
 def extract_peaks_plain(heatmaps: Tensor, max_peaks: int = 8, blur: bool = True,
@@ -59,18 +56,24 @@ def extract_peaks_plain(heatmaps: Tensor, max_peaks: int = 8, blur: bool = True,
             torch.cat(val, -1).reshape(*lead, max_peaks))
 
 
+def nms_survivors(heatmaps: Tensor, blur: bool = True) -> Tensor:
+    """(..., H, W) -> (...,) int64: the positive NMS survivors of each map,
+    the candidates the kernel's per-warp buffers take in."""
+    *lead, H, W = heatmaps.shape
+    x = torch.clamp_min(heatmaps.reshape(-1, H, W).float(), 0.0)
+    hb = decode._gaussian_blur_3x3(x) if blur else x
+    keep = (hb >= decode._max_pool_3x3(hb)) & (x > 0)
+    return keep.reshape(*lead, H * W).sum(-1)
+
+
 def peaks_cuda(heatmaps: Tensor, max_peaks: int = 8, blur: bool = True, eps: float = 1e-8):
     """Launch csrc/peaks.cu on (..., H, W) f32 contiguous maps."""
     *lead, H, W = heatmaps.shape
     kernels.check_cuda("peaks heatmaps", heatmaps, torch.float32)
     if H < 3 or W < 3:
         raise ValueError(f"peaks: maps must be at least 3 x 3, got {H} x {W}")
-    if not 1 <= max_peaks <= PEAK_THREADS:
-        raise ValueError(f"peaks: max_peaks must be in [1, {PEAK_THREADS}], got {max_peaks}")
-    smem = peak_smem_bytes(H, W, max_peaks)
-    if smem > kernels.SMEM_OPTIN_LIMIT:
-        raise ValueError(f"peaks: a {H} x {W} map needs {smem} bytes of shared memory, "
-                         f"more than a block's {kernels.SMEM_OPTIN_LIMIT}")
+    if not 1 <= max_peaks <= MAX_PEAKS:
+        raise ValueError(f"peaks: max_peaks must be in [1, {MAX_PEAKS}], got {max_peaks}")
     n = math.prod(lead)
     uv = torch.empty(*lead, max_peaks, 2, dtype=torch.float32, device=heatmaps.device)
     scores = torch.empty(*lead, max_peaks, dtype=torch.float32, device=heatmaps.device)

@@ -33,15 +33,12 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"
 # Shared memory a block may take without the opt-in attribute; the wrappers
 # refuse larger rosters rather than have the launch fail.
 SMEM_LIMIT = 48 * 1024
-# Dynamic shared memory a block may take on Hopper once its entry point
-# opts in (cudaFuncAttributeMaxDynamicSharedMemorySize): 227 KB.
-SMEM_OPTIN_LIMIT = 232448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    "cspe_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "cspe_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "cspe_rgb": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P],
     "cspe_heatmap": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P],
     "cspe_peaks": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _P],

@@ -10,7 +10,10 @@ Tolerances are those of the CPU parity tests (tests/test_torch_raycast.py,
 test_torch_rgb.py, test_torch_heatmap.py), on the TPU kernel's own test
 cameras. The peak kernel's blur, NMS and selection are bit-equal to its
 plain version by construction (csrc/peaks.cu), its DARK offsets are held
-to 1e-3 heatmap px. The sweep's 2e-4 bound on relative t excludes grazing rays (disc
+to 1e-3 heatmap px. The sweep's tile cull skips only rows no ray of the
+tile can hit, so the kernel is bit-equal to itself with every row kept,
+and its tolerances are those of the full walk. The sweep's 2e-4 bound on
+relative t excludes grazing rays (disc
 ~ 0 on a quadric, or a flip to the surface behind), which measured 7.2e-6
 of 9.7M hit pixels at 64 x 512^2: up to 1e-4 of the hit pixels may exceed
 it."""
@@ -49,14 +52,18 @@ def scene(dev):
     return roster, world.build_world(roster, pose), cam, tgt
 
 
-def test_sweep_kernel_matches_plain(scene):
-    roster, w, cam, tgt = scene
-    intr = camera.intrinsics_from_apertures(12.0, 25.0, 256, 192)
+def _check_sweep(roster, w, cam, tgt, intr):
     sweeper = sweep_kernel.PixelSweeper(roster, intr)
     M = camera.look_at_matrix(cam, tgt)
     before = sweep_kernel.sweep_cuda.launches
-    tk, ck = raycast._unpack(sweeper(w, cam, M))
+    packed = sweeper(w, cam, M)
     assert sweep_kernel.sweep_cuda.launches == before + 1
+    # With radii beyond any distance every tile keeps every row: the cull
+    # must not change a bit of the packed min.
+    si, sf, radii = sweeper.schedule(cam.device)
+    full = sweep_kernel.sweep_cuda(si, sf, w, cam, M, intr, torch.full_like(radii, 1e15))
+    assert torch.equal(packed.view(torch.int32), full.view(torch.int32))
+    tk, ck = raycast._unpack(packed)
     tp, cp = raycast._unpack(sweep_kernel.plain_pixel_sweep(sweeper.caster, w, cam, M, intr))
     torch.cuda.synchronize()
     hk, hp = tk < raycast.INF * 0.99, tp < raycast.INF * 0.99
@@ -66,6 +73,37 @@ def test_sweep_kernel_matches_plain(scene):
     assert (rel > 2e-4).float().mean() < 1e-4
     assert (rel > 1e-5).float().mean() < 0.005
     assert (ck[both] == cp[both]).float().mean() > 0.999
+
+
+@pytest.mark.parametrize("size", [(256, 192), (250, 190)])
+def test_sweep_kernel_matches_plain(scene, size):
+    """256 x 192, and 250 x 190 where the right and bottom tiles are ragged."""
+    roster, w, cam, tgt = scene
+    _check_sweep(roster, w, cam, tgt, camera.intrinsics_from_apertures(12.0, 25.0, *size))
+
+
+def test_sweep_kernel_camera_inside_a_crown(scene):
+    """Cameras inside a tree crown's bounding sphere (the tile cull keeps
+    it whatever the angle), one looking through it at the scene."""
+    roster, w, cam, tgt = scene
+    crowns = torch.nonzero(torch.as_tensor(roster.prim_kind) == 1)[:, 0]  # spheres
+    crowns = crowns[torch.as_tensor(roster.prim_params[crowns.numpy(), 0]) > 2.0]
+    pos = w["prim_pos"][:, crowns[0]]  # (3, 3): the first crown, per scene
+    inside = pos + torch.tensor([0.3, -0.2, 0.5], device=pos.device)
+    _check_sweep(roster, w, inside, tgt, camera.intrinsics_from_apertures(12.0, 25.0, 128, 96))
+
+
+def test_sweep_kernel_refuses_oversize_schedule(scene):
+    """A schedule whose rows overflow a block's shared memory raises without
+    a launch."""
+    roster, w, cam, tgt = scene
+    intr = camera.intrinsics_from_apertures(12.0, 25.0, 64, 48)
+    si, sf, radii = sweep_kernel.PixelSweeper(roster, intr).schedule(cam.device)
+    before = sweep_kernel.sweep_cuda.launches
+    with pytest.raises(RuntimeError, match="shared memory"):
+        sweep_kernel.sweep_cuda(si.repeat(6, 1), sf.repeat(6, 1), w, cam,
+                                camera.look_at_matrix(cam, tgt), intr, radii.repeat(6))
+    assert sweep_kernel.sweep_cuda.launches == before
 
 
 @pytest.mark.parametrize("noise", [False, True])
@@ -127,10 +165,11 @@ def test_generate_on_cuda_matches_cpu(dev):
     assert torch.allclose(g.heatmaps.cpu(), c.heatmaps, atol=2e-4)
 
 
-@pytest.mark.parametrize("shape", [(2, 71, 128, 128), (3, 5, 37, 61), (7, 3, 3)])
+@pytest.mark.parametrize("shape", [(2, 71, 128, 128), (3, 5, 37, 61), (7, 3, 3), (1, 192, 192),
+                                   (1, 3, 300, 517)])
 def test_peak_kernel_matches_plain(dev, shape):
-    """Blobs, noise with negative values, an odd shape and N = 15 maps, and
-    3 x 3 maps."""
+    """Blobs, noise with negative values, an odd shape and N = 15 maps,
+    3 x 3 maps, and maps of several 128-column strips (192^2, 300 x 517)."""
     rng = np.random.RandomState(sum(shape))
     x = rng.randn(*shape).astype(np.float32) * 0.1
     H, W = shape[-2:]
@@ -149,12 +188,42 @@ def test_peak_kernel_matches_plain(dev, shape):
     assert torch.abs(uv - uv_p).max() <= 1e-3
 
 
-def test_peak_kernel_refuses_oversize_maps(dev):
-    """A map that does not fit one block's shared memory raises; it never
-    falls back to the plain version."""
+@pytest.mark.parametrize("kind", ["constant", "plateau", "all_negative", "all_zero"])
+@pytest.mark.parametrize("k", [8, 100])
+def test_peak_kernel_adversarial_maps(dev, kind, k):
+    """Every pixel a survivor, flat-topped blobs (ties broken by flat index),
+    nothing positive; K = 100 overflows a warp's buffer of NMS survivors
+    on the plateaus."""
+    rng = np.random.RandomState(len(kind))
+    shape = (4, 3, 128, 128)
+    if kind == "constant":
+        x = np.full(shape, 0.7, np.float32)
+    elif kind == "plateau":
+        yy, xx = np.mgrid[:128, :128]
+        x = np.zeros(shape, np.float32)
+        for idx in np.ndindex(shape[:2]):
+            for _ in range(6):
+                cy, cx = rng.uniform(0, 128), rng.uniform(0, 128)
+                x[idx] += 3.0 * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 32.0)
+        x = np.minimum(x, 1.0)
+    elif kind == "all_negative":
+        x = -rng.rand(*shape).astype(np.float32) - 0.01
+    else:
+        x = np.zeros(shape, np.float32)
+    hm = torch.tensor(x, device=dev)
+    uv, sc = peak_kernel.peaks_cuda(hm, k)
+    uv_p, sc_p = peak_kernel.extract_peaks_plain(hm, k)
+    torch.cuda.synchronize()
+    assert torch.equal(sc, sc_p)
+    assert torch.abs(uv - uv_p).max() <= 1e-3
+
+
+def test_peak_kernel_refuses_bad_shapes(dev):
+    """Maps below 3 x 3 and K outside [1, 512] raise without a launch; it
+    never falls back to the plain version."""
     before = peak_kernel.peaks_cuda.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        decode.extract_peaks(torch.zeros(1, 192, 192, device=dev), 8)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="3 x 3"):
         peak_kernel.peaks_cuda(torch.zeros(1, 2, 16, device=dev))
+    with pytest.raises(ValueError, match="max_peaks"):
+        peak_kernel.peaks_cuda(torch.zeros(1, 16, 16, device=dev), 513)
     assert peak_kernel.peaks_cuda.launches == before

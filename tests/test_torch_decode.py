@@ -111,6 +111,62 @@ def test_extract_peaks_plain_selection_rule():
     assert uv.shape == (3, 5, 8, 2) and (sc[..., -1] > 0).all()
 
 
+def _adversarial_maps(kind):
+    """The peak kernel's hard inputs, at even H and W (the JAX XLA path's
+    2x2 blocks): every pixel a survivor, flat-topped blobs, nothing
+    positive, and one 192 x 256 map."""
+    rng = np.random.RandomState(len(kind))
+    shape = (2, 3, 32, 48)
+    if kind == "constant":
+        return np.full(shape, 0.75, np.float32)
+    if kind == "all_negative":
+        return -rng.rand(*shape).astype(np.float32) - 0.01
+    if kind == "all_zero":
+        return np.zeros(shape, np.float32)
+    if kind == "plateau":  # blobs clipped to 1.0: ~100 equal pixels a top
+        yy, xx = np.mgrid[:32, :48]
+        x = np.zeros(shape, np.float32)
+        for idx in np.ndindex(shape[:2]):
+            for _ in range(3):
+                cy, cx = rng.uniform(4, 28), rng.uniform(4, 44)
+                x[idx] += 3.0 * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 32.0)
+        return np.minimum(x, 1.0)
+    yy, xx = np.mgrid[:192, :256]  # "192x256": blobs, noise with negatives
+    x = 0.05 * rng.randn(1, 1, 192, 256).astype(np.float32)
+    for _ in range(12):
+        cy, cx = rng.uniform(0, 192), rng.uniform(0, 256)
+        x[0, 0] += rng.uniform(0.3, 1.0) * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 8.0)
+    return x
+
+
+@pytest.mark.parametrize("kind", ["constant", "plateau", "all_negative", "all_zero", "192x256"])
+def test_extract_peaks_plain_adversarial_maps_match_xla(kind):
+    """The plain version against the JAX XLA path on the inputs the card
+    holds the kernel to. On constant and plateau maps many equal values
+    survive NMS and the XLA path breaks their ties by 2x2 block (dropping
+    tied duplicates) rather than by flat index, so there the sorted scores
+    are compared; elsewhere the score-thresholded sets, as
+    ``_assert_same_sets`` does."""
+    hms = _adversarial_maps(kind)
+    uv, sc = peak_kernel.extract_peaks_plain(torch.as_tensor(hms), 8)
+    uv_x, sc_x = jdecode.extract_peaks(jnp.asarray(hms), max_peaks=8, use_pallas=False)
+    s = sc.numpy()
+    assert (np.diff(s, axis=-1) <= 0).all() and (s >= 0).all()
+    if kind in ("constant", "plateau"):
+        np.testing.assert_allclose(s, -np.sort(-np.asarray(sc_x), -1), rtol=2 ** -20, atol=0)
+        assert (s[..., -1] > 0).all()
+    else:
+        _assert_same_sets(uv, sc, uv_x, sc_x, 0.0, 2 ** -20, 1e-4)
+    if kind == "constant":  # every pixel survives: the first 8 of row 0
+        np.testing.assert_array_equal(uv.numpy(), np.broadcast_to(
+            np.stack([np.arange(8), np.zeros(8)], -1), uv.shape))
+    if kind in ("all_negative", "all_zero"):  # (0, 0) at score 0 throughout
+        np.testing.assert_array_equal(s, 0.0)
+        np.testing.assert_array_equal(uv.numpy(), 0.0)
+    if kind == "192x256":
+        assert (s[..., :8] > 0.2).all()
+
+
 def test_peaks_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         peak_kernel.peaks_cuda(torch.zeros(2, 16, 16))

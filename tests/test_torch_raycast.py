@@ -167,10 +167,11 @@ def test_sweeper_dispatches_plain_on_cpu(scene):
     intr = camera.intrinsics_from_apertures(12.0, 25.0, 32, 24)
     M = camera.look_at_matrix(cam, tgt)
     before = sweep_kernel.sweep_cuda.launches
-    got = sweep_kernel.PixelSweeper(roster, intr)(w, cam, M)
+    sweeper = sweep_kernel.PixelSweeper(roster, intr)
+    got = sweeper(w, cam, M)
     ref = sweep_kernel.plain_pixel_sweep(raycast.Raycaster(roster), w, cam, M, intr)
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
     assert sweep_kernel.sweep_cuda.launches == before
+    si, sf, radii = sweeper.schedule("cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        si, sf = (torch.as_tensor(a) for a in sweep_kernel.build_schedule(roster))
-        sweep_kernel.sweep_cuda(si, sf, w, cam, M, intr)
+        sweep_kernel.sweep_cuda(si, sf, w, cam, M, intr, radii)
