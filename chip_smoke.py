@@ -15,7 +15,16 @@ Run from the root of a checkout. Phases, each reported on its own line:
    the rows kept per 32 x 8 tile (the
    plain mirror of the kernel's cull) and the sweep's two bounds: the
    (ray, row) pairs these inputs need (rays that meet a row's bounding
-   sphere, the plane always) and the brute-force walk of every row;
+   sphere, the plane always) and the brute-force walk of every row; the
+   RGB kernel, with the noise off, must also keep |d| <= 1 u8 on all but
+   1e-3 of the ground pixels within an AO row's reach, where a row its
+   cull wrongly dropped would show; an
+   ``[rgb]`` line the ground-pixel share, the contact-AO rows kept per
+   32 x 1 cull cell (the plain mirror of the kernel's cull), the rows within
+   reach per ground pixel and the RGB kernel's two bounds (one ray a pixel
+   and the rows within reach, or three rays and every row); a
+   ``[heatmap]`` line the visible keypoints per frame and the share of
+   maps that hold one;
 4. the datagen path: ``Pipeline(...).make_generate_fn()`` for 3 batches of
    64 contiguous frames; every kernel's launch count must rise in every
    batch; fields, labels and ``quality_stats`` are checked, a repeat with
@@ -40,7 +49,8 @@ Run from the root of a checkout. Phases, each reported on its own line:
 7. timing: generate frames/s, the forward and the evaluation step with
    CUDA events; each kernel's device time from torch.profiler (beside its
    wrapper's call time by CUDA events) against its plain version and its
-   bound (the peak kernel on the GT and on the model heatmaps).
+   bound (the peak kernel on the GT and on the model heatmaps), and the
+   heatmap kernel's write rate.
 
 Prints the kernels' JSON line (``ms`` the device time, ``call_ms`` the
 wrapper's call by CUDA events), then the card line, then as the last line
@@ -86,10 +96,17 @@ F32_OPS_PER_S = 67e12
 # capsule, general box, general cylinder.
 SWEEP_RAY_OPS = 43
 SWEEP_KIND_OPS = {0: 12, 1: 27, 2: 44, 3: 97, 4: 37, 5: 57, 6: 97, 7: 79, 8: 83}
-# csrc/rgb.cu: operations a pixel outside the contact-AO loop (three rays,
-# normal, local frame, patterns, hash noise, shading, three gamma chains),
-# and per AO row on a ground pixel.
+# csrc/rgb.cu: operations a pixel outside the contact-AO loop counted with
+# three rays a pixel (its own and its two neighbours': normal, local frame,
+# patterns, hash noise, shading, three gamma chains), and per AO row on a
+# ground pixel. One ray and hit point (pinhole coordinates 4, ray 12,
+# normalise 9, finite test and select 2, hit point 6) is 33 of them: the
+# function needs it once a pixel, the neighbours' being their own work, so
+# the bound charges 259 - 2 x 33 a pixel and, on a ground pixel, the AO rows
+# it lies within reach of (render/rgb_kernel.ao_rows_needed). The count of
+# every AO row on every ground pixel with three rays stands beside it.
 RGB_PIXEL_OPS = 259
+RGB_RAY_OPS = 33
 RGB_AO_ROW_OPS = 11
 # csrc/heatmap.cu: per (pixel, visible keypoint of the map's channel).
 HEATMAP_KPT_OPS = 9
@@ -295,6 +312,13 @@ def main() -> int:
     table = rgb_kernel.instance_table(pipe.roster, world["inst_rot"], world["inst_pos"])
     ao = rgb_kernel.ao_table(pipe.roster, world["inst_pos"])
     sky = inst == -2
+    ground = inst == -1
+    # The AO rows each ground pixel lies within reach of (the hit points do
+    # not depend on the lighting): a row the kernel's cull wrongly dropped
+    # would show on these pixels.
+    needed = rgb_kernel.ao_rows_needed(t, inst, ao, rgb_kernel.rgb_params(
+        M, inputs.cam_pos, intr, inputs.lighting))
+    reach = needed > 0
     rgb_err = None
     for noise in (False, True):
         lit = inputs.lighting if noise else inputs.lighting._replace(
@@ -311,19 +335,42 @@ def main() -> int:
             check(dm < 1.0 and ds < 2.0, "rgb kernel statistics disagree (noise on)")
             rgb_bytes = (n_px * (4 + 4 + 3)
                          + 4 * (table.numel() + ao.numel() + par.numel()))
-            rgb_ops = (n_px * RGB_PIXEL_OPS
-                       + int((inst == -1).sum()) * ao.shape[1] * RGB_AO_ROW_OPS)
+            n_ground = int(ground.sum())
+            rgb_ops = (n_px * (RGB_PIXEL_OPS - 2 * RGB_RAY_OPS)
+                       + int(needed.sum()) * RGB_AO_ROW_OPS)
+            old_ops = n_px * RGB_PIXEL_OPS + n_ground * ao.shape[1] * RGB_AO_ROW_OPS
+            kept = rgb_kernel.ao_cull_plain(t, inst, ao, par)  # (B, H, cells_x, A)
+            cw = rgb_kernel.TILE[0]
+            has_ground = ground.reshape(B, RES, RES // cw, cw).any(-1)
+            kept_n = kept.sum(-1)[has_ground].float()
+            need_g = needed[ground].float()
+            phase("rgb", f"ground pixels {n_ground / n_px:.4f} of {n_px}; AO rows kept per "
+                  f"{cw} x 1 cell with ground (plain mirror of the cull): mean "
+                  f"{kept_n.mean().item():.3f}, max {int(kept_n.max())} of {ao.shape[1]} "
+                  f"({int(has_ground.sum())} of {has_ground.numel()} cells); rows within reach "
+                  f"per ground pixel: mean {need_g.mean().item():.3f}, max {int(need_g.max())}; "
+                  f"bound of the needed work {bound(rgb_bytes, rgb_ops)[0]:.4f} ms "
+                  f"({rgb_ops:.4e} operations), of every row on every ground pixel with three "
+                  f"rays {bound(rgb_bytes, old_ops)[0]:.4f} ms ({old_ops:.4e} operations)")
+            del needed, reach, kept
             results["rgb_epilogue"] = {"max_abs_err": rgb_err, "ms": device_ms(k_fn, "rgb_kernel"),
                                        "call_ms": cuda_ms(k_fn),
                                        "plain_ms": cuda_ms(p_fn, iters=2, warmup=1),
-                                       "bound": bound(rgb_bytes, rgb_ops)}
+                                       "bound": bound(rgb_bytes, rgb_ops),
+                                       "bound_all_rows_ms": bound(rgb_bytes, old_ops)[0]}
         else:
             d = torch.abs(rk - rp)
             sky_exact = bool(torch.equal(rk[sky], rp[sky]))
+            d_reach = d.amax(-1)[reach]
+            far_reach = (d_reach > 1).float().mean().item()
             phase("rgb", f"noise off: mean |d| {d.mean().item():.4f} u8 (< 0.5), |d| > 1 on "
-                  f"{(d > 1).float().mean().item():.5f} (< 0.02), sky exact {sky_exact}")
+                  f"{(d > 1).float().mean().item():.5f} (< 0.02), sky exact {sky_exact}; on the "
+                  f"{d_reach.numel()} ground pixels within an AO row's reach: mean |d| "
+                  f"{d_reach.mean().item():.4f} u8, |d| > 1 on {far_reach:.5f} (<= 1e-3)")
             check(d.mean().item() < 0.5 and (d > 1).float().mean().item() < 0.02 and sky_exact,
                   "rgb kernel disagrees with its plain version (noise off)")
+            check(d_reach.numel() > 0 and far_reach <= 1e-3,
+                  "rgb kernel disagrees with its plain version within the AO rows' reach")
             rgb_err = d.max().item()
 
     # 3c. Heatmap targets: the main path's keypoints, then the 768^2-input
@@ -347,7 +394,13 @@ def main() -> int:
         worst = max(worst, err)
     args = (uv, ch, vis, C, RES // 4, RES // 4, cfg.pipeline.heatmap_sigma, 4)
     hm_px = (RES // 4) ** 2
-    hm_bytes = B * C * hm_px * 4 + uv.numel() * 4 + ch.numel() * 4 + vis.numel()
+    hm_out = B * C * hm_px * 4
+    hm_bytes = hm_out + uv.numel() * 4 + ch.numel() * 4 + vis.numel()
+    per_frame = vis.sum(1).float()
+    filled = torch.zeros(B, C, device=dev).scatter_reduce(1, ch.long(), vis.float(), "amax")
+    phase("heatmap", f"visible keypoints per frame: mean {per_frame.mean().item():.2f}, max "
+          f"{int(per_frame.max())} of {vis.shape[1]} slots; maps holding a keypoint "
+          f"{filled.mean().item():.4f} of {B * C}")
     results["heatmap_targets"] = {
         "max_abs_err": worst, "ms": device_ms(lambda: hm.heatmap_cuda(*args), "heatmap_kernel"),
         "call_ms": cuda_ms(lambda: hm.heatmap_cuda(*args)),
@@ -629,6 +682,15 @@ def main() -> int:
           f"{best:.3f} ms = {B * 1000.0 / best:.1f} frames/s on {card}")
     phase("time", f"peak_decode on the model heatmaps: kernel {peak_model_ms:.4f} ms at "
           f"(64 x 71, 128, 128), K = {K_PEAKS}, on {card}")
+    hm_ms = results["heatmap_targets"]["ms"]
+    phase("heatmap", f"heatmap_targets writes {hm_out / 1e6:.1f} MB: {hm_out / hm_ms / 1e9:.3f} "
+          f"TB/s by its device time ({hm_out / HBM_BYTES_PER_S * 1e3:.4f} ms at the card's "
+          f"3.35 TB/s) on {card}")
+    rgb_r = results["rgb_epilogue"]
+    all_rows_ms = rgb_r.pop("bound_all_rows_ms")
+    phase("time", f"rgb_epilogue against the bound of every AO row on every ground pixel with "
+          f"three rays, {all_rows_ms:.4f} ms: {100 * all_rows_ms / rgb_r['ms']:.1f}% of it, on "
+          f"{card}")
     for name, r in results.items():
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         phase("time", f"{name}: kernel {r['ms']:.4f} ms (device time; the wrapper's call "

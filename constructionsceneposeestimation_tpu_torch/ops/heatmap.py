@@ -4,11 +4,12 @@ Channel c holds the max over the visible keypoints assigned to c of
 exp(-d^2 / 2 sigma^2), with keypoints at uv / stride.
 
 Kernel: ``csrc/heatmap.cu`` (replaces the Pallas TPU kernel of the JAX
-``ops/heatmap.py``; its header says what bounds it on an H100). It
-evaluates every pixel of every map, so it takes any sigma and any map
-width, with no row window and no size fallback. Plain version:
-``render_heatmaps``, which materializes (B, N, h, w). ``heatmaps``
-dispatches on the device of its inputs.
+``ops/heatmap.py``; its header says what bounds it on an H100). It writes
+every pixel of every map, so it takes any sigma and any map width, with no
+row window and no size fallback; it skips a keypoint only on rows where
+its Gaussian is exactly 0 in f32 (``row_keep_plain`` mirrors that test).
+Plain version: ``render_heatmaps``, which materializes (B, N, h, w).
+``heatmaps`` dispatches on the device of its inputs.
 """
 
 from __future__ import annotations
@@ -19,6 +20,9 @@ import torch
 from ..utils import kernels
 
 Tensor = torch.Tensor
+# exp(x) is exactly 0 in f32 for x <= -EXP_ZERO (exp(-104) = 2^-150.04,
+# below half the smallest denormal): csrc/heatmap.cu kExpZero.
+EXP_ZERO = 104.0
 
 
 def render_heatmaps(uv: Tensor, channel: Tensor, visible: Tensor, num_channels: int,
@@ -39,16 +43,26 @@ def render_heatmaps(uv: Tensor, channel: Tensor, visible: Tensor, num_channels: 
     return out.scatter_reduce(1, index, g, "amax", include_self=True)
 
 
+def row_keep_plain(uv: Tensor, height: int, sigma: float, stride: float = 1.0) -> Tensor:
+    """The kernel's row skip, on tensors: (B, N, h) bool, True where row y
+    takes keypoint n, that is fl(fl(dy^2) * fl(1 / fl(2 sigma^2))) <=
+    EXP_ZERO with dy = y - v in f32, as csrc/heatmap.cu computes it. Every
+    pixel of a skipped row has an argument of at most -EXP_ZERO."""
+    v = uv[..., 1] / stride
+    inv = float(np.float32(1.0) / np.float32(2.0 * sigma * sigma))  # an f32 value
+    dy = torch.arange(height, dtype=torch.float32, device=uv.device) - v[..., None]
+    return dy * dy * inv <= EXP_ZERO
+
+
 def heatmap_cuda(uv: Tensor, channel: Tensor, visible: Tensor, num_channels: int,
                  height: int, width: int, sigma: float, stride: float = 1.0) -> Tensor:
     """Launch csrc/heatmap.cu: (B, C, h, w) f32. Channels outside [0, C)
-    contribute nothing."""
+    contribute nothing. The kernel refuses N slots that do not fit a
+    block's shared memory."""
     B, N = channel.shape
     kernels.check_cuda("heatmap uv", uv, torch.float32, (B, N, 2))
     kernels.check_cuda("heatmap channel", channel, torch.int32, (B, N))
     kernels.check_cuda("heatmap visible", visible, torch.bool, (B, N))
-    if N * 8 > kernels.SMEM_LIMIT:
-        raise ValueError(f"heatmap: {N} keypoint slots exceed shared memory")
     out = torch.empty(B, num_channels, height, width, dtype=torch.float32, device=uv.device)
     two_s2 = float(np.float32(2.0 * sigma * sigma))
     kernels.launch("cspe_heatmap", uv, channel, visible.view(torch.uint8), B, N, num_channels,

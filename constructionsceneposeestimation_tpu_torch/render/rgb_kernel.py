@@ -7,6 +7,12 @@ Plain version: ``plain_rgb``, the shading tier of ``render/shading.py``
 procedural patterns, contact AO, shade, gamma). ``fused_rgb`` dispatches on
 the device of its inputs.
 
+The kernel culls the contact-AO rows per 32 x 1 row of a tile (a warp):
+it keeps the rows whose widened reach meets the xy box of the row's ground
+hit points, and every culled row's term is exactly 1 there.
+``ao_cull_plain`` mirrors that test op for op; ``ao_rows_needed`` counts
+the rows each ground pixel lies within reach of, the work a bound charges.
+
 Inputs shared by both versions, per frame:
 * ``table`` (B, O + 2, 16) f32 rows [albedo 3 | world->local rotation
   (R row-major) 9 | instance position 3 | class 1]: instances, then the
@@ -32,6 +38,11 @@ from . import shading as sh
 Tensor = torch.Tensor
 
 N_PAR = 32
+TILE = (32, 8)  # csrc/rgb.cu kTileW, kTileH: a block's pixel tile
+# The cull widens a row's reach r + 0.6 m to (r + 0.6) AO_SCALE + AO_ABS
+# (csrc/rgb.cu kAoScale, kAoAbs).
+AO_SCALE = 1.0001
+AO_ABS = 1e-4
 
 
 def ao_rows(roster: world_mod.Roster):
@@ -84,8 +95,9 @@ def rgb_params(M: Tensor, cam_pos: Tensor, intr: cam_mod.Intrinsics,
     return torch.cat([vals, vals.new_zeros(B, N_PAR - vals.shape[1])], dim=1).contiguous()
 
 
-def plain_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor) -> Tensor:
-    """Plain version of the kernel: (B, H, W, 3) uint8."""
+def hit_points(t: Tensor, params: Tensor):
+    """(rd, pw): the unit rays and the hit points (the camera on a miss) of
+    ``plain_rgb``, each three (B, H, W) planes."""
     B, H, W = t.shape
     dev = t.device
     p = lambda k: params[:, k].reshape(B, 1, 1)
@@ -94,9 +106,16 @@ def plain_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor
     r = [p(3 * i) * x + p(3 * i + 1) * y + p(3 * i + 2) for i in range(3)]
     n = torch.sqrt(r[0] * r[0] + r[1] * r[1] + r[2] * r[2])
     rd = tuple(c / n for c in r)
-    hit = torch.isfinite(t)
-    ts = torch.where(hit, t, 0.0)
-    pw = tuple(p(13 + i) + ts * rd[i] for i in range(3))
+    ts = torch.where(torch.isfinite(t), t, 0.0)
+    return rd, tuple(p(13 + i) + ts * rd[i] for i in range(3))
+
+
+def plain_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor) -> Tensor:
+    """Plain version of the kernel: (B, H, W, 3) uint8."""
+    B = t.shape[0]
+    dev = t.device
+    p = lambda k: params[:, k].reshape(B, 1, 1)
+    rd, pw = hit_points(t, params)
     normal = sh.screen_space_normals(pw, rd)
 
     n_inst = table.shape[1] - 2
@@ -126,8 +145,47 @@ def plain_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor
     return sh.linear_to_srgb_u8(planes)
 
 
+def ao_cull_plain(t: Tensor, inst: Tensor, ao: Tensor, params: Tensor) -> Tensor:
+    """The kernel's contact-AO cull, on tensors: (B, H, cells_x, A) bool,
+    True where the cell of 32 x 1 pixels keeps AO row a. A cell keeps a
+    row whose disc of radius (r + 0.6) AO_SCALE + AO_ABS meets the xy
+    bounding box of the cell's ground hit points, in the f32 operations of
+    csrc/rgb.cu's ``ao_reaches``; a cell with no ground pixel keeps none."""
+    B, H, W = t.shape
+    pw = hit_points(t, params)[1]
+    ground = inst == -1
+    cw = TILE[0]
+    inf = float("inf")
+
+    def cells(v, fill):  # (B, H, W) -> (B, H, cells_x, 32)
+        v = torch.nn.functional.pad(torch.where(ground, v, fill), (0, -W % cw), value=fill)
+        return v.reshape(B, H, -1, cw)
+
+    x0, x1 = cells(pw[0], inf).amin(-1), cells(pw[0], -inf).amax(-1)
+    y0, y1 = cells(pw[1], inf).amin(-1), cells(pw[1], -inf).amax(-1)
+    q = lambda k: ao[:, None, None, :, k]
+    box = lambda v: v[..., None]
+    dx = torch.clamp_min(torch.maximum(box(x0) - q(0), q(0) - box(x1)), 0.0)
+    dy = torch.clamp_min(torch.maximum(box(y0) - q(1), q(1) - box(y1)), 0.0)
+    reach = (q(2) + 0.6) * AO_SCALE + AO_ABS
+    return (dx * dx + dy * dy <= reach * reach) & box(x0 <= x1)
+
+
+def ao_rows_needed(t: Tensor, inst: Tensor, ao: Tensor, params: Tensor) -> Tensor:
+    """(B, H, W) int32: for each ground pixel the AO rows it lies within
+    reach of (d < r + 0.6, where a row's term is below 1), 0 elsewhere."""
+    pw = hit_points(t, params)[1]
+    n = torch.zeros(t.shape, dtype=torch.int32, device=t.device)
+    for a in range(ao.shape[1]):
+        q = lambda k: ao[:, a, k][:, None, None]
+        dxa, dya = pw[0] - q(0), pw[1] - q(1)
+        n += (torch.sqrt(dxa * dxa + dya * dya) < q(2) + 0.6).int()
+    return torch.where(inst == -1, n, 0)
+
+
 def rgb_cuda(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor) -> Tensor:
-    """Launch csrc/rgb.cu: (B, H, W, 3) uint8."""
+    """Launch csrc/rgb.cu: (B, H, W, 3) uint8. The kernel refuses a table
+    and AO rows that do not fit a block's shared memory."""
     B, H, W = t.shape
     R, A = table.shape[1], ao.shape[1]
     kernels.check_cuda("rgb t", t, torch.float32)
@@ -135,8 +193,6 @@ def rgb_cuda(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor)
     kernels.check_cuda("rgb table", table, torch.float32, (B, R, 16))
     kernels.check_cuda("rgb ao", ao, torch.float32, (B, A, 4))
     kernels.check_cuda("rgb params", params, torch.float32, (B, N_PAR))
-    if (N_PAR + R * 16 + A * 4) * 4 > kernels.SMEM_LIMIT:
-        raise ValueError(f"rgb: a {R}-row table exceeds shared memory")
     out = torch.empty(B, H, W, 3, dtype=torch.uint8, device=t.device)
     kernels.launch("cspe_rgb", t, inst, table, R, ao, A, params, B, H, W, out)
     rgb_cuda.launches += 1

@@ -1,13 +1,13 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-All ``.cu`` sources compile with nvcc, in one call, into one shared library
-with a plain C interface for ``sm_90a`` (Hopper), which is loaded with
-ctypes: no PyTorch headers are compiled, so a cold build takes seconds.
-The library lands in ``build/torch_kernels/`` of the checkout, named by a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the existing build. Nothing is built at import time:
-the first kernel launch builds. A failed build raises; there is no
-fallback.
+Each ``.cu`` source compiles with its own nvcc, all started together, and
+the objects link into one shared library with a plain C interface for
+``sm_90a`` (Hopper), which is loaded with ctypes: no PyTorch headers are
+compiled, so a cold build takes seconds. The library lands in
+``build/torch_kernels/`` of the checkout, named by a hash of the sources
+and flags, so an edited source rebuilds and an unchanged one loads the
+existing build. Nothing is built at import time: the first kernel launch
+builds. A failed build raises; there is no fallback.
 
 Each wrapper passes device pointers and PyTorch's current stream as
 integers and raises if the entry point's ``cudaGetLastError()`` code is
@@ -29,10 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-# Shared memory a block may take without the opt-in attribute; the wrappers
-# refuse larger rosters rather than have the launch fail.
-SMEM_LIMIT = 48 * 1024
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,17 +64,24 @@ def build(verbose: bool = False) -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *[str(f) for f in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if verbose or proc.returncode != 0:
-        print(proc.stdout + proc.stderr, flush=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        cus = sorted(CSRC.glob("*.cu"))
+        objs = [str(Path(work) / f"{f.stem}.o") for f in cus]
+        cmds = [[nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c",
+                 "-o", o, str(f)] for o, f in zip(objs, cus)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        results = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+        link = [nvcc(), *ARCH_FLAGS, "-shared", "-o", str(Path(work) / "lib.so"), *objs]
+        if all(rc == 0 for _, _, rc in results):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            results.append((link, proc.stdout + proc.stderr, proc.returncode))
+        for cmd, out, rc in results:
+            if verbose or rc != 0:
+                print(out, flush=True)
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}")
+        os.replace(Path(work) / "lib.so", lib)
     return lib
 
 

@@ -8,7 +8,12 @@ conftest:
 
 Tolerances are those of the CPU parity tests (tests/test_torch_raycast.py,
 test_torch_rgb.py, test_torch_heatmap.py), on the TPU kernel's own test
-cameras. The peak kernel's blur, NMS and selection are bit-equal to its
+cameras, plus RGB at a ragged 250 x 190 seen from the horizon and
+straight down, and heatmaps at odd sizes, a row pitch that is not 16-byte
+aligned, and with no, all or off-map keypoints. Instance tables and
+keypoint slots too large for a block's shared memory are refused without
+a launch. The peak kernel's
+blur, NMS and selection are bit-equal to its
 plain version by construction (csrc/peaks.cu), its DARK offsets are held
 to 1e-3 heatmap px. The sweep's tile cull skips only rows no ray of the
 tile can hit, so the kernel is bit-equal to itself with every row kept,
@@ -106,31 +111,89 @@ def test_sweep_kernel_refuses_oversize_schedule(scene):
     assert sweep_kernel.sweep_cuda.launches == before
 
 
-@pytest.mark.parametrize("noise", [False, True])
-def test_rgb_kernel_matches_plain(scene, noise):
-    roster, w, cam, tgt = scene
-    intr = camera.intrinsics_from_apertures(12.0, 25.0, 128, 96)
+def _rgb_pair(roster, w, cam, tgt, width, height, noise):
+    """The kernel's and the plain version's images of the frames seen from
+    cam, the instance map, and the ground pixels within an AO row's reach."""
+    intr = camera.intrinsics_from_apertures(12.0, 25.0, width, height)
     M = camera.look_at_matrix(cam, tgt)
+    B = cam.shape[0]
     t, code = raycast._unpack(sweep_kernel.PixelSweeper(roster, intr)(w, cam, M))
-    t = torch.where(t < raycast.INF * 0.99, t, float("inf")).reshape(3, 96, 128).contiguous()
-    inst = (code - 2).reshape(3, 96, 128).to(torch.int32)
+    t = torch.where(t < raycast.INF * 0.99, t, float("inf")).reshape(B, height, width)
+    inst = (code - 2).reshape(B, height, width).to(torch.int32)
+    depth = t * torch.sum(camera.pixel_rays(intr, M) * (-M[:, :, 0])[:, None, None], -1)
+    t = torch.where(depth >= 250.0, float("inf"), t).contiguous()
     inst = torch.where(torch.isfinite(t), inst, -2).to(torch.int32).contiguous()
     from constructionsceneposeestimation_tpu_torch.render.shading import default_lighting
-    lit = default_lighting(3, cam.device)
+    lit = default_lighting(B, cam.device)
     if not noise:
-        lit = lit._replace(tex_strength=torch.zeros(3, device=cam.device))
+        lit = lit._replace(tex_strength=torch.zeros(B, device=cam.device))
     args = (t, inst, rgb_kernel.instance_table(roster, w["inst_rot"], w["inst_pos"]),
             rgb_kernel.ao_table(roster, w["inst_pos"]), rgb_kernel.rgb_params(M, cam, intr, lit))
+    before = rgb_kernel.rgb_cuda.launches
     a = rgb_kernel.fused_rgb(*args).float()
+    assert rgb_kernel.rgb_cuda.launches == before + 1
     b = rgb_kernel.plain_rgb(*args).float()
+    reach = rgb_kernel.ao_rows_needed(t, inst, args[3], args[4]) > 0
     torch.cuda.synchronize()
+    return a, b, inst, reach
+
+
+def _check_rgb(a, b, inst, reach, noise, with_sky=True):
+    """The RGB tolerances; frames looking straight down show no sky. With
+    the noise off, |d| <= 1 u8 on all but 1e-3 of the ground pixels within
+    an AO row's reach, where a row the kernel's cull wrongly dropped would
+    show."""
     if noise:
         assert abs(a.mean() - b.mean()) < 1.0 and abs(a.std() - b.std()) < 2.0
     else:
         d = torch.abs(a - b)
         assert d.mean() < 0.5 and (d > 1).float().mean() < 0.02
         sky = inst == -2
-        assert sky.any() and torch.equal(a[sky], b[sky])
+        assert bool(sky.any()) == with_sky and torch.equal(a[sky], b[sky])
+        assert bool(reach.any()) and (d.amax(-1)[reach] > 1).float().mean() <= 1e-3
+
+
+@pytest.mark.parametrize("noise", [False, True])
+def test_rgb_kernel_matches_plain(scene, noise):
+    roster, w, cam, tgt = scene
+    a, b, inst, reach = _rgb_pair(roster, w, cam, tgt, 128, 96, noise)
+    _check_rgb(a, b, inst, reach, noise)
+
+
+@pytest.mark.parametrize("noise", [False, True])
+@pytest.mark.parametrize("view", ["horizon", "nadir"])
+def test_rgb_kernel_ragged_tiles(scene, view, noise):
+    """250 x 190: ragged tiles at the right and bottom edges, a halo at the
+    tile and the frame edges, rows not 16-byte aligned (3-byte stores);
+    cameras at the horizon (ground cells spanning far distances: the AO
+    cull keeps many rows) and looking straight down."""
+    roster, w, _, _ = scene
+    cams = {"horizon": ([[0.0, -30.0, 1.6], [25.0, 5.0, 1.2], [-20.0, -20.0, 2.0]],
+                        [[0.0, 60.0, 1.6], [-60.0, 0.0, 1.2], [40.0, 40.0, 1.8]]),
+            "nadir": ([[0.1, 0.1, 25.0], [3.0, -2.0, 12.0], [-4.0, 5.0, 40.0]],
+                      [[0.0, 0.0, 0.0], [3.0, -2.01, 0.0], [-4.0, 5.01, 0.0]])}[view]
+    cam, tgt = (torch.tensor(c, device=w["inst_pos"].device) for c in cams)
+    a, b, inst, reach = _rgb_pair(roster, w, cam, tgt, 250, 190, noise)
+    _check_rgb(a, b, inst, reach, noise, with_sky=view == "horizon")
+
+
+def test_rgb_kernel_refuses_oversize_table(scene):
+    """An 800-row instance table overflows a block's shared memory: the
+    kernel refuses it without a launch."""
+    roster, w, cam, tgt = scene
+    intr = camera.intrinsics_from_apertures(12.0, 25.0, 64, 48)
+    M = camera.look_at_matrix(cam, tgt)
+    table = rgb_kernel.instance_table(roster, w["inst_rot"], w["inst_pos"])
+    table = torch.cat([table[:, :-2].repeat(1, 20, 1), table[:, -2:]], dim=1)[:, -800:]
+    t = torch.full((3, 48, 64), float("inf"), device=cam.device)
+    inst = torch.full((3, 48, 64), -2, dtype=torch.int32, device=cam.device)
+    from constructionsceneposeestimation_tpu_torch.render.shading import default_lighting
+    par = rgb_kernel.rgb_params(M, cam, intr, default_lighting(3, cam.device))
+    before = rgb_kernel.rgb_cuda.launches
+    with pytest.raises(RuntimeError, match="shared memory"):
+        rgb_kernel.rgb_cuda(t, inst, table.contiguous(),
+                            rgb_kernel.ao_table(roster, w["inst_pos"]), par)
+    assert rgb_kernel.rgb_cuda.launches == before
 
 
 @pytest.mark.parametrize("width", [128, 192])
@@ -146,6 +209,61 @@ def test_heatmap_kernel_matches_plain(dev, sigma, width):
     b = heatmap.render_heatmaps(uv, ch, vis, C, width, width, sigma, 4)
     torch.cuda.synchronize()
     assert torch.abs(a - b).max() < 2e-4
+
+
+def _heatmap_case(dev, case):
+    """(uv, channel, visible, C, h, w) of one adversarial heatmap case."""
+    rng = np.random.RandomState(len(case))
+    B, n, C, h, w = {"odd (3, 5, 37, 61)": (3, 41, 5, 37, 61),
+                     "width 130": (2, 680, 71, 130, 130),
+                     "width 192": (2, 680, 71, 192, 192)}.get(case, (2, 680, 71, 128, 128))
+    uv = rng.uniform(-10, 4 * w + 10, (B, n, 2))
+    ch = rng.randint(0, C, (B, n))
+    vis = rng.rand(B, n) > 0.5
+    if case == "all invisible":
+        vis[:] = False
+    elif case == "680 on one channel":
+        ch[:] = 3
+        vis[:] = True
+    elif case == "off the map":
+        side = rng.rand(B, n, 2) > 0.5
+        uv = np.where(side, rng.uniform(-120, -1, (B, n, 2)), rng.uniform(4 * w + 1, 4 * w + 120,
+                                                                           (B, n, 2)))
+    t = lambda x, dt: torch.tensor(x, dtype=dt, device=dev)
+    return t(uv, torch.float32), t(ch, torch.int32), t(vis, torch.bool), C, h, w
+
+
+@pytest.mark.parametrize("case", ["odd (3, 5, 37, 61)", "width 130", "width 192",
+                                  "all invisible", "680 on one channel", "off the map"])
+def test_heatmap_kernel_adversarial(dev, case):
+    """Odd map sizes and N % 4 != 0 (scalar slot loads), a row pitch that
+    is not 16-byte aligned (width 130), 192^2 maps, no visible keypoint,
+    every slot visible on one channel, keypoints off the map."""
+    uv, ch, vis, C, h, w = _heatmap_case(dev, case)
+    before = heatmap.heatmap_cuda.launches
+    a = heatmap.heatmaps(uv, ch, vis, C, h, w, 2.0, 4)
+    assert heatmap.heatmap_cuda.launches == before + 1
+    b = heatmap.render_heatmaps(uv, ch, vis, C, h, w, 2.0, 4)
+    torch.cuda.synchronize()
+    assert a.shape == (uv.shape[0], C, h, w)
+    assert torch.abs(a - b).max() < 2e-4
+    if case == "all invisible":
+        assert not bool(a.any())
+    if case == "off the map":
+        assert bool((b > 0).any())  # tails of keypoints just off the map
+
+
+def test_heatmap_kernel_refuses_oversize_slots(dev):
+    """7000 keypoint slots (56 KB of keypoints) overflow a block's shared
+    memory: the kernel refuses them without a launch."""
+    B, n = 2, 7000
+    uv = torch.zeros(B, n, 2, device=dev)
+    ch = torch.zeros(B, n, dtype=torch.int32, device=dev)
+    vis = torch.ones(B, n, dtype=torch.bool, device=dev)
+    before = heatmap.heatmap_cuda.launches
+    with pytest.raises(RuntimeError, match="shared memory"):
+        heatmap.heatmap_cuda(uv, ch, vis, 71, 128, 128, 2.0, 4)
+    assert heatmap.heatmap_cuda.launches == before
 
 
 def test_generate_on_cuda_matches_cpu(dev):

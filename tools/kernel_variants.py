@@ -1,0 +1,255 @@
+#!/usr/bin/env python3
+"""Time variants of the RGB and heatmap kernels on one GPU, and hold another
+build of the kernels against this one bit for bit.
+
+    python3 tools/kernel_variants.py [--against CSRC_DIR] [--only NAME,...]
+                                     [--iters 20] [--out build/kernel_variants.json]
+
+Builds ``csrc/`` as it stands ("this"), each variant of ``VARIANTS`` (a copy
+of ``csrc/`` with a few lines of text replaced: the tiles a block and the
+launch bounds of ``csrc/rgb.cu``, its stages taken out one at a time to time
+each by its absence, the warps a block of ``csrc/heatmap.cu``), and
+``--against``, a directory of other sources with the same C entry points
+(an earlier ``csrc/``), each into a library of its own under
+``build/kernel_variants/``. On the datagen path's inputs (64 frames at
+512^2, built as ``chip_smoke.py`` builds them) it then:
+
+- holds each library's RGB images (hash noise off and on) and heatmaps
+  against this build's: bit-equal or not; for RGB the pixels that differ,
+  split into sky, ground and objects, and the max |d| in u8 levels; for
+  heatmaps the max |d|;
+- times each library's ``rgb_kernel`` and ``heatmap_kernel`` by
+  ``torch.profiler`` device time over ``--iters`` launches, in turns:
+  this, the others, the others again in reverse, this.
+
+Prints a line for each comparison and time, with the card's name and power
+limit and each kernel's registers and spills (``ptxas -v``), and writes them to
+``--out`` as JSON. Needs a CUDA device; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from constructionsceneposeestimation_tpu_torch.utils import kernels  # noqa: E402
+
+B, RES, SEED = 64, 512, 0
+TEX = ("const float tex = 1.0f + 0.15f * p[25] * (hash_noise(pwx, pwy, pwz) - 0.5f) * 2.0f;")
+# name: [(source, text, replacement)]; every text must occur once.
+VARIANTS = {
+    **{f"rgb_tiles{n}": [("rgb.cu", "constexpr int kTiles = 4;", f"constexpr int kTiles = {n};")]
+       for n in (1, 2, 8)},
+    "rgb_bounds_none": [("rgb.cu", "__launch_bounds__(kTileW * kTileH, kMinBlocks)", "")],
+    "rgb_bounds_threads": [("rgb.cu", "__launch_bounds__(kTileW * kTileH, kMinBlocks)",
+                            "__launch_bounds__(kTileW * kTileH)")],
+    **{f"rgb_blocks{n}": [("rgb.cu", "constexpr int kMinBlocks = 8;",
+                           f"constexpr int kMinBlocks = {n};")] for n in (1, 5, 6)},
+    "rgb_no_gamma": [("rgb.cu", "rintf(__fmul_rn(gamma22(c), 255.0f))",
+                      "rintf(__fmul_rn(c, 255.0f))")],
+    "rgb_no_noise": [("rgb.cu", TEX, "const float tex = 1.0f;")],
+    "rgb_no_ao": [("rgb.cu", "for (int a0 = 0; a0 < n_ao; a0 += kTileW)",
+                   "for (int a0 = 0; a0 < 0; a0 += kTileW)")],
+    **{f"hm_warps{n}": [("heatmap.cu", "constexpr int kWarps = 16;",
+                         f"constexpr int kWarps = {n};")] for n in (8, 32)},
+}
+
+
+def build(name: str, csrc: Path, edits):
+    """Copy ``csrc`` to build/kernel_variants/<name>/, apply ``edits`` and
+    compile it into one library with the package's nvcc flags. Returns the
+    library's path and ptxas's report."""
+    work = ROOT / "build" / "kernel_variants" / name
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(csrc, work)
+    for src, old, new in edits:
+        f = work / src
+        text = f.read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: {src} holds {text.count(old)} copies of {old!r}")
+        f.write_text(text.replace(old, new))
+    lib = work / "lib.so"
+    cmd = [kernels.nvcc(), *kernels.ARCH_FLAGS, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
+           "-o", str(lib), *map(str, sorted(work.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
+    return lib, proc.stdout + proc.stderr
+
+
+def load(path: Path):
+    lib = ctypes.CDLL(str(path))
+    for entry, argtypes in kernels.SIGNATURES.items():
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = ctypes.c_int
+    return lib
+
+
+def call(lib, entry, *args):
+    import torch
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = getattr(lib, entry)(*conv, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} returned {err}")
+
+
+def registers(ptxas: str) -> dict:
+    """Registers a thread and bytes of spill stores of the RGB and heatmap
+    kernels, from ptxas's report."""
+    regs, name = {}, None
+    for line in ptxas.splitlines():
+        if "Function properties for" in line or "Compiling entry function" in line:
+            name = next((k for k in ("rgb_kernel", "heatmap_kernel") if k in line), None)
+        elif name and "spill stores" in line:
+            regs.setdefault(name, {})["spill_bytes"] = int(line.split("bytes spill stores")[0]
+                                                           .split(",")[-1])
+        elif name and "Used" in line and "registers" in line:
+            regs.setdefault(name, {})["registers"] = int(line.split("Used")[1].split()[0])
+    return regs
+
+
+def device_ms(fn, key, iters):
+    """Mean device milliseconds per launch of the kernels whose name holds
+    ``key``, from torch.profiler over ``iters`` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key]
+    seen = sum(e.count for e in evs)
+    if not 0 < seen <= iters:
+        raise RuntimeError(f"profiler saw {key} launched {seen} times in {iters} calls")
+    return sum(e.self_device_time_total for e in evs) / 1000.0 / seen
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--against", help="a directory of CUDA sources with the same entry points")
+    ap.add_argument("--only", help="comma-separated names of VARIANTS to build (default all)")
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--out", default="build/kernel_variants.json")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_variants: needs a CUDA device", file=sys.stderr)
+        return 3
+    from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
+    from constructionsceneposeestimation_tpu_torch.core import camera as cam_mod
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
+    from constructionsceneposeestimation_tpu_torch.render import annotate, raycast, rgb_kernel
+    from constructionsceneposeestimation_tpu_torch.scene import world as world_mod
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    print(f"card: {card} | torch {torch.__version__} | CUDA {torch.version.cuda}", flush=True)
+
+    names = args.only.split(",") if args.only else list(VARIANTS)
+    builds = {"this": (kernels.CSRC, []), **{n: (kernels.CSRC, VARIANTS[n]) for n in names}}
+    if args.against:
+        builds["against"] = (Path(args.against).resolve(), [])
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        built = dict(zip(builds, pool.map(lambda kv: build(kv[0], *kv[1]), builds.items())))
+    libs = {name: load(p) for name, (p, _) in built.items()}
+    regs = {name: registers(r) for name, (_, r) in built.items()}
+    print(f"built {len(libs)} libraries; registers a thread: {json.dumps(regs)}", flush=True)
+
+    # The datagen kernels' inputs, as chip_smoke.py builds them.
+    dev = torch.device("cuda", 0)
+    cfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES, batch_size=B))
+    pipe = Pipeline(cfg, device=dev)
+    intr = pipe.intr
+    inputs = pipe.sample_inputs(SEED, list(range(B)))
+    world = world_mod.build_world(pipe.roster, inputs.pose)
+    M = cam_mod.look_at_matrix(inputs.cam_pos, inputs.target)
+    t, code = raycast._unpack(pipe.sweeper(world, inputs.cam_pos, M))
+    t = torch.where(t < raycast.INF * 0.99, t, float("inf")).reshape(B, RES, RES)
+    inst = (code - 2).reshape(B, RES, RES)
+    depth = t * torch.sum(cam_mod.pixel_rays(intr, M) * (-M[:, :, 0])[:, None, None, :], -1)
+    clipped = depth >= cfg.camera.clipping[1]
+    t = torch.where(clipped, float("inf"), t).contiguous()
+    inst = torch.where(clipped, -2, inst).to(torch.int32).contiguous()
+    table = rgb_kernel.instance_table(pipe.roster, world["inst_rot"], world["inst_pos"])
+    ao = rgb_kernel.ao_table(pipe.roster, world["inst_pos"])
+    lit_off = inputs.lighting._replace(tex_strength=torch.zeros_like(inputs.lighting.tex_strength))
+    pars = {"noise off": rgb_kernel.rgb_params(M, inputs.cam_pos, intr, lit_off),
+            "noise on": rgb_kernel.rgb_params(M, inputs.cam_pos, intr, inputs.lighting)}
+    ann = annotate.render_frame(pipe.roster, pipe.caster, pipe.sweeper, world, inputs.cam_pos,
+                                inputs.target, intr, inputs.lighting, shade_rgb=False)
+    kc = pipe.roster.tensor("inst_kpt_channel", dev).reshape(1, -1).expand(B, -1)
+    uv = ann.kpt_uv.reshape(B, -1, 2).contiguous()
+    vis = (ann.kpt_visible.reshape(B, -1) & (kc >= 0)).contiguous().view(torch.uint8)
+    ch = torch.clamp_min(kc, 0).to(torch.int32).contiguous()
+    C, h = pipe.num_channels, RES // cfg.pipeline.heatmap_stride
+    two_s2 = float(torch.tensor(2.0 * cfg.pipeline.heatmap_sigma ** 2, dtype=torch.float32))
+
+    def rgb(lib, par):
+        out = torch.empty(B, RES, RES, 3, dtype=torch.uint8, device=dev)
+        call(lib, "cspe_rgb", t, inst, table, table.shape[1], ao, ao.shape[1], par, B, RES, RES,
+             out)
+        return out
+
+    def heat(lib):
+        out = torch.empty(B, C, h, h, dtype=torch.float32, device=dev)
+        call(lib, "cspe_heatmap", uv, ch, vis, B, uv.shape[1], C, h, h,
+             float(cfg.pipeline.heatmap_stride), two_s2, out)
+        return out
+
+    report = {"card": card, "registers": regs, "compare": {}, "ms": {}}
+    kinds = {"sky": inst == -2, "ground": inst == -1, "objects": inst >= 0}
+    ref = {k: rgb(libs["this"], p) for k, p in pars.items()}
+    ref_hm = heat(libs["this"])
+    for name, lib in libs.items():
+        if name == "this":
+            continue
+        res = {}
+        for k, p in pars.items():
+            img = rgb(lib, p)
+            diff = (img != ref[k]).any(-1)
+            n = int(diff.sum())
+            res[f"rgb {k}"] = {
+                "bit_equal": n == 0, "pixels_differ": n, "of": diff.numel(),
+                "max_abs_u8": int((img.int() - ref[k].int()).abs().max()),
+                **{f"on {kk}": int((diff & m).sum()) for kk, m in kinds.items()}}
+        hm = heat(lib)
+        res["heatmaps"] = {"bit_equal": bool(torch.equal(hm, ref_hm)),
+                           "max_abs": float((hm - ref_hm).abs().max())}
+        torch.cuda.synchronize()
+        report["compare"][name] = res
+        for k, r in res.items():
+            print(f"[compare] {name} vs this, {k}: {json.dumps(r)}", flush=True)
+
+    order = list(libs)
+    for name in order + order[1:][::-1] + order[:1]:
+        lib = libs[name]
+        r = report["ms"].setdefault(name, {"rgb_kernel": [], "heatmap_kernel": []})
+        r["rgb_kernel"].append(device_ms(lambda: rgb(lib, pars["noise on"]), "rgb_kernel",
+                                         args.iters))
+        r["heatmap_kernel"].append(device_ms(lambda: heat(lib), "heatmap_kernel", args.iters))
+    for name, r in report["ms"].items():
+        print(f"[time] {name}: rgb_kernel {', '.join(f'{x:.4f}' for x in r['rgb_kernel'])} ms; "
+              f"heatmap_kernel {', '.join(f'{x:.4f}' for x in r['heatmap_kernel'])} ms "
+              f"(device time a launch, 64 x 512^2, 71 x 128^2; {card})", flush=True)
+    out = ROOT / args.out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    report["builds"] = {name: {"csrc": str(b[0]), "edits": b[1]} for name, b in builds.items()}
+    out.write_text(json.dumps(report, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
