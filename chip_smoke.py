@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths once on one NVIDIA GPU: datagen and
-evaluation.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU: datagen,
+evaluation and training (``train-eval``).
 
     python3 chip_smoke.py
 
@@ -41,26 +41,46 @@ Run from the root of a checkout. Phases, each reported on its own line:
    full-width ``HeatmapBackbone`` under bf16 autocast, focal heatmaps, every
    evaluator on the GT and the model heatmaps) on 2 fresh batches of 64
    frames at 512^2; the peak kernel must launch at least twice per batch;
-   shapes, finiteness, the decode floor (PCK > 0.5) and ADD with GT
-   keypoints are checked, then the card against the plain CPU path on 4
-   frames at 128^2 with an f32 forward (the model heatmaps to 1e-3; the
-   evaluators' counts equal on the same heatmaps, with GT + 0.1 x the
-   network's as the model's);
-7. timing: generate frames/s, the forward and the evaluation step with
-   CUDA events; each kernel's device time from torch.profiler (beside its
-   wrapper's call time by CUDA events) against its plain version and its
-   bound (the peak kernel on the GT and on the model heatmaps), and the
-   heatmap kernel's write rate.
+   shapes, finiteness, the decode floor (PCK > 0.5), the dumper's ADD and
+   the crane's (ADD-0.1d >= 0.95, median per-frame ADD < 0.1 m) with GT
+   keypoints are checked, and the dumper through RANSAC on the model heatmaps runs; then
+   the card against the plain CPU path on 4 frames at 128^2 with an f32
+   forward (the model heatmaps to 1e-3; the evaluators' counts equal on
+   the same heatmaps, with GT + 0.1 x the network's as the model's; a crane
+   frame that differs is printed with both RMSEs beside the gate);
+7. the training path: ``cli.main(["train-eval", ...])`` in-process, 20
+   steps of 32 x 512^2 on the full-width backbone, focal, camera-mix 0.3,
+   then its evaluation of 32 fresh frames; every step's loss must be
+   finite, the three datagen kernels must launch once a step and once for
+   the evaluation batch, the peak kernel at least twice, and every line
+   of the JAX command must be printed; a fixed batch trained 30 steps with
+   warmup 5 must end below half its first loss; a checkpoint round trip
+   must restore the parameters, the AdamW state and the schedule bit for
+   bit; one step on the card against the plain CPU path (4 x 128^2, f32
+   body, the same batch and augment draws): loss to 1e-3 relative, each
+   gradient to 1e-2 of its norm;
+8. timing: generate frames/s, the forward and the evaluation step with
+   CUDA events; the training step's ms and img/s, its split between
+   datagen, forward+backward and the optimizer, its device-busy share and
+   launches (torch.profiler) and its peak memory; each kernel's device time
+   from torch.profiler (beside its wrapper's call time by CUDA events)
+   against its plain version and its bound (the peak kernel on the GT and
+   on the model heatmaps), and the heatmap kernel's write rate.
 
 Prints the kernels' JSON line (``ms`` the device time, ``call_ms`` the
-wrapper's call by CUDA events), then the card line, then as the last line
-``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, on
-any failure or when no GPU is present. Imports nothing of JAX.
+wrapper's call by CUDA events, ``launches`` those of the training path's
+run and ``launches_by_path`` each path's), then the card line, then as the
+last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
+line, on any failure or when no GPU is present. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
+import shutil
 import subprocess
 import sys
 import time
@@ -71,6 +91,16 @@ B = 64
 RES = 512
 SEED = 0
 K_PEAKS = 8
+# The training slice: the stage-1 run of record (RESULTS_MANIFEST.md:31) at
+# 32 frames of 512^2 a step, cut to 20 steps.
+TRAIN_B = 32
+TRAIN_STEPS = 20
+# The line heads `train-eval` prints after training (the JAX cli.py:262-331).
+TRAIN_EVAL_LINES = (
+    "decode-floor PCK@0.5:", "model PCK@0.5:", "assoc decode floor:",
+    "human PCK@0.5 (DARK):", "  weakest joints:", "human PCK@0.5 (soft-argmax):",
+    "dumper channel scores:", "dumper ADD (GT kpts):", "dumper ADD (model kpts):",
+    "crane ADD (GT kpts):", "crane ADD (model kpts):")
 REPLACES = {
     "pixel_sweep": "constructionsceneposeestimation_tpu/render/sweep_kernel.py:107",
     "rgb_epilogue": "constructionsceneposeestimation_tpu/render/rgb_kernel.py:51",
@@ -174,6 +204,160 @@ def bound(nbytes: float, nops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+class _Tee(io.TextIOBase):
+    """Standard output that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text):
+        self.kept.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def drive_cli(argv):
+    """The port's CLI in-process, as a user calls it; its output is echoed
+    and returned as lines."""
+    from constructionsceneposeestimation_tpu_torch import cli
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        cli.main(argv)
+    return tee.kept.getvalue().splitlines()
+
+
+def tensors_equal(a, b) -> bool:
+    """Two nested dicts of tensors and numbers, equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tensors_equal(a[k], b[k]) for k in a)
+    if hasattr(a, "shape"):
+        import torch
+        return bool(torch.equal(a, b))
+    return a == b
+
+
+def crane_frame_add(ev, batch, roster, intr, stride):
+    """The crane solve on GT keypoints, frame by frame: the median over the
+    accepted frames of the mean ADD of the parts in view, and the frames
+    beyond 1 m with their keypoints in view per part."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.eval import metrics
+    res = ev.crane_solve(batch, roster, intr, stride, use_gt_keypoints=True)
+    s0, s1 = roster.crane_slice
+    accepted = res.valid & (res.rmse <= 8.0 * (1.0 / float(intr.fx)))
+    adds, seen = [], []
+    for pi in range(4):
+        o = s0 + pi
+        pts = metrics.aabb_corners(roster.inst_aabb_min[o], roster.inst_aabb_max[o],
+                                   batch.kpt_uv.device)
+        R_gt, t_gt = ev.gt_camera_frame_pose(roster, batch, o)
+        adds.append(metrics.add_metric(res.R[:, pi], res.t[:, pi], R_gt, t_gt, pts))
+        seen.append(batch.inst_visible[:, o])
+    adds, seen = torch.stack(adds, -1), torch.stack(seen, -1).float()
+    frame_add = (adds * seen).sum(-1) / seen.sum(-1).clamp_min(1)
+    keep = accepted & (seen.sum(-1) > 0)
+    n_vis = batch.kpt_visible[:, s0:s1].sum(-1)
+    far = [(int(batch.frame_id[f]), round(float(frame_add[f]), 2), n_vis[f].tolist())
+           for f in torch.nonzero(keep & (frame_add > 1.0)).flatten()]
+    return float(frame_add[keep].median()), far
+
+
+def crane_frames_differ(ev, group, g_dev, g_cpu, hm, pipe, stride):
+    """Print each frame whose crane solve is valid or accepted on one side
+    only, with both RMSEs beside the gate."""
+    kw = (dict(use_gt_keypoints=True) if group == "crane_gt_kpts"
+          else dict(heatmaps=hm, score_threshold=0.15))
+    res_c = ev.crane_solve(g_cpu, pipe.roster, pipe.intr, stride, **kw)
+    if "heatmaps" in kw:
+        kw["heatmaps"] = hm.to(g_dev.heatmaps.device)
+    res_d = ev.crane_solve(g_dev, pipe.roster, pipe.intr, stride, **kw)
+    gate = 8.0 / float(pipe.intr.fx)
+    for f in range(res_c.valid.shape[0]):
+        vd, vc = bool(res_d.valid[f]), bool(res_c.valid[f])
+        rd, rc = float(res_d.rmse[f]), float(res_c.rmse[f])
+        if vd != vc or (rd <= gate) != (rc <= gate):
+            phase("eval", f"{group} frame {f}: valid card {vd} CPU {vc}; rmse card {rd:.6g} "
+                  f"CPU {rc:.6g}, gate {gate:.6g}")
+
+
+def train_timing(dev, card):
+    """The stage-1 training step (32 x 512^2, full width, focal, camera-mix
+    0.3) on the card: ms a step and img/s by CUDA events (the min and the
+    mean of 6 steps after 3 of warm-up), the split between datagen (generate
+    and the augment draws), forward+backward and the optimizer (CUDA events
+    between the three, summed over the same steps), the device's busy share
+    of 3 steps under torch.profiler, and the peak memory of a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from constructionsceneposeestimation_tpu_torch.config import (Config, PipelineConfig,
+                                                                  TrainConfig)
+    from constructionsceneposeestimation_tpu_torch.models import pose_net
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
+    from constructionsceneposeestimation_tpu_torch.train import loop as train_loop
+
+    cfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES),
+                 train=TrainConfig(batch_size=TRAIN_B, steps=32000, loss="focal",
+                                   camera_mix=0.3))
+    state = train_loop.create_train_state(cfg, pose_net.make_model(device=dev))
+    step = train_loop.make_train_step(cfg, state.model, Pipeline(cfg, device=dev))
+    bs = step.train_on_batch
+    frame = [0]
+
+    def fids():
+        frame[0] += TRAIN_B
+        return range(frame[0] - TRAIN_B, frame[0])
+
+    for _ in range(3):
+        state, _ = step(state, SEED + 1, fids())
+    torch.cuda.synchronize()
+    split = {"datagen": 0.0, "forward_backward": 0.0, "optimizer": 0.0}
+    steps_ms = []
+    for _ in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        batch, draws = step.generate(SEED + 1, fids())
+        ev[1].record()
+        loss = bs.forward_backward(state, batch, draws)
+        ev[2].record()
+        bs.update(state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        check(math.isfinite(loss.item()), "timed training step: loss not finite")
+        for k, (a, b) in zip(split, ((0, 1), (1, 2), (2, 3))):
+            split[k] += ev[a].elapsed_time(ev[b]) / 6
+        steps_ms.append(ev[0].elapsed_time(ev[3]))
+    best, mean = min(steps_ms), sum(steps_ms) / len(steps_ms)
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    state, _ = step(state, SEED + 1, fids())
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            state, _ = step(state, SEED + 1, fids())
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    launches = sum(e.count for e in kern) / 3
+    phase("time", f"training step {TRAIN_B} x {RES}^2 (generate, augment, full-width forward "
+          f"and backward, focal, AdamW): steps {[round(x, 3) for x in steps_ms]} ms; min "
+          f"{best:.3f} ms = {TRAIN_B * 1000.0 / best:.1f} img/s, mean {mean:.3f} ms = "
+          f"{TRAIN_B * 1000.0 / mean:.1f} img/s on {card}")
+    phase("time", "training step split (mean of 6, CUDA events): " + ", ".join(
+        f"{k} {v:.3f} ms ({100 * v / sum(split.values()):.1f}%)" for k, v in split.items())
+        + f" on {card}")
+    phase("time", f"training step under torch.profiler: 3 steps in {wall_ms:.1f} ms wall, "
+          f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall; the "
+          f"profiler slows the host), {launches:.0f} kernel launches a step; peak memory "
+          f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated; {base_gb:.2f} GB held before "
+          f"the step, the model, its AdamW state and the earlier phases' tensors) on {card}")
 
 
 def main() -> int:
@@ -586,7 +770,28 @@ def main() -> int:
             check(float(gt["add_0_1d"]) >= 0.95 and float(gt["add_mean"]) < 0.2,
                   f"dumper ADD with GT keypoints: {float(gt['add_0_1d'])}, "
                   f"{float(gt['add_mean'])} m")
-    launches["peak_decode"] = counters["peak_decode"].launches
+        # The crane's joint solve on GT keypoints pins every part (the JAX
+        # run of record: ADD-0.1d 1.000, mean 0.019 m on 11 frames). A frame
+        # whose visible keypoints are only the boom's and the telescopic's
+        # (near-collinear) leaves the root unobservable, and the solve, the
+        # JAX one alike, can settle hundreds of metres away (frame 80 of
+        # this seed; tests/test_torch_crane.py holds both there): one such
+        # frame moves the mean by metres, so the typical frame's ADD is held
+        # by the median.
+        cr = out["crane_gt_kpts"]
+        med, far = crane_frame_add(ev, batch, pipe.roster, intr, stride)
+        phase("eval", f"batch {i} crane GT keypoints: median per-frame ADD {med:.4f} m "
+              f"(< 0.1); frames beyond 1 m: {far or 'none'}")
+        check(int(cr["n_accepted"]) > 0 and float(cr["add_0_1d"]) >= 0.95 and med < 0.1,
+              f"crane ADD with GT keypoints: ADD-0.1d {float(cr['add_0_1d'])}, median "
+              f"{med} m, accepted {int(cr['n_accepted'])}")
+        # The dumper through RANSAC PnP on the model heatmaps, to its end.
+        rs = ev.evaluate_equipment_6dof(batch, pipe.roster, intr, "dumper", stride,
+                                        heatmaps=hm_pred, score_threshold=0.15)
+        check(all(bool(torch.isfinite(v).all()) for v in rs.values()), "RANSAC row not finite")
+        phase("eval", f"batch {i} dumper_ransac_model: " +
+              ", ".join(f"{k} {v.item():.4f}" for k, v in rs.items()))
+    eval_launches = {k: fn.launches for k, fn in counters.items()}
     phase("eval", f"2 batches of {B} frames at {RES}^2; launches "
           f"{ {k: fn.launches for k, fn in counters.items()} }")
 
@@ -624,6 +829,8 @@ def main() -> int:
         mc, md = out_c[group], {k: v.cpu() for k, v in out_d[group].items()}
         for k in mc:
             if k.startswith("n_"):
+                if group.startswith("crane") and not torch.equal(md[k], mc[k]):
+                    crane_frames_differ(ev, group, g_dev, g_cpu, stand_in, small_pipe, stride)
                 check(torch.equal(md[k], mc[k]), f"card vs CPU: {group}.{k} {md[k]} != {mc[k]}")
             elif k in dens:
                 den = "n_instances_evaluated" if "multi" in group and k == "add_0_1d" else dens[k]
@@ -636,7 +843,99 @@ def main() -> int:
           f"over its denominator)")
     del m_dev, m_cpu
 
-    # 7. Timing: generate frames/s (every field consumed), min of 4 regions.
+    # 7. The training path (this slice's main path): the port's
+    # `train-eval` in-process at the stage-1 configuration, then a fixed
+    # batch trained to half its first loss, one step on the card against
+    # the plain CPU path, and a checkpoint round trip.
+    for fn in counters.values():
+        fn.launches = 0
+    lines = drive_cli(["train-eval", "--device", "cuda", "--size", str(RES), "--batch",
+                       str(TRAIN_B), "--steps", str(TRAIN_STEPS), "--inner", "1",
+                       "--camera-mix", "0.3", "--eval-frames", str(TRAIN_B),
+                       "--pnp-threshold", "0.15", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    train_launches = {k: fn.launches for k, fn in counters.items()}
+    step_losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines
+                   if ln.startswith("step ")]
+    phase("train", f"train-eval, {TRAIN_STEPS} steps of {TRAIN_B} x {RES}^2, full-width "
+          f"HeatmapBackbone (bf16 body), focal, camera-mix 0.3, then {TRAIN_B} eval frames; "
+          f"launches {train_launches}; losses {step_losses}")
+    check(len(step_losses) == TRAIN_STEPS and all(math.isfinite(v) for v in step_losses),
+          "train-eval: a step's loss is missing or not finite")
+    check(all(train_launches[k] == TRAIN_STEPS + 1 for k in datagen),
+          f"train-eval: a datagen kernel did not launch once a step and once for the "
+          f"eval batch: {train_launches}")
+    check(train_launches["peak_decode"] >= 2, "train-eval: the peak kernel did not launch")
+    missing = [p for p in TRAIN_EVAL_LINES if not any(ln.startswith(p) for ln in lines)]
+    check(not missing, f"train-eval did not print: {missing}")
+    launches = {k: {"generate": launches.get(k), "eval": eval_launches[k],
+                    "train_eval": train_launches[k]} for k in counters}
+
+    from constructionsceneposeestimation_tpu_torch.config import TrainConfig
+    from constructionsceneposeestimation_tpu_torch.train import checkpoint
+    from constructionsceneposeestimation_tpu_torch.train import loop as train_loop
+
+    fcfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES),
+                  train=TrainConfig(batch_size=TRAIN_B, steps=30, warmup_steps=5, loss="focal",
+                                    camera_mix=0.3))
+    tpipe = Pipeline(fcfg, device=dev)
+    state = train_loop.create_train_state(fcfg, pose_net.make_model(device=dev))
+    tstep = train_loop.make_train_step(fcfg, state.model, tpipe)
+    fixed = tstep.generate(SEED + 7, range(TRAIN_B))
+    fixed_losses = []
+    for _ in range(30):
+        state, m = tstep.train_on_batch(state, *fixed)
+        fixed_losses.append(m["loss"])
+    fixed_losses = torch.stack(fixed_losses).tolist()
+    phase("train", f"one fixed batch of {TRAIN_B} x {RES}^2, 30 steps, warmup 5: losses "
+          f"{[round(v, 4) for v in fixed_losses]}; last / first "
+          f"{fixed_losses[-1] / fixed_losses[0]:.4f} (< 0.5)")
+    check(fixed_losses[-1] < 0.5 * fixed_losses[0], "the fixed batch's loss did not halve")
+
+    ck_dir = ROOT / "build" / "smoke_checkpoint"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    mgr = checkpoint.CheckpointManager(str(ck_dir), save_every=0)
+    check(mgr.maybe_save(state, force=True), "checkpoint not written")
+    restored = mgr.restore(train_loop.create_train_state(
+        fcfg, pose_net.make_model(device=dev, seed=1)))
+    same = (restored.step == state.step
+            and restored.scheduler.last_epoch == state.scheduler.last_epoch
+            and all(torch.equal(a, b) for a, b in zip(restored.model.state_dict().values(),
+                                                     state.model.state_dict().values()))
+            and tensors_equal(restored.optimizer.state_dict()["state"],
+                              state.optimizer.state_dict()["state"]))
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    phase("train", f"checkpoint round trip on the card (step {state.step}): parameters, "
+          f"AdamW moments and counts, schedule bit-equal: {same}")
+    check(same, "checkpoint round trip is not bit-equal")
+    del state, restored, fixed, tstep
+
+    # One step on the card against the plain CPU path: the same weights, the
+    # same batch and augment draws, the full-width backbone in f32 at 4 x 128^2.
+    scfg = Config(pipeline=PipelineConfig(render_width=128, render_height=128),
+                  train=TrainConfig(batch_size=4, loss="focal"))
+    g_host = Pipeline(scfg, device="cpu").make_generate_fn(camera_mix=0.3)(SEED, range(20, 24))
+    d_host = preprocess.augment_draws(SEED, range(20, 24), 128, 128, "cpu")
+    grads, step_loss = {}, {}
+    for where in (dev, torch.device("cpu")):
+        st = train_loop.create_train_state(scfg, pose_net.make_model(device=where,
+                                                                     dtype=torch.float32))
+        bs = train_loop.BatchStep(scfg, tpipe.roster)
+        step_loss[where.type] = bs.forward_backward(
+            st, FrameBatch(*(v.to(where) for v in g_host)),
+            preprocess.AugmentDraws(*(v.to(where) for v in d_host))).item()
+        grads[where.type] = {n: p.grad.detach().cpu() for n, p in st.model.named_parameters()}
+    loss_rel = abs(step_loss["cuda"] - step_loss["cpu"]) / abs(step_loss["cpu"])
+    grad_rel = max((torch.linalg.norm(grads["cuda"][n] - g) /
+                    torch.clamp_min(torch.linalg.norm(g), 1e-30)).item()
+                   for n, g in grads["cpu"].items())
+    phase("train", f"one step, card vs plain CPU path (4 x 128^2, f32 body): loss "
+          f"{step_loss['cuda']:.6f} vs {step_loss['cpu']:.6f}, relative {loss_rel:.2e} (< 1e-3); "
+          f"worst gradient |d| / |g| {grad_rel:.2e} (< 1e-2) over {len(grads['cpu'])} tensors")
+    check(loss_rel < 1e-3 and grad_rel < 1e-2, "training step: card vs CPU")
+    del grads
+
+    # 8. Timing: generate frames/s (every field consumed), min of 4 regions.
     def consume(fb):
         return sum(v.float().sum() if v.dtype != torch.float32
                    else torch.nan_to_num(v, posinf=0.0).sum() for v in fb)
@@ -680,6 +979,7 @@ def main() -> int:
     phase("time", f"evaluation step {B} x {RES}^2 (preprocess, forward, every evaluator on GT "
           f"and model heatmaps): regions {[round(x, 3) for x in region_ms]} ms; min "
           f"{best:.3f} ms = {B * 1000.0 / best:.1f} frames/s on {card}")
+    train_timing(dev, card)
     phase("time", f"peak_decode on the model heatmaps: kernel {peak_model_ms:.4f} ms at "
           f"(64 x 71, 128, 128), K = {K_PEAKS}, on {card}")
     hm_ms = results["heatmap_targets"]["ms"]
@@ -700,7 +1000,8 @@ def main() -> int:
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "launches": launches[name]["train_eval"], "launches_by_path": launches[name],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "call_ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": None} for name, r in results.items()]}
     print(json.dumps(kernels_line), flush=True)

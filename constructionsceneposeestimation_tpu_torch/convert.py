@@ -1,7 +1,8 @@
 """Convert the JAX package's state into the port's, through numpy.
 
-The "weights" of the two slices: one sampled scene, camera and light, one
-``FrameBatch``, or one flax parameter tree, handed to both packages.
+The "weights" of the slices: one sampled scene, camera and light, one
+``FrameBatch``, one flax parameter tree, or one training state (flax
+parameters with optax ``adamw``'s moments), handed to both packages.
 Inputs are anything ``np.asarray`` accepts (numpy or JAX arrays), read by
 attribute or key, so this module imports no JAX.
 """
@@ -127,3 +128,28 @@ def pose_net_params(flax_params, model: backbone._Backbone) -> Dict[str, torch.T
         raise ValueError(f"flax tree does not match the model: {sorted(set(sd) ^ set(want))}")
     return {k: torch.as_tensor(np.array(v, np.float32), device=want[k].device)
             for k, v in sd.items()}
+
+
+def train_state(state, model: backbone._Backbone, cfg):
+    """A JAX ``TrainState`` (flax ``params``; ``opt_state`` the optax
+    ``adamw`` chain (ScaleByAdamState(count, mu, nu), EmptyState,
+    ScaleByScheduleState(count)); ``step``) -> the port's ``TrainState`` on
+    ``model``, which takes the parameters. AdamW's moments and update count
+    come from ``mu``, ``nu`` and ``count`` (converted like the parameters),
+    the schedule's position from the schedule state's count."""
+    from .train import loop
+
+    adam, _, sched_state = state.opt_state
+    model.load_state_dict(pose_net_params(state.params, model))
+    opt, sched = loop.make_optimizer(cfg, model.parameters())
+    mu, nu = pose_net_params(adam.mu, model), pose_net_params(adam.nu, model)
+    count = float(np.asarray(adam.count))
+    for name, p in model.named_parameters():
+        opt.state[p] = {  # fused AdamW keeps its count on the card
+            "step": torch.tensor(count, device=p.device if p.is_cuda else "cpu"),
+            "exp_avg": torch.empty_like(p).copy_(mu[name]),
+            "exp_avg_sq": torch.empty_like(p).copy_(nu[name])}
+    sched.last_epoch = int(np.asarray(sched_state.count))
+    for g in opt.param_groups:
+        g["lr"] = sched.lr_lambdas[0](sched.last_epoch)
+    return loop.TrainState(model.train(), opt, sched, int(np.asarray(state.step)))

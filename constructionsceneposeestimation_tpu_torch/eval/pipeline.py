@@ -8,8 +8,10 @@ human and equipment evaluators of ``cmd_train_eval``).
 * ``evaluate_human_pck``: the worker's 17 COCO channels, DARK or
   soft-argmax.
 * ``evaluate_equipment_6dof`` / ``_multi``: decoded (or GT) keypoints ->
-  PnP or the ground-prior solve -> ADD / ADD-0.1d against the GT pose from
-  the labels.
+  PnP, RANSAC PnP or the ground-prior solve -> ADD / ADD-0.1d against the
+  GT pose from the labels.
+* ``evaluate_crane_6dof``: the crane's four parts through the
+  FK-constrained joint solve, per-part ADD / ADD-0.1d.
 * ``evaluate_model``: the evaluation step of ``cmd_train_eval`` on one
   batch: preprocess, forward, then every evaluator above on the GT and the
   model heatmaps (``evaluate_heatmaps``).
@@ -178,16 +180,15 @@ def _template_points(class_name: str, device) -> Tensor:
 def evaluate_equipment_6dof(batch, roster, intr: cam_mod.Intrinsics, class_name: str = "dumper",
                             stride: float = 4.0, use_gt_keypoints: bool = False,
                             heatmaps: Optional[Tensor] = None, score_threshold: float = 0.3,
-                            rmse_gate_px: float = 8.0, use_ransac: bool = True,
+                            rmse_gate_px: float = 8.0, inlier_px: float = 10.0,
+                            use_ransac: bool = True, ransac_scores: Optional[Tensor] = None,
                             ground_prior: bool = False) -> Dict[str, Tensor]:
     """PnP pose recovery + ADD for the single instance of ``class_name``.
     ``use_gt_keypoints=True`` feeds the projected GT keypoints to the solver
     (the pipeline's error floor); otherwise ``heatmaps`` (default: the GT
-    heatmaps) are decoded with DARK. The RANSAC branch is not ported yet."""
-    if use_ransac and not use_gt_keypoints and not ground_prior:
-        raise NotImplementedError(
-            "solve_pnp_ransac is not ported yet (ROADMAP.md): pass ground_prior=True "
-            "or use_ransac=False")
+    heatmaps) are decoded with DARK. Decoded keypoints go through RANSAC
+    unless ``use_ransac=False`` or ``ground_prior``: ``ransac_scores`` (B,
+    32, K) are its Gumbel draws, else ``ops/pnp.gumbel`` draws them."""
     idx = [i for i, n in enumerate(roster.inst_class_names) if n == class_name]
     if len(idx) != 1:
         raise ValueError(f"{class_name}: expected exactly one instance; use "
@@ -214,6 +215,9 @@ def evaluate_equipment_6dof(batch, roster, intr: cam_mod.Intrinsics, class_name:
     R_wp = rotation.matrix_from_quat_xyzw(pose7[..., 3:])
     if ground_prior:
         res = pnp_ops.solve_ground_pose(Xb, x, w, R_wp, pose7[..., :3])
+    elif use_ransac and not use_gt_keypoints:
+        res = pnp_ops.solve_pnp_ransac(Xb, x, w, ransac_scores,
+                                       inlier_thresh=inlier_px * px2n)
     else:
         res = pnp_ops.solve_pnp(Xb, x, w)
     R_gt, t_gt = gt_camera_frame_pose(roster, batch, o)
@@ -288,10 +292,89 @@ def evaluate_equipment_6dof_multi(batch, roster, intr: cam_mod.Intrinsics,
     }
 
 
+def crane_solve(batch, roster, intr: cam_mod.Intrinsics, stride: float = 4.0,
+                use_gt_keypoints: bool = False, heatmaps: Optional[Tensor] = None,
+                score_threshold: float = 0.3) -> pnp_ops.CranePnPResult:
+    """The crane solve of every frame of ``evaluate_crane_6dof``: its four
+    parts' keypoints (the projected GT ones, or ``heatmaps`` decoded with
+    DARK, weighted by score above ``score_threshold``) through
+    ``ops/pnp.solve_crane_pose`` with the camera of ``camera_pose7``."""
+    s0, s1 = roster.crane_slice
+    if s1 - s0 != 4:
+        raise ValueError("roster must carry the 4 crane part instances")
+    dev = batch.kpt_uv.device
+    kpts_local = roster.tensor("inst_kpts", dev)[s0:s1]  # (4, Kmax, 3)
+    kpt_valid = roster.tensor("inst_kpt_valid", dev)[s0:s1]  # (4, Kmax)
+    if use_gt_keypoints:
+        uv = batch.kpt_uv[:, s0:s1]  # (B, 4, Kmax, 2)
+        w = (batch.kpt_visible[:, s0:s1] & kpt_valid).float()
+    else:
+        hms = heatmaps if heatmaps is not None else batch.heatmaps
+        uv_all, score = decode_heatmaps(hms, stride)  # (B, C, 2), (B, C)
+        ch = _channels(roster, dev)[s0:s1]  # (4, Kmax), -1 pads
+        B = uv_all.shape[0]
+        uv = uv_all.index_select(1, ch.clamp_min(0).reshape(-1)).reshape(B, 4, ch.shape[1], 2)
+        sc = score.index_select(1, ch.clamp_min(0).reshape(-1)).reshape(B, 4, ch.shape[1])
+        w = torch.where((sc >= score_threshold) & kpt_valid & (ch >= 0), sc, 0.0)
+    x = pnp_ops.normalize_pixels(uv, intr.fx, intr.fy, intr.cx, intr.cy)
+    pose7 = batch.camera_pose7
+    R_wp = rotation.matrix_from_quat_xyzw(pose7[..., 3:])
+    return pnp_ops.solve_crane_pose(kpts_local, x, w, R_wp, pose7[..., :3])
+
+
+def evaluate_crane_6dof(batch, roster, intr: cam_mod.Intrinsics, stride: float = 4.0,
+                        use_gt_keypoints: bool = False, heatmaps: Optional[Tensor] = None,
+                        score_threshold: float = 0.3,
+                        rmse_gate_px: float = 8.0) -> Dict[str, Tensor]:
+    """The articulated crane: an FK-constrained fit of (x, y, column yaw,
+    boom pitch, telescopic extension) over all four parts' keypoints at once
+    (``ops/pnp.solve_crane_pose``), then per-part ADD / ADD-0.1d on each
+    part's box corners against the GT part poses of the labels. Keypoints
+    are the projected GT ones or ``heatmaps`` (default: the GT heatmaps)
+    decoded with DARK. A frame counts when the solve is valid and passes
+    the pixel-calibrated reprojection gate. The camera rotation comes from
+    ``camera_pose7``, so the batch must not be ``bug_compatible``."""
+    s0, s1 = roster.crane_slice
+    part_names = roster.inst_class_names[s0:s1]
+    dev = batch.kpt_uv.device
+    res = crane_solve(batch, roster, intr, stride, use_gt_keypoints, heatmaps, score_threshold)
+    accepted = res.valid & (res.rmse <= rmse_gate_px * (1.0 / float(intr.fx)))
+    out: Dict[str, Tensor] = {
+        "n_valid": torch.sum(res.valid),
+        "n_accepted": torch.sum(accepted),
+        "rmse": torch.sum(torch.where(res.valid, res.rmse, 0.0))
+        / torch.clamp_min(torch.sum(res.valid), 1),
+    }
+    adds, add01s = [], []
+    for pi, name in enumerate(part_names):
+        o = s0 + pi
+        model_pts = metrics.aabb_corners(roster.inst_aabb_min[o], roster.inst_aabb_max[o], dev)
+        R_gt, t_gt = gt_camera_frame_pose(roster, batch, o)
+        add = metrics.add_metric(res.R[:, pi], res.t[:, pi], R_gt, t_gt, model_pts)
+        gate = accepted & batch.inst_visible[:, o]
+        out[f"add_mean_{name}"] = (torch.sum(torch.where(gate, add, 0.0))
+                                   / torch.clamp_min(torch.sum(gate), 1))
+        out[f"add_0_1d_{name}"] = metrics.add_accuracy(add, metrics.model_diameter(model_pts),
+                                                       gate)
+        adds.append(out[f"add_mean_{name}"])
+        add01s.append(out[f"add_0_1d_{name}"])
+    out["add_mean"] = torch.mean(torch.stack(adds))
+    out["add_0_1d"] = torch.mean(torch.stack(add01s))
+    return out
+
+
+def channel_scores(hm: Tensor, class_name: str = "dumper") -> Dict[str, Tensor]:
+    """What the model scores a class's channels: the peak of each of its
+    maps (B, C_class), as ``cmd_train_eval``'s dumper line reports it."""
+    lo, hi = pose_net.class_channel_slices()[class_name]
+    s = torch.amax(hm[:, lo:hi], dim=(-1, -2))
+    return {"mean": s.mean(), "max": s.max(), "ge_0_3": (s >= 0.3).float().mean(),
+            "ge_0_15": (s >= 0.15).float().mean()}
+
+
 def evaluate_model(model, batch, roster, intr: cam_mod.Intrinsics, stride: float,
                    loss: str = "focal", pnp_threshold: float = 0.15) -> tuple:
-    """The evaluation step of ``cmd_train_eval`` (without the crane) on one
-    batch: frames preprocessed at their own size with no augmentation (the
+    """The evaluation step of ``cmd_train_eval`` on one batch: frames preprocessed at their own size with no augmentation (the
     network's input size is the render size), the network's forward
     under ``torch.inference_mode()`` (bf16 autocast in the body, an f32
     head), its output mapped to heatmaps, then every evaluator on the GT
@@ -329,4 +412,9 @@ def evaluate_heatmaps(batch, hm: Tensor, roster, intr: cam_mod.Intrinsics, strid
                                                                   stride)
         out["dumper_multi_model"] = evaluate_equipment_6dof_multi(
             batch, roster, intr, "dumper", stride, heatmaps=hm, score_threshold=pnp_threshold)
+        out["dumper_scores"] = channel_scores(hm, "dumper")
+        out["crane_gt_kpts"] = evaluate_crane_6dof(batch, roster, intr, stride,
+                                                   use_gt_keypoints=True)
+        out["crane_model"] = evaluate_crane_6dof(batch, roster, intr, stride, heatmaps=hm,
+                                                 score_threshold=pnp_threshold)
     return out

@@ -11,18 +11,25 @@ leading batch dims (the JAX package vmaps over them).
   x, y, yaw free), a yaw grid, then IRLS Gauss-Newton from the best start
   and from its pi-mirror; the lower residual wins.
 
-Both run in f32 with TF32 off in matmuls and convolutions for their whole
-duration, whatever the caller set (``_pin_highest``). RANSAC and the crane
-solve wait (``ROADMAP.md``).
+* ``solve_pnp_ransac``: minimal DLT solves on Gumbel-top-k subsets, all
+  hypotheses at once, then ``solve_pnp`` on the best consensus set.
+* ``solve_crane_pose``: the crane's five joint parameters under its
+  kinematic chain, from a (yaw, pitch) grid through batched
+  Levenberg-Marquardt from the best 8 starts.
+
+All run in f32 with TF32 off in matmuls and convolutions for their whole
+duration, whatever the caller set (``_pin_highest``).
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from ..scene import kinematics
 
 Tensor = torch.Tensor
 
@@ -251,3 +258,210 @@ def solve_ground_pose(points_3d: Tensor, points_2d: Tensor, weights: Tensor, R_w
     return PnPResult(R=torch.where(valid[..., None, None], R_cam, eye3.expand_as(R_cam)),
                      t=torch.where(valid[..., None], t_cam, torch.zeros_like(t_cam)),
                      rmse=rmse, valid=valid)
+
+
+def gumbel(shape, generator: Optional[torch.Generator] = None, device="cpu") -> Tensor:
+    """Standard Gumbel draws, -log(-log(u)) with u in [tiny, 1) as
+    ``jax.random.gumbel`` makes them, from a CPU ``generator`` (a new one
+    seeded 0 when none is given), moved to ``device``."""
+    generator = generator or torch.Generator().manual_seed(0)
+    u = torch.clamp_min(torch.rand(shape, generator=generator), torch.finfo(torch.float32).tiny)
+    return (-torch.log(-torch.log(u))).to(device)
+
+
+def ransac_consensus(points_3d: Tensor, points_2d: Tensor, weights: Tensor, scores: Tensor,
+                     subset: int = 6, inlier_thresh: float = 0.01):
+    """The hypotheses of ``solve_pnp_ransac`` and their consensus: the
+    ``subset`` highest ``scores`` (..., H, N) among the usable points pick
+    each hypothesis's points (ties to the lower index, as ``lax.top_k``),
+    a DLT solves each, and a point is an inlier of a hypothesis within
+    ``inlier_thresh`` of its reprojection and in front of the camera.
+    Returns (best (...,), its inliers (..., N) bool), the first
+    hypothesis of the largest consensus."""
+    usable = weights > 0
+    H, N = scores.shape[-2:]
+    g = torch.where(usable[..., None, :], scores, float("-inf"))
+    idx = torch.sort(g, dim=-1, descending=True, stable=True).indices[..., :subset]
+    lead = idx.shape[:-2]
+    X = torch.take_along_dim(points_3d[..., None, :, :].expand(*lead, H, N, 3),
+                             idx[..., None], -2)
+    x = torch.take_along_dim(points_2d[..., None, :, :].expand(*lead, H, N, 2),
+                             idx[..., None], -2)
+    R_h, t_h = dlt_init(X, x, torch.ones_like(x[..., 0]))  # (..., H, 3, 3), (..., H, 3)
+    proj, p_cam = _project(R_h, t_h, points_3d[..., None, :, :].expand(*lead, H, N, 3))
+    err = torch.linalg.norm(proj - points_2d[..., None, :, :], dim=-1)  # (..., H, N)
+    inlier = (err <= inlier_thresh) & usable[..., None, :] & (p_cam[..., 2] > 0)
+    best = torch.argmax(torch.sum(inlier, -1), -1)
+    return best, torch.take_along_dim(inlier, best[..., None, None], -2)[..., 0, :]
+
+
+@_pin_highest
+def solve_pnp_ransac(points_3d: Tensor, points_2d: Tensor, weights: Tensor,
+                     scores: Optional[Tensor] = None,
+                     generator: Optional[torch.Generator] = None, hypotheses: int = 32,
+                     subset: int = 6, inlier_thresh: float = 0.01, iters: int = 8,
+                     min_points: int = 6) -> PnPResult:
+    """Robust PnP over leading batch dims: ``hypotheses`` minimal DLT
+    subsets drawn by Gumbel top-k over the usable points, batched; the
+    best consensus set's inliers (all usable points when it holds fewer
+    than ``subset``) drive the final ``solve_pnp``. ``scores`` (..., H, N)
+    are the Gumbel draws; without them they are drawn from ``generator``
+    (``gumbel``)."""
+    if scores is None:
+        scores = gumbel(weights.shape[:-1] + (hypotheses, points_3d.shape[-2]), generator,
+                        weights.device)
+    _, inliers = ransac_consensus(points_3d, points_2d, weights, scores, subset, inlier_thresh)
+    enough = torch.sum(inliers, -1) >= subset
+    w_final = torch.where(enough[..., None], inliers.to(weights.dtype) * weights, weights)
+    return solve_pnp(points_3d, points_2d, w_final, iters=iters, min_points=min_points)
+
+
+CRANE_STARTS = 8  # LM starts refined at once
+
+
+class CranePnPResult(NamedTuple):
+    params: Tensor  # (..., 5) [x, y, yaw_col_rad, pitch_rad, ext_m]
+    R: Tensor  # (..., 4, 3, 3) per-part camera-frame rotations (CRANE_PART_ORDER)
+    t: Tensor  # (..., 4, 3)
+    rmse: Tensor  # (...,) weighted reprojection RMSE (normalized coords)
+    valid: Tensor  # (...,) bool
+
+
+def _crane_parts(params: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """(..., 5) -> per-part world (R (..., 4, 3, 3), t (..., 4, 3)) and the
+    column's rotation (..., 3, 3)."""
+    joints = torch.stack([torch.rad2deg(params[..., 2]), torch.rad2deg(params[..., 3]),
+                          params[..., 4]], -1)
+    fk = kinematics.crane_fk(joints)
+    R = torch.stack([fk[p][0] for p in kinematics.CRANE_PART_ORDER], -3)
+    t = torch.stack([fk[p][1] for p in kinematics.CRANE_PART_ORDER], -2)
+    root = torch.stack([params[..., 0], params[..., 1], torch.zeros_like(params[..., 0])], -1)
+    return R, t + root[..., None, :], fk["cranecolumn"][0]
+
+
+def _crane_residuals(params: Tensor, kpts_local: Tensor, P2: Tensor, W: Tensor, Rw: Tensor,
+                     cp: Tensor, jacobian: bool = False):
+    """params (..., 5) -> weighted residuals (..., 4, K, 2) and p_cam
+    (..., 4, K, 3), and with ``jacobian`` their derivative (..., 4, K, 2, 5)
+    by the chain's geometry: x and y translate every part, the column yaw
+    turns every part but the base about the root's vertical, the pitch turns
+    the boom and the telescopic about the pivot's horizontal axis -R_col e_y,
+    the extension slides the telescopic along the boom. The observations
+    P2, W, Rw, cp broadcast against params' leading dims."""
+    R, t, R_col = _crane_parts(params)
+    p_w = torch.einsum("...pij,pkj->...pki", R, kpts_local) + t[..., :, None, :]
+    d = p_w - cp[..., None, None, :]
+    p_cam = torch.einsum("...pkj,...ji->...pki", d, Rw)
+    small = torch.abs(p_cam[..., 2]) < 1e-6
+    z = torch.where(small, 1e-6, p_cam[..., 2])
+    proj = p_cam[..., :2] / z[..., None]
+    r = (proj - P2) * W[..., None]
+    if not jacobian:
+        return r, p_cam
+    zero = torch.zeros_like(p_w[..., 0])
+    one = torch.ones_like(zero)
+    part = torch.arange(4, device=params.device)[:, None]  # (4, 1)
+    rel = p_w - torch.stack([params[..., 0], params[..., 1], torch.zeros_like(params[..., 0])],
+                            -1)[..., None, None, :]
+    turns = (part >= 1).to(p_w.dtype)
+    pitched = (part >= 2).to(p_w.dtype)
+    d_yaw = torch.stack([-rel[..., 1], rel[..., 0], zero], -1) * turns[..., None]
+    axis = -R_col[..., :, 1][..., None, None, :]  # (..., 1, 1, 3)
+    pivot = torch.zeros_like(rel)
+    pivot[..., 2] = kinematics.BASE_TOP_Z + kinematics.COLUMN_HEIGHT
+    d_pitch = torch.linalg.cross(axis.expand_as(rel), rel - pivot, dim=-1) * pitched[..., None]
+    tele = (part == 3).to(p_w.dtype)
+    d_ext = R[..., :, 0][..., :, None, :].expand_as(rel) * tele[..., None]
+    dpw = torch.stack([torch.stack([one, zero, zero], -1), torch.stack([zero, one, zero], -1),
+                       d_yaw, d_pitch, d_ext], -1)  # (..., 4, K, 3, 5)
+    dpc = torch.einsum("...ji,...pkjc->...pkic", Rw, dpw)
+    dz = torch.where(small[..., None], 0.0, dpc[..., 2, :])
+    dproj = (dpc[..., :2, :] - proj[..., None] * dz[..., None, :]) / z[..., None, None]
+    return r, p_cam, dproj * W[..., None, None]
+
+
+@_pin_highest
+def solve_crane_pose(kpts_local: Tensor, points_2d: Tensor, weights: Tensor, R_wp: Tensor,
+                     cam_pos: Tensor, yaw_candidates: int = 16,
+                     pitch_grid: Tuple[float, ...] = (15.0, 35.0, 55.0, 75.0), iters: int = 20,
+                     damping: float = 1e-4, min_points: int = 6) -> CranePnPResult:
+    """FK-constrained crane pose over leading batch dims: (x, y, column
+    yaw, boom pitch, telescopic extension) from the 2D keypoints of all
+    four parts at once. kpts_local (4, K, 3) part-local keypoints in
+    ``kinematics.CRANE_PART_ORDER``; points_2d (..., 4, K, 2) normalized;
+    weights (..., 4, K); R_wp (..., 3, 3) world-from-pinhole; cam_pos
+    (..., 3) world.
+
+    Start: for each of ``yaw_candidates`` x ``pitch_grid`` articulations,
+    the root xy in closed form (the weighted 2D centroid's ray dropped to
+    the height of that articulation's keypoint centroid, less the
+    centroid's horizontal offset); the best ``CRANE_STARTS`` (the
+    near-collinear boom keypoints admit a Necker-flip basin LM cannot
+    leave). Refinement: ``iters`` Levenberg-Marquardt steps on all starts
+    at once, each a step clamped to the joint limits and site bounds,
+    taken only if it lowers the residual (lam x 0.3, floor 1e-8), else
+    lam x 5. The lowest final residual wins; cheirality gates ``valid``.
+    The JAX solve's ``robust_width`` is not used by its code, so it is not
+    here. Returns per-part camera-frame poses, like ``solve_pnp``."""
+    lead = points_2d.shape[:-3]
+    dev, dt = points_2d.device, points_2d.dtype
+    kpts_local = kpts_local.to(dev, dt)
+    valid = torch.sum(weights > 0, (-2, -1)) >= min_points
+    w_safe = torch.where(valid[..., None, None], weights, torch.ones_like(weights))
+    # The observations with a start axis before the parts.
+    P2, W = points_2d.unsqueeze(-4), w_safe.unsqueeze(-3)
+    Rw, cp = R_wp.unsqueeze(-3), cam_pos.unsqueeze(-2)
+
+    wsum = torch.clamp_min(torch.sum(w_safe, (-2, -1)), 1e-9)
+    uvc = torch.sum(points_2d * w_safe[..., None], (-3, -2)) / wsum[..., None]
+    d_w = (R_wp @ torch.cat([uvc, torch.ones_like(uvc[..., :1])], -1)[..., None])[..., 0]
+    yaws = torch.arange(yaw_candidates, dtype=dt, device=dev) * (
+        2.0 * math.pi / yaw_candidates) - math.pi
+    pitches = torch.deg2rad(torch.tensor(pitch_grid, dtype=dt, device=dev))
+    grid = torch.stack(torch.meshgrid(yaws, pitches, indexing="ij"), -1).reshape(-1, 2)
+    n_grid = grid.shape[0]
+    g5 = torch.cat([torch.zeros(n_grid, 2, dtype=dt, device=dev), grid,
+                    torch.ones(n_grid, 1, dtype=dt, device=dev)], -1)
+    R0, t0, _ = _crane_parts(g5)
+    p_root = torch.einsum("gpij,pkj->gpki", R0, kpts_local) + t0[:, :, None, :]  # (G, 4, K, 3)
+    c = torch.einsum("gpkj,...pk->...gj", p_root, w_safe) / wsum[..., None, None]
+    dz = torch.where(torch.abs(d_w[..., 2]) < 1e-6, 1e-6, d_w[..., 2])
+    s = torch.clamp((c[..., 2] - cam_pos[..., None, 2]) / dz[..., None], 0.5, 500.0)
+    xy = (cam_pos[..., None, :] + s[..., None] * d_w[..., None, :])[..., :2] - c[..., :2]
+    cands = torch.cat([xy, grid.expand(*lead, n_grid, 2),
+                       torch.ones(*lead, n_grid, 1, dtype=dt, device=dev)], -1)
+    r, _ = _crane_residuals(cands, kpts_local, P2, W, Rw, cp)
+    order = torch.sort(torch.sum(r * r, (-3, -2, -1)), dim=-1, stable=True).indices
+    params = torch.take_along_dim(cands, order[..., :CRANE_STARTS, None], -2)  # (..., S, 5)
+
+    lo = torch.tensor([-20.0, -20.0, -7.0, math.radians(5.0), -0.5], dtype=dt, device=dev)
+    hi = torch.tensor([20.0, 20.0, 7.0, math.radians(85.0), 2.5], dtype=dt, device=dev)
+    lam = torch.full(params.shape[:-1], damping, dtype=dt, device=dev)
+    eye5 = torch.eye(5, dtype=dt, device=dev)
+    for _ in range(iters):
+        r, _, J = _crane_residuals(params, kpts_local, P2, W, Rw, cp, jacobian=True)
+        Jf = J.reshape(*J.shape[:-4], -1, 5)
+        rf = r.reshape(*r.shape[:-3], -1, 1)
+        H = Jf.transpose(-1, -2) @ Jf + lam[..., None, None] * eye5
+        delta = -torch.linalg.solve_ex(H, Jf.transpose(-1, -2) @ rf)[0][..., 0]
+        cand = torch.minimum(torch.maximum(params + delta, lo), hi)
+        r_new, _ = _crane_residuals(cand, kpts_local, P2, W, Rw, cp)
+        better = torch.sum(r_new * r_new, (-3, -2, -1)) < torch.sum(r * r, (-3, -2, -1))
+        params = torch.where(better[..., None], cand, params)
+        lam = torch.where(better, torch.clamp_min(lam * 0.3, 1e-8), lam * 5.0)
+    r, p_cam = _crane_residuals(params, kpts_local, P2, W, Rw, cp)
+    sq = torch.sum(r * r, (-3, -2, -1))  # (..., S)
+    best = torch.argmin(sq, -1, keepdim=True)
+    params = torch.take_along_dim(params, best[..., None], -2)[..., 0, :]
+    p_cam = torch.take_along_dim(p_cam, best[..., None, None, None], -4)[..., 0, :, :, :]
+    rmse = torch.sqrt(torch.take_along_dim(sq, best, -1)[..., 0] / wsum)
+
+    R_parts, t_parts, _ = _crane_parts(params)
+    R_cam = torch.einsum("...ji,...pjk->...pik", R_wp, R_parts)
+    t_cam = torch.einsum("...ji,...pj->...pi", R_wp, t_parts - cam_pos[..., None, :])
+    valid = valid & (torch.sum(p_cam[..., 2] * (w_safe > 0), (-2, -1)) > 0)
+    eye = torch.eye(3, dtype=dt, device=dev).expand_as(R_cam)
+    return CranePnPResult(params=params,
+                          R=torch.where(valid[..., None, None, None], R_cam, eye),
+                          t=torch.where(valid[..., None, None], t_cam, torch.zeros_like(t_cam)),
+                          rmse=rmse, valid=valid)

@@ -7,11 +7,17 @@ sampled once per batch and gathered: the scene-cadence dedup), a camera
 and a light per frame, then renders and annotates every frame and rasterizes
 the heatmap targets, all with the batch dimension written out.
 
+Cameras: the DR sampler; with ``ladder=True`` the reference's 41-entry
+systematic ladder (frame f takes entry f % 41); with ``camera_mix=p`` (the
+training stream) a per-frame coin picks the ladder entry with probability
+p, else the DR camera.
+
 Random numbers: each scene group and each frame has its own CPU
 ``torch.Generator`` (utils/prng.py), so a frame's scene, camera and light
-do not depend on the batch it falls in. The few thousand uniforms a batch
-consumes are drawn on the host and moved to the device in one copy; the
-sampling arithmetic then runs on the device.
+do not depend on the batch it falls in. The camera-mix coin has a stream
+of its own, so the mix leaves every other draw as it was. The few thousand
+uniforms a batch consumes are drawn on the host and moved to the device in
+one copy; the sampling arithmetic then runs on the device.
 """
 
 from __future__ import annotations
@@ -88,8 +94,18 @@ class Pipeline:
         self.hm_h = pc.render_height // pc.heatmap_stride
         self.num_channels = assets.NUM_KEYPOINT_CHANNELS
 
-    def sample_inputs(self, seed: int, frame_ids: Sequence[int]) -> FrameInputs:
-        """Scenes (one per cadence group present), cameras and lights."""
+    def ladder(self):
+        """The systematic ladder: (cam_pos (N, 3), target (N, 3)) on the
+        CPU, N = ``max_iterations``, drawn from the pipeline seed."""
+        pc = self.cfg.pipeline
+        return camera_sampler.systematic_camera_positions(
+            pc.max_iterations, prng.generator(pc.seed, prng.LADDER_STREAM))
+
+    def sample_inputs(self, seed: int, frame_ids: Sequence[int], ladder=None,
+                      camera_mix: float | None = None) -> FrameInputs:
+        """Scenes (one per cadence group present), cameras and lights.
+        ``ladder`` (cam_pos, target) replaces the DR cameras, or with
+        ``camera_mix`` a frame's coin chooses between the two."""
         cfg = self.cfg
         fids = [int(f) for f in frame_ids]
         cadence = cfg.randomization.cadence_frames
@@ -105,12 +121,23 @@ class Pipeline:
             frame.append(torch.cat([camera_sampler.camera_draws(gen, 1)[0],
                                     lighting_mod.lighting_draws(gen, 1)[0]]))
         host = dict(scene, frame=torch.stack(frame), gidx=torch.tensor(gidx, dtype=torch.float32))
+        if ladder is not None:
+            n = ladder[0].shape[0]
+            idx = torch.tensor([f % n for f in fids])
+            host["ladder_cam"], host["ladder_tgt"] = ladder[0][idx], ladder[1][idx]
+            if camera_mix is not None:
+                host["coin"] = torch.cat([torch.rand(1, generator=prng.mix_generator(seed, f))
+                                          for f in fids])
         dev = _to_device(host, self.device)
 
         poses, _ = placement.randomize_scene(dev, self.roster, cfg.scene, cfg.randomization,
                                              articulate_crane=True)
         n_cam = camera_sampler.CAMERA_DRAWS
         cam_pos, target = camera_sampler.cameras_from_draws(dev["frame"][:, :n_cam], cfg.camera)
+        if ladder is not None:
+            use = (dev["coin"] < camera_mix) if camera_mix is not None else None
+            cam_pos, target = camera_sampler.mix_cameras(
+                use, dev["ladder_cam"], dev["ladder_tgt"], cam_pos, target)
         lit = lighting_mod.lighting_from_draws(dev["frame"][:, n_cam:], cfg.lighting)
         return FrameInputs(poses.index(dev["gidx"].long()), cam_pos, target, lit)
 
@@ -138,14 +165,20 @@ class Pipeline:
             kpt_visible=ann.kpt_visible, kpt_in_image=ann.kpt_in_image, heatmaps=hms,
             pointcloud_count=ann.pointcloud_count)
 
-    def make_generate_fn(self, include_heatmaps: bool = True):
+    def make_generate_fn(self, ladder: bool = False, include_heatmaps: bool = True,
+                         camera_mix: float | None = None):
         """``generate(seed: int, frame_ids) -> FrameBatch``.
 
-        ``include_heatmaps=False`` (the dataset-writing path) returns a
-        zero-channel heatmap array instead of rasterizing targets."""
+        ``ladder=True`` takes the systematic ladder's cameras; ``camera_mix``
+        (training streams) a per-frame Bernoulli(p) choice of the ladder
+        over the DR sampler. ``include_heatmaps=False`` (the dataset-writing
+        path) returns a zero-channel heatmap array instead of rasterizing
+        targets."""
+        cams = self.ladder() if ladder or camera_mix is not None else None
+
         def generate(seed: int, frame_ids: Sequence[int]) -> FrameBatch:
             fids = torch.as_tensor([int(f) for f in frame_ids], dtype=torch.int32)
-            inputs = self.sample_inputs(seed, fids.tolist())
+            inputs = self.sample_inputs(seed, fids.tolist(), cams, camera_mix)
             return self.render(fids.to(self.device), inputs, include_heatmaps)
 
         return generate

@@ -75,6 +75,16 @@ def sample_camera_batch(gen: torch.Generator, n: int,
     return cameras_from_draws(camera_draws(gen, n), cfg)
 
 
+def mix_cameras(use_ladder, ladder_cam: Tensor, ladder_tgt: Tensor, dr_cam: Tensor,
+                dr_tgt: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per frame, the ladder view where ``use_ladder`` (B,) bool holds, else
+    the DR view; ``use_ladder=None`` takes the ladder everywhere."""
+    if use_ladder is None:
+        return ladder_cam, ladder_tgt
+    u = use_ladder[:, None]
+    return torch.where(u, ladder_cam, dr_cam), torch.where(u, ladder_tgt, dr_tgt)
+
+
 def systematic_camera_positions(num_frames: int, gen: torch.Generator) -> Tuple[Tensor, Tensor]:
     """(cam_positions (N, 3), targets (N, 3)) with the reference ladder's
     semantics: key positions, then 5 rings of 8 points (40% of targets

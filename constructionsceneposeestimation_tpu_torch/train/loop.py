@@ -1,0 +1,186 @@
+"""Heatmap-regression training with datagen in the loop (port of the JAX
+``train/loop.py``).
+
+A step generates its batch on the device (``Pipeline.make_generate_fn``,
+under ``torch.no_grad()``: the rendered RGB and the targets are constants
+of the loss), draws the frames' photometric augment, then runs
+``train_on_batch``: preprocess with the augment, the backbone's forward
+(bf16 body, f32 head), the loss, autograd's backward and one AdamW update.
+
+The optimizer is optax's ``adamw`` on ``warmup_cosine_decay_schedule(0,
+lr, warmup, max(steps, warmup + 1))``: ``torch.optim.AdamW`` with one
+parameter group (every tensor decays, GroupNorm's too, as optax masks
+none), eps 1e-8 outside the square root, and a ``LambdaLR`` whose factor
+is the schedule's learning rate at the count of updates made before this
+one. So the first update has lr 0 and changes no weight, while the Adam
+moments advance. ``make_scanned_train_fn`` is a host loop of ``inner``
+steps; a step's randomness depends only on (seed, frame id).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import Config, TrainConfig
+from ..models import pose_net
+from ..ops import preprocess
+from ..parallel import pipeline as pipeline_mod
+from . import losses
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model, its optimizer and schedule, and the updates made."""
+
+    model: nn.Module
+    optimizer: torch.optim.AdamW
+    scheduler: torch.optim.lr_scheduler.LambdaLR
+    step: int = 0
+
+
+def lr_schedule(tc: TrainConfig) -> Callable[[int], float]:
+    """optax ``warmup_cosine_decay_schedule(0, lr, warmup, max(steps,
+    warmup + 1))`` as a function of the update count: linear from 0 to lr
+    over ``warmup_steps``, then a cosine to 0 at ``steps``."""
+    peak, warm = tc.learning_rate, tc.warmup_steps
+    decay = max(tc.steps, warm + 1) - warm
+
+    def lr(count: int) -> float:
+        if count < warm:
+            return -peak * (1.0 - max(count, 0) / warm) + peak
+        c = min(count - warm, decay)
+        return peak * 0.5 * (1.0 + math.cos(math.pi * c / decay))
+
+    return lr
+
+
+def make_optimizer(cfg: Config, params):
+    """(AdamW, LambdaLR) over ``params``: optax ``adamw(schedule,
+    weight_decay=cfg.train.weight_decay)``. The group's base lr is 1, so
+    the scheduler's factor is the learning rate itself."""
+    params = list(params)
+    opt = torch.optim.AdamW(params, lr=1.0, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=cfg.train.weight_decay, fused=params[0].is_cuda)
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_schedule(cfg.train))
+
+
+def create_train_state(cfg: Config, model: nn.Module) -> TrainState:
+    """``model`` (initialized by ``pose_net.make_model(seed=...)``, as the
+    JAX ``create_train_state`` initializes from its key) in train mode, with
+    a fresh optimizer."""
+    opt, sched = make_optimizer(cfg, model.train().parameters())
+    return TrainState(model, opt, sched, 0)
+
+
+def channel_weights_from_roster(roster) -> Tensor:
+    """Per-channel loss weights: 1/sqrt(instances of the channel's class),
+    normalized to mean 1, so crowded classes (fence x20) stop drowning out
+    single-instance equipment channels."""
+    ch = np.asarray(roster.inst_kpt_channel)
+    counts = np.bincount(ch[ch >= 0], minlength=int(ch.max()) + 1).astype(np.float32)
+    w = 1.0 / np.sqrt(np.maximum(counts, 1.0))
+    return torch.as_tensor(w / w.mean())
+
+
+class BatchStep:
+    """``train_on_batch(state, batch, draws) -> (state, metrics)`` for one
+    config: the loss of ``cfg.train.loss`` (the roster's channel weights
+    apply to MSE only, as in the JAX step, where focal takes none), its
+    gradients, then one update. The two halves are separate methods so
+    that they can be timed apart."""
+
+    def __init__(self, cfg: Config, roster):
+        self.cfg = cfg
+        self.ch_w = channel_weights_from_roster(roster) if cfg.train.channel_balance else None
+
+    def loss(self, model: nn.Module, images: Tensor, targets: Tensor) -> Tensor:
+        pred = pose_net.forward(model, images)
+        if self.cfg.train.loss == "focal":
+            return losses.focal_heatmap_loss(pred, targets)
+        w = None if self.ch_w is None else self.ch_w.to(pred.device)
+        return losses.heatmap_mse(pred, targets, w)
+
+    def forward_backward(self, state: TrainState, batch: pipeline_mod.FrameBatch,
+                         draws: preprocess.AugmentDraws) -> Tensor:
+        """Preprocess with the augment, forward, loss, backward: leaves the
+        gradients in the parameters and returns the loss, detached."""
+        pc = self.cfg.pipeline
+        images = preprocess.preprocess_frame(batch.rgb, pc.render_height, pc.render_width,
+                                             augment=True, draws=draws)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss(state.model, images, batch.heatmaps)
+        loss.backward()
+        return loss.detach()
+
+    def update(self, state: TrainState) -> TrainState:
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        return state
+
+    def __call__(self, state: TrainState, batch: pipeline_mod.FrameBatch,
+                 draws: preprocess.AugmentDraws):
+        loss = self.forward_backward(state, batch, draws)
+        metrics = {"loss": loss, "step": state.step,
+                   "visible_objects": torch.mean(torch.sum(batch.inst_visible, -1).float())}
+        return self.update(state), metrics
+
+
+class TrainStep:
+    """``step(state, seed, frame_ids) -> (state, metrics)``: the full
+    datagen + train step. ``generate(seed, frame_ids)`` gives its batch and
+    augment draws; ``train_on_batch`` the rest."""
+
+    def __init__(self, cfg: Config, model: nn.Module, pipe: pipeline_mod.Pipeline):
+        stride = getattr(model, "output_stride", 4)
+        if stride != cfg.pipeline.heatmap_stride:
+            raise ValueError(
+                f"model output stride {stride} != pipeline heatmap_stride "
+                f"{cfg.pipeline.heatmap_stride}: predictions and targets would have "
+                "different spatial shapes")
+        self.cfg, self.pipe = cfg, pipe
+        mix = cfg.train.camera_mix
+        self.gen = pipe.make_generate_fn(ladder=False, camera_mix=mix if mix > 0 else None)
+        self.train_on_batch = BatchStep(cfg, pipe.roster)
+
+    @torch.no_grad()
+    def generate(self, seed: int, frame_ids):
+        pc = self.cfg.pipeline
+        fids = [int(f) for f in frame_ids]
+        batch = self.gen(seed, fids)
+        draws = preprocess.augment_draws(seed, fids, pc.render_height, pc.render_width,
+                                         self.pipe.device)
+        return batch, draws
+
+    def __call__(self, state: TrainState, seed: int, frame_ids):
+        return self.train_on_batch(state, *self.generate(seed, frame_ids))
+
+
+def make_train_step(cfg: Config, model: nn.Module, pipe: pipeline_mod.Pipeline) -> TrainStep:
+    return TrainStep(cfg, model, pipe)
+
+
+def make_scanned_train_fn(cfg: Config, model: nn.Module, pipe: pipeline_mod.Pipeline,
+                          inner_steps: int = 10):
+    """``run(state, seed, start_frame) -> (state, last_metrics)``: ``inner_steps``
+    train steps on the contiguous frames from ``start_frame``, the metrics of
+    the last."""
+    step = make_train_step(cfg, model, pipe)
+    B = cfg.train.batch_size
+
+    def run(state: TrainState, seed: int, start_frame: int):
+        metrics: Dict = {}
+        for i in range(inner_steps):
+            first = int(start_frame) + i * B
+            state, metrics = step(state, seed, range(first, first + B))
+        return state, metrics
+
+    return run

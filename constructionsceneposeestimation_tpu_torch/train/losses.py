@@ -1,0 +1,41 @@
+"""Training losses for heatmap regression (port of the JAX
+``train/losses.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def heatmap_mse(pred: Tensor, target: Tensor, channel_weights: Tensor | None = None) -> Tensor:
+    """Mean-squared error over (B, C, h, w) heatmaps; ``channel_weights``
+    (C,) de-emphasize crowded channels."""
+    err = (pred - target) ** 2
+    if channel_weights is not None:
+        err = err * channel_weights[None, :, None, None]
+    return torch.mean(err)
+
+
+def _clip(x: Tensor, lo: float, hi: float) -> Tensor:
+    """``jnp.clip``, gradient included: a value on a bound passes half the
+    gradient (``torch.clamp`` passes all of it)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def focal_heatmap_loss(pred: Tensor, target: Tensor, alpha: float = 2.0, beta: float = 4.0,
+                       eps: float = 1e-6, channel_weights: Tensor | None = None) -> Tensor:
+    """CenterNet-style penalty-reduced focal loss on logits ``pred``;
+    ``channel_weights`` (C,) scales each leading-axis channel's positive and
+    negative terms."""
+    p = _clip(torch.sigmoid(pred), eps, 1.0 - eps)
+    pos = (target > 0.9).to(pred.dtype)
+    neg_w = torch.pow(1.0 - target, beta)
+    pos_loss = -torch.pow(1.0 - p, alpha) * torch.log(p) * pos
+    neg_loss = -torch.pow(p, alpha) * torch.log(1.0 - p) * neg_w * (1.0 - pos)
+    if channel_weights is not None:
+        w = channel_weights.reshape(channel_weights.shape + (1,) * (pred.ndim - 1))
+        pos_loss = pos_loss * w
+        neg_loss = neg_loss * w
+    n_pos = torch.clamp_min(torch.sum(pos), 1.0)
+    return (torch.sum(pos_loss) + torch.sum(neg_loss)) / n_pos

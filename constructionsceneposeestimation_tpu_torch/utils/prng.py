@@ -14,6 +14,13 @@ import torch
 
 SCENE_STREAM = 1
 FRAME_STREAM = 2
+# What the JAX package draws from a key of its own (the ladder, from the
+# pipeline seed), a key split off the frame's (the camera-mix coin) or one
+# folded per frame (the training augment) has a stream of its own here, so
+# the scene, camera and light draws stay as they were.
+MIX_STREAM = 3
+AUGMENT_STREAM = 4
+LADDER_STREAM = 5
 
 _MASK64 = (1 << 64) - 1
 
@@ -47,3 +54,17 @@ def scene_generator(seed: int, frame_id: int, cadence: int) -> torch.Generator:
 def frame_generator(seed: int, frame_id: int) -> torch.Generator:
     """The per-frame stream (camera, then lighting)."""
     return generator(seed, FRAME_STREAM, int(frame_id))
+
+
+def mix_generator(seed: int, frame_id: int) -> torch.Generator:
+    """The camera-mix coin of a training frame."""
+    return generator(seed, MIX_STREAM, int(frame_id))
+
+
+def augment_generators(seed: int, frame_id: int, device="cpu"):
+    """The photometric augment of a training frame: a CPU generator for its
+    scalars and one on ``device`` (the card's own, where it runs) for its
+    noise image, from two words of the same frame."""
+    noise = torch.Generator(device=device)
+    noise.manual_seed(mix(seed, AUGMENT_STREAM, int(frame_id), 1))
+    return generator(seed, AUGMENT_STREAM, int(frame_id), 0), noise

@@ -345,3 +345,37 @@ def test_peak_kernel_refuses_bad_shapes(dev):
     with pytest.raises(ValueError, match="max_peaks"):
         peak_kernel.peaks_cuda(torch.zeros(1, 16, 16, device=dev), 513)
     assert peak_kernel.peaks_cuda.launches == before
+
+
+def test_training_step_on_cuda_matches_cpu(dev):
+    """``train_on_batch`` on the card against the plain CPU path from the
+    same state (the full-width backbone in f32, 2 frames of 128^2 with the
+    same augment draws): the loss to 1e-3 relative and each gradient to 1e-2
+    of its norm, over two steps (the first has lr 0, the second moves the
+    weights: fused AdamW on the card, the single-tensor one on the CPU)."""
+    from constructionsceneposeestimation_tpu_torch.config import TrainConfig
+    from constructionsceneposeestimation_tpu_torch.models import pose_net
+    from constructionsceneposeestimation_tpu_torch.ops import preprocess
+    from constructionsceneposeestimation_tpu_torch.train import loop
+
+    cfg = Config(pipeline=PipelineConfig(render_width=128, render_height=128),
+                 train=TrainConfig(batch_size=2, steps=10, warmup_steps=1, loss="focal"))
+    batch = Pipeline(cfg, device="cpu").make_generate_fn(camera_mix=0.3)(0, range(2))
+    draws = preprocess.augment_draws(0, range(2), 128, 128)
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        state = loop.create_train_state(cfg, pose_net.make_model(device=where,
+                                                                 dtype=torch.float32))
+        bs = loop.BatchStep(cfg, world.make_roster(cfg.scene))
+        b = FrameBatch(*(v.to(where) for v in batch))
+        d = preprocess.AugmentDraws(*(v.to(where) for v in draws))
+        runs[where.type] = []
+        for _ in range(2):
+            loss = bs.forward_backward(state, b, d).item()
+            runs[where.type].append((loss, {n: p.grad.cpu() for n, p in
+                                            state.model.named_parameters()}))
+            bs.update(state)
+    for (lc, gc), (lp, gp) in zip(runs["cuda"], runs["cpu"]):
+        assert abs(lc - lp) <= 1e-3 * abs(lp)
+        for n, g in gp.items():
+            assert torch.linalg.norm(gc[n] - g) <= 1e-2 * torch.linalg.norm(g), n

@@ -123,9 +123,20 @@ def test_equipment_6dof_matches_jax(setup, kw):
 
 
 def test_equipment_6dof_ransac_waits(setup):
-    _, _, tb, roster, intr, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ev.evaluate_equipment_6dof(tb, roster, intr, "dumper", STRIDE)
+    """The RANSAC branch, which waited for its port, on the decoded GT
+    heatmaps with the Gumbel draws of JAX's keys (a split of PRNGKey(0), a
+    key a frame): its counts equal JAX's (tests/test_torch_crane.py holds
+    the solves frame by frame)."""
+    pipe, jb, tb, roster, intr, _ = setup
+    ref = _jit(jeval.evaluate_equipment_6dof, pipe.roster, pipe.intr, "dumper", STRIDE)(jb)
+    keys = jax.random.split(jax.random.PRNGKey(0), tb.rgb.shape[0])
+    scores = torch.stack([torch.as_tensor(np.asarray(jax.random.gumbel(k, (32, 10))))
+                          for k in keys])
+    got = ev.evaluate_equipment_6dof(tb, roster, intr, "dumper", STRIDE, ransac_scores=scores)
+    assert got.keys() == ref.keys()
+    for k in ("n_valid", "n_accepted"):
+        assert int(got[k]) == int(ref[k]), k
+    assert all(bool(torch.isfinite(v)) for v in got.values())
 
 
 @pytest.mark.parametrize("gt_kpts", [True, False])
@@ -185,6 +196,16 @@ def test_evaluation_step_matches_jax(setup):
     for name in ("decode_floor", "assoc_floor", "human_floor_dark", "human_floor_soft_argmax",
                  "dumper_gt_kpts", "dumper_multi_floor"):
         ref[name] = _floor(setup, name)
+    # The crane rows and the dumper's channel scores, as the JAX cmd_train_eval
+    # computes them (cli.py:293-299, :318-331).
+    ref["crane_gt_kpts"] = _jit(jeval.evaluate_crane_6dof, r, i, STRIDE,
+                                use_gt_keypoints=True)(jb)
+    ref["crane_model"] = _jit(jeval.evaluate_crane_6dof, r, i, STRIDE,
+                              score_threshold=0.15)(jb, jhm)
+    lo, hi = jpose_net.class_channel_slices()["dumper"]
+    d = jnp.max(jhm[:, lo:hi], axis=(-1, -2))
+    ref["dumper_scores"] = {"mean": d.mean(), "max": d.max(), "ge_0_3": (d >= 0.3).mean(),
+                            "ge_0_15": (d >= 0.15).mean()}
     assert got.keys() == ref.keys()
     dens = {"pck": "n_keypoints", "recall": "n_keypoints", "pck_per_kpt": "n_per_kpt",
             "add_0_1d": "n_accepted"}

@@ -124,5 +124,5 @@ def test_preprocess_frame_matches_jax(out_hw):
                                                      *out_hw, augment=False)) for f in rgb])
     assert got.shape == (2, *out_hw, 3)
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # the augment needs its draws (test_torch_train.py)
         preprocess.preprocess_frame(torch.as_tensor(rgb), 32, 48, augment=True)

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's generate step, or of its evaluation
-step, goes, on one GPU.
+"""Where the time of the PyTorch port's generate step, its evaluation step
+or its training step goes, on one GPU.
 
-    python3 tools/profile_torch_generate.py [--path generate|eval] [--batch 64] [--res 512]
-                                            [--out DIR]
+    python3 tools/profile_torch_generate.py [--path generate|eval|train] [--batch B]
+                                            [--res 512] [--out DIR]
 
 ``--path generate`` (the default) profiles ``Pipeline.make_generate_fn``;
 ``--path eval`` profiles ``eval/pipeline.evaluate_model`` (preprocess, the
 full-width backbone in bf16, every evaluator on the GT and the model
-heatmaps) on one generated batch. Runs a warm-up and times 3 steps on the
+heatmaps) on one generated batch; ``--path train`` the stage-1 training
+step (``train/loop.make_train_step``: generate with camera-mix 0.3, the
+augment, the full-width backbone's forward and backward, focal loss,
+AdamW). ``--batch`` defaults to 64 frames, 32 for ``train``. Runs a warm-up and times 3 steps on the
 host clock, then profiles 3 more with ``torch.profiler`` (CPU and CUDA
 activities): prints the device time by kernel name and the device's busy
 share of the profiled wall time (the profiler slows the host, so that
@@ -29,8 +32,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=["generate", "eval"], default="generate")
-    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--path", choices=["generate", "eval", "train"], default="generate")
+    ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--res", type=int, default=512)
     ap.add_argument("--out", default="build/profile")
     ap.add_argument("--top", type=int, default=25)
@@ -42,15 +45,26 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_generate: needs a CUDA device", file=sys.stderr)
         return 3
-    from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
+    from constructionsceneposeestimation_tpu_torch.config import (Config, PipelineConfig,
+                                                                  TrainConfig)
     from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
 
+    B = args.batch or (32 if args.path == "train" else 64)
     cfg = Config(pipeline=PipelineConfig(render_width=args.res, render_height=args.res,
-                                         batch_size=args.batch))
+                                         batch_size=B),
+                 train=TrainConfig(batch_size=B, loss="focal", camera_mix=0.3))
     pipe = Pipeline(cfg, device="cuda")
     gen = pipe.make_generate_fn()
-    B = args.batch
-    if args.path == "generate":
+    if args.path == "train":
+        from constructionsceneposeestimation_tpu_torch.models import pose_net
+        from constructionsceneposeestimation_tpu_torch.train import loop
+
+        holder = [loop.create_train_state(cfg, pose_net.make_model(device="cuda"))]
+        train_step = loop.make_train_step(cfg, holder[0].model, pipe)
+
+        def step(i):
+            holder[0], _ = train_step(holder[0], 1, range(i * B, (i + 1) * B))
+    elif args.path == "generate":
         def step(i):
             gen(0, range(i * B, (i + 1) * B))
     else:
