@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA GPU: datagen,
-evaluation and training (``train-eval``).
+evaluation, training (``train-eval``) and dataset writing (``generate``,
+``train-eval --data-dir``).
 
     python3 chip_smoke.py
 
@@ -59,7 +60,27 @@ Run from the root of a checkout. Phases, each reported on its own line:
    bit; one step on the card against the plain CPU path (4 x 128^2, f32
    body, the same batch and augment draws): loss to 1e-3 relative, each
    gradient to 1e-2 of its norm;
-8. timing: generate frames/s, the forward and the evaluation step with
+8. ``[generate]``, in a temporary directory removed at the end: the fastio
+   route and the output's filesystem; ``cli.main(["generate", ...,
+   "--format", "packed", "--heatmaps"])`` for 160 frames of 512^2 in
+   batches of 64 (3 shards, the last padded from 32 to 64): the three
+   datagen kernels must launch 3 times, every shard array must be
+   bit-equal to ``make_generate_fn`` on the same padded ids and the
+   manifest must list frames 0-159; a second run must find nothing
+   pending and launch nothing; with frames 64-127 dropped from the
+   manifest a third run must regenerate that chunk only, bit-equal; the
+   reference tree of 16 frames in batches of 8 must be complete (label
+   keys in the reference order, ``pointcloud_count`` rows plus a header,
+   (512, 512) int32 masks, the summary's count); ``train-eval --data-dir``
+   on the shards, 20 steps of 32 x 512^2, full width, focal, then 32
+   evaluation frames: every loss finite, the datagen kernels launched
+   exactly once (the evaluation batch), the peak kernel at least twice,
+   every line of the JAX command printed; one data step on the card
+   against the plain CPU path (4 shard rows of 128^2, f32 body, the same
+   augment draws): loss to 1e-3 relative, gradients to 1e-2 of their
+   norm; frames/s incl. writes of both formats and the data step's img/s
+   with its share waiting on the reader;
+9. timing: generate frames/s, the forward and the evaluation step with
    CUDA events; the training step's ms and img/s, its split between
    datagen, forward+backward and the optimizer, its device-busy share and
    launches (torch.profiler) and its peak memory; each kernel's device time
@@ -68,8 +89,9 @@ Run from the root of a checkout. Phases, each reported on its own line:
    on the model heatmaps), and the heatmap kernel's write rate.
 
 Prints the kernels' JSON line (``ms`` the device time, ``call_ms`` the
-wrapper's call by CUDA events, ``launches`` those of the training path's
-run and ``launches_by_path`` each path's), then the card line, then as the
+wrapper's call by CUDA events, ``launches`` those of this slice's paths,
+``generate_cli`` plus ``train_data_dir``, and ``launches_by_path`` each
+path's), then the card line, then as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
 line, on any failure or when no GPU is present. Imports nothing of JAX.
 """
@@ -83,6 +105,7 @@ import math
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -95,6 +118,11 @@ K_PEAKS = 8
 # 32 frames of 512^2 a step, cut to 20 steps.
 TRAIN_B = 32
 TRAIN_STEPS = 20
+# The generate slice: the command's defaults (JAX cli.py:832-864) at the
+# datagen batch, 160 frames = 3 chunks, the last padded from 32 to 64; the
+# reference tree at 16 frames in batches of 8.
+GEN_FRAMES = 160
+REF_FRAMES, REF_B = 16, 8
 # The line heads `train-eval` prints after training (the JAX cli.py:262-331).
 TRAIN_EVAL_LINES = (
     "decode-floor PCK@0.5:", "model PCK@0.5:", "assoc decode floor:",
@@ -360,6 +388,268 @@ def train_timing(dev, card):
           f"the step, the model, its AdamW state and the earlier phases' tensors) on {card}")
 
 
+def shard_arrays(path):
+    """Every array of an npz shard."""
+    import numpy as np
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def host_fields(batch):
+    """A card ``FrameBatch`` as ``save_shard`` stores it: numpy, heatmaps f16."""
+    import numpy as np
+    out = {k: v.cpu().numpy() for k, v in batch._asdict().items() if k != "kpt_in_image"}
+    out["heatmaps"] = out["heatmaps"].astype(np.float16)
+    return out
+
+
+def reset(counters):
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read(counters):
+    """Every kernel wrapper's launch count."""
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def generate_phase(dev, card, counters, datagen, work):
+    """The port's ``generate`` at 512^2: packed shards with heatmaps (bit-equal
+    to direct generate on the same padded ids), resume, and the reference
+    tree. Returns the packed run's launches and its directory."""
+    import numpy as np
+    import torch
+    from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
+    from constructionsceneposeestimation_tpu_torch.io import native, resume, schema
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
+
+    df = subprocess.run(["df", "-T", str(work)], capture_output=True, text=True).stdout
+    fs = " ".join(df.splitlines()[-1].split()[:2]) if df else "df -T failed"
+    phase("generate", f"output under {work}, filesystem {fs} (df -T); fastio: {native.route()}")
+
+    out = work / "packed"
+    argv = ["generate", "--device", dev.type, "--size", str(RES), "--batch", str(B), "--frames",
+            str(GEN_FRAMES), "--format", "packed", "--heatmaps", "--seed", str(SEED),
+            "--out", str(out)]
+    chunks = [list(range(lo, min(lo + B, GEN_FRAMES))) for lo in range(0, GEN_FRAMES, B)]
+    shards = [f"shard_{c[0]:06d}.npz" for c in chunks]
+    reset(counters)
+    t0 = time.perf_counter()
+    lines = drive_cli(argv)
+    packed_s = time.perf_counter() - t0
+    gen_launches = read(counters)
+    check(lines[0] == f"generating {GEN_FRAMES}/{GEN_FRAMES} frames (resume skipped 0, "
+          "format=packed)" and lines[-1].startswith(f"done: {GEN_FRAMES} frames in "),
+          f"generate printed {lines}")
+    done_line = lines[-1]
+    check(all(gen_launches[k] == len(chunks) for k in datagen)
+          and gen_launches["peak_decode"] == 0,
+          f"generate --format packed: launches {gen_launches}, want {len(chunks)} a kernel")
+    check(sorted(p.name for p in out.glob("shard_*.npz")) == shards, "shard files")
+    check(resume.load_manifest(str(out)) == set(range(GEN_FRAMES)), "resume manifest")
+    # Direct generate on the same padded ids: every array bit-equal.
+    cfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES, batch_size=B,
+                                         max_iterations=GEN_FRAMES, seed=SEED))
+    gen = Pipeline(cfg, device=dev).make_generate_fn()
+    direct = []
+    for name, c in zip(shards, chunks):
+        with torch.no_grad():
+            want = host_fields(gen(SEED, c + [c[-1]] * (B - len(c))))
+        got = shard_arrays(out / name)
+        check(got.keys() == want.keys() and all(got[k].dtype == v.dtype
+                                                and np.array_equal(got[k], v)
+                                                for k, v in want.items()),
+              f"{name} differs from make_generate_fn on the same ids")
+        direct.append(want)
+    size_mb = sum((out / s).stat().st_size for s in shards) / 1e6
+    phase("generate", f"--format packed --heatmaps: {GEN_FRAMES} frames in {' '.join(shards)} "
+          f"({size_mb:.1f} MB; the last holds {len(chunks[-1])} frames and "
+          f"{B - len(chunks[-1])} repeats of frame {chunks[-1][-1]}); launches {gen_launches}; "
+          f"every array bit-equal to make_generate_fn on the same padded ids; manifest "
+          f"0-{GEN_FRAMES - 1}")
+
+    # Resume: nothing pending, then one chunk dropped from the manifest.
+    reset(counters)
+    lines = drive_cli(argv)
+    again = read(counters)
+    check(lines[0] == f"generating 0/{GEN_FRAMES} frames (resume skipped {GEN_FRAMES}, "
+          "format=packed)" and not any(again.values()), f"second run: {lines[0]}, {again}")
+    stamps = {s: (out / s).stat().st_mtime_ns for s in shards}
+    (out / shards[1]).unlink()
+    Path(resume.manifest_path(str(out))).write_text(json.dumps(
+        {"completed_ranges": [[0, B], [2 * B, GEN_FRAMES]]}))
+    reset(counters)
+    lines = drive_cli(argv)
+    third = read(counters)
+    got = shard_arrays(out / shards[1])
+    same = got.keys() == direct[1].keys() and all(np.array_equal(got[k], v)
+                                                 for k, v in direct[1].items())
+    kept = all((out / s).stat().st_mtime_ns == stamps[s] for s in (shards[0], shards[2]))
+    check(lines[0] == f"generating {B}/{GEN_FRAMES} frames (resume skipped {GEN_FRAMES - B}, "
+          "format=packed)" and all(third[k] == 1 for k in datagen) and same and kept
+          and resume.load_manifest(str(out)) == set(range(GEN_FRAMES)),
+          f"resume of frames {B}-{2 * B - 1}: {lines[0]}, launches {third}, bit-equal {same}, "
+          f"other shards untouched {kept}")
+    phase("generate", f"second run: 0/{GEN_FRAMES} pending, no launch; frames {B}-{2 * B - 1} "
+          f"dropped from the manifest: a third run regenerated that chunk only (launches "
+          f"{third}), bit-equal, the other shards untouched")
+
+    # The reference tree.
+    ref_out = work / "reference"
+    t0 = time.perf_counter()
+    lines = drive_cli(["generate", "--device", dev.type, "--size", str(RES), "--batch", str(REF_B),
+                       "--frames", str(REF_FRAMES), "--format", "reference", "--seed",
+                       str(SEED), "--out", str(ref_out)])
+    ref_s = time.perf_counter() - t0
+    summary = json.loads((ref_out / "logs" / "generation_summary.json").read_text())
+    stats = summary["statistics"]
+    check(stats["total_frames_attempted"] == stats["successful_frames"] == REF_FRAMES
+          and [f["frame_id"] for f in summary["frame_logs"]] == list(range(REF_FRAMES)),
+          f"summary: {stats}")
+    keys = list(schema.label_dict(0, [0.0] * 7, {}, [], 1, 1))
+    n_bytes, n_points = 0, 0
+    for log in summary["frame_logs"]:
+        fid = log["frame_id"]
+        files = [ref_out / "rgb" / f"rgb_{fid:06d}.png",
+                 ref_out / "depth" / f"depth_{fid:06d}.csv",
+                 ref_out / "depth" / f"depth_{fid:06d}.png",
+                 ref_out / "pointcloud" / f"pointcloud_{fid:06d}.txt",
+                 ref_out / "labels" / f"label_{fid:06d}.json",
+                 ref_out / "labels" / f"instance_mask_{fid:06d}.npy"]
+        check(all(f.is_file() for f in files), f"frame {fid}: a file is missing")
+        n_bytes += sum(f.stat().st_size for f in files)
+        label = json.loads(files[4].read_text())
+        check(list(label) == keys and label["frame_id"] == fid, f"label {fid}: {list(label)}")
+        with open(files[3], "rb") as f:
+            rows = sum(1 for _ in f)
+        n_points += log["pointcloud"]["points"]
+        check(rows == log["pointcloud"]["points"] + 1,
+              f"pointcloud {fid}: {rows} lines for {log['pointcloud']['points']} points")
+        mask = np.load(files[5])
+        check(mask.shape == (RES, RES) and mask.dtype == np.int32, f"mask {fid}")
+    phase("generate", f"--format reference: {REF_FRAMES} frames at {RES}^2 in batches of "
+          f"{REF_B}: every file of the tree ({n_bytes / 1e6:.1f} MB), label keys in the "
+          f"reference order, {n_points} point-cloud rows (pointcloud_count + a header each), "
+          f"masks ({RES}, {RES}) int32, the summary counts {stats['total_frames_attempted']}")
+    phase("time", f"generate --format packed --heatmaps, {GEN_FRAMES} frames of {RES}^2 in "
+          f"batches of {B}: {GEN_FRAMES / packed_s:.1f} frames/s incl. writes ({packed_s:.3f} s "
+          f"for the command; its line: '{done_line}'); --format reference, {REF_FRAMES} frames "
+          f"in batches of {REF_B}: {REF_FRAMES / ref_s:.1f} frames/s incl. writes ({ref_s:.3f} "
+          f"s); filesystem {fs}; on {card}")
+    return gen_launches, out
+
+
+def data_dir_phase(dev, card, counters, datagen, shards, work):
+    """``train-eval --data-dir`` on the packed shards (20 steps of 32 x 512^2,
+    full width, focal, then 32 fresh evaluation frames), one data step on
+    the card against the CPU, and the data step's timing. Returns the
+    launches of ``train-eval --data-dir``."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.config import (Config, PipelineConfig,
+                                                                  TrainConfig)
+    from constructionsceneposeestimation_tpu_torch.io import reader
+    from constructionsceneposeestimation_tpu_torch.models import pose_net
+    from constructionsceneposeestimation_tpu_torch.ops import preprocess
+    from constructionsceneposeestimation_tpu_torch.train import loop as train_loop
+
+    # Every step's loss: the CLI prints every 50th; the step the CLI builds
+    # is wrapped to keep each.
+    losses, make_step = [], train_loop.make_data_train_step
+
+    def recording(cfg, model):
+        step = make_step(cfg, model)
+
+        def run(state, seed, rgb, heatmaps):
+            state, m = step(state, seed, rgb, heatmaps)
+            losses.append(m["loss"])
+            return state, m
+        return run
+
+    train_loop.make_data_train_step = recording
+    reset(counters)
+    try:
+        lines = drive_cli(["train-eval", "--device", dev.type, "--size", str(RES), "--batch",
+                           str(TRAIN_B), "--steps", str(TRAIN_STEPS), "--data-dir", str(shards),
+                           "--eval-frames", str(TRAIN_B), "--pnp-threshold", "0.15", "--seed",
+                           str(SEED)])
+    finally:
+        train_loop.make_data_train_step = make_step
+    launches = read(counters)
+    losses = torch.stack(losses).tolist() if losses else []
+    phase("generate", f"train-eval --data-dir, {TRAIN_STEPS} steps of {TRAIN_B} x {RES}^2 read "
+          f"from the shards, full-width HeatmapBackbone (bf16 body), focal, then {TRAIN_B} eval "
+          f"frames; launches {launches}; losses {[round(v, 4) for v in losses]}")
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+          "train-eval --data-dir: a step's loss is missing or not finite")
+    check(all(launches[k] == 1 for k in datagen),
+          f"train-eval --data-dir: the datagen kernels must launch for the eval batch only: "
+          f"{launches}")
+    check(launches["peak_decode"] >= 2, "train-eval --data-dir: the peak kernel did not launch")
+    steps = [ln for ln in lines if ln.startswith("step ")]
+    check(len(steps) == 1 and steps[0].startswith(f"step {TRAIN_STEPS}: loss=")
+          and steps[0].endswith(" img/s avg, offline shards)"), f"step lines {steps}")
+    missing = [p for p in TRAIN_EVAL_LINES if not any(ln.startswith(p) for ln in lines)]
+    check(not missing, f"train-eval --data-dir did not print: {missing}")
+
+    # One data step on the card against the plain CPU path: shard rows at
+    # 128^2, the same augment draws, the full-width backbone in f32.
+    small = work / "small"
+    drive_cli(["generate", "--device", dev.type, "--size", "128", "--batch", "4", "--frames", "4",
+               "--format", "packed", "--heatmaps", "--seed", str(SEED), "--out", str(small)])
+    rows = next(reader.ShardDataset(str(small)).batches(4, fields=["rgb", "heatmaps"], seed=SEED))
+    scfg = Config(pipeline=PipelineConfig(render_width=128, render_height=128),
+                  train=TrainConfig(batch_size=4, loss="focal"))
+    d_host = preprocess.augment_draws(SEED + 1, range(4), 128, 128, "cpu")
+    grads, step_loss = {}, {}
+    for tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        state = train_loop.create_train_state(
+            scfg, pose_net.make_model(device=where, dtype=torch.float32))
+        step = train_loop.make_data_train_step(scfg, state.model)
+        step.draws = lambda seed, s, b, where=where: preprocess.AugmentDraws(
+            *(v.to(where) for v in d_host))
+        state, m = step(state, SEED + 1, rows["rgb"], rows["heatmaps"])
+        step_loss[tag] = m["loss"].item()
+        grads[tag] = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()}
+    loss_rel = abs(step_loss["card"] - step_loss["cpu"]) / abs(step_loss["cpu"])
+    grad_rel = max((torch.linalg.norm(grads["card"][n] - g) /
+                    torch.clamp_min(torch.linalg.norm(g), 1e-30)).item()
+                   for n, g in grads["cpu"].items())
+    phase("generate", f"one data step, card vs plain CPU path (4 shard rows of 128^2, f16 "
+          f"heatmaps, f32 body): loss {step_loss['card']:.6f} vs {step_loss['cpu']:.6f}, "
+          f"relative {loss_rel:.2e} (< 1e-3); worst gradient |d| / |g| {grad_rel:.2e} (< 1e-2)")
+    check(loss_rel < 1e-3 and grad_rel < 1e-2, "data step: card vs CPU")
+    del grads
+
+    # The data step's time at 32 x 512^2: the wait on the reader (the next
+    # batch: a shard read ahead on its thread, then the rows shuffled) and
+    # the step (to the card, augment draws, forward, backward, AdamW), by
+    # the host clock with the loss read each step.
+    tcfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES),
+                  train=TrainConfig(batch_size=TRAIN_B, steps=32000, loss="focal"))
+    state = train_loop.create_train_state(tcfg, pose_net.make_model(device=dev))
+    step = train_loop.make_data_train_step(tcfg, state.model)
+    batches = reader.ShardDataset(str(shards)).batches(TRAIN_B, fields=["rgb", "heatmaps"],
+                                                       seed=SEED, epochs=4)
+    wait = total = 0.0
+    for i in range(11):
+        t0 = time.perf_counter()
+        b = next(batches)
+        t1 = time.perf_counter()
+        state, m = step(state, SEED + 1, b["rgb"], b["heatmaps"])
+        check(math.isfinite(m["loss"].item()), "timed data step: loss not finite")
+        if i >= 3:  # 3 steps of warm-up
+            wait += t1 - t0
+            total += time.perf_counter() - t0
+    batches.close()
+    ms = total * 1000.0 / 8
+    phase("time", f"data step {TRAIN_B} x {RES}^2 from the shards (read, to the card, augment, "
+          f"full-width forward and backward, focal, AdamW): {ms:.3f} ms a step = "
+          f"{TRAIN_B * 1000.0 / ms:.1f} img/s (mean of 8 after 3 of warm-up, host clock); "
+          f"waiting on the reader {100.0 * wait / total:.1f}% of it; on {card}")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "constructionsceneposeestimation_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout; the port's package is missing", file=sys.stderr)
@@ -597,11 +887,10 @@ def main() -> int:
     counters = {"pixel_sweep": sweep_kernel.sweep_cuda, "rgb_epilogue": rgb_kernel.rgb_cuda,
                 "heatmap_targets": hm.heatmap_cuda, "peak_decode": peak_kernel.peaks_cuda}
     datagen = ("pixel_sweep", "rgb_epilogue", "heatmap_targets")
-    for fn in counters.values():
-        fn.launches = 0
+    reset(counters)
     batches = []
     for i in range(3):
-        before = {k: fn.launches for k, fn in counters.items()}
+        before = read(counters)
         batches.append(gen(SEED, range(i * B, (i + 1) * B)))
         torch.cuda.synchronize()
         rose = {k: counters[k].launches - before[k] for k in datagen}
@@ -738,10 +1027,9 @@ def main() -> int:
     # GT and the model heatmaps.
     stride = cfg.pipeline.heatmap_stride
     eval_seed = SEED + 1000
-    for fn in counters.values():
-        fn.launches = 0
+    reset(counters)
     for i in range(2):
-        before = {k: fn.launches for k, fn in counters.items()}
+        before = read(counters)
         batch = gen(eval_seed, range(i * B, (i + 1) * B))
         out, hm_pred = ev.evaluate_model(model, batch, pipe.roster, intr, stride, "focal",
                                          pnp_threshold=0.15)
@@ -791,9 +1079,8 @@ def main() -> int:
         check(all(bool(torch.isfinite(v).all()) for v in rs.values()), "RANSAC row not finite")
         phase("eval", f"batch {i} dumper_ransac_model: " +
               ", ".join(f"{k} {v.item():.4f}" for k, v in rs.items()))
-    eval_launches = {k: fn.launches for k, fn in counters.items()}
-    phase("eval", f"2 batches of {B} frames at {RES}^2; launches "
-          f"{ {k: fn.launches for k, fn in counters.items()} }")
+    eval_launches = read(counters)
+    phase("eval", f"2 batches of {B} frames at {RES}^2; launches {eval_launches}")
 
     # The card against the plain CPU path: the same FrameBatch and the same
     # weights, the forward in f32, held to 1e-3. The evaluators' counts are
@@ -847,14 +1134,13 @@ def main() -> int:
     # `train-eval` in-process at the stage-1 configuration, then a fixed
     # batch trained to half its first loss, one step on the card against
     # the plain CPU path, and a checkpoint round trip.
-    for fn in counters.values():
-        fn.launches = 0
+    reset(counters)
     lines = drive_cli(["train-eval", "--device", "cuda", "--size", str(RES), "--batch",
                        str(TRAIN_B), "--steps", str(TRAIN_STEPS), "--inner", "1",
                        "--camera-mix", "0.3", "--eval-frames", str(TRAIN_B),
                        "--pnp-threshold", "0.15", "--seed", str(SEED)])
     torch.cuda.synchronize()
-    train_launches = {k: fn.launches for k, fn in counters.items()}
+    train_launches = read(counters)
     step_losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines
                    if ln.startswith("step ")]
     phase("train", f"train-eval, {TRAIN_STEPS} steps of {TRAIN_B} x {RES}^2, full-width "
@@ -935,7 +1221,20 @@ def main() -> int:
     check(loss_rel < 1e-3 and grad_rel < 1e-2, "training step: card vs CPU")
     del grads
 
-    # 8. Timing: generate frames/s (every field consumed), min of 4 regions.
+    # 8. [generate]: the generate command to shards and to the reference
+    # tree, resume, then train-eval --data-dir on the shards, in a temporary
+    # directory (under TMPDIR) that is removed at the end.
+    work = Path(tempfile.mkdtemp(prefix="cspe_smoke_generate_"))
+    try:
+        gen_cli_launches, shards = generate_phase(dev, card, counters, datagen, work)
+        data_dir_launches = data_dir_phase(dev, card, counters, datagen, shards, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for k in counters:
+        launches[k]["generate_cli"] = gen_cli_launches[k]
+        launches[k]["train_data_dir"] = data_dir_launches[k]
+
+    # 9. Timing: generate frames/s (every field consumed), min of 4 regions.
     def consume(fb):
         return sum(v.float().sum() if v.dtype != torch.float32
                    else torch.nan_to_num(v, posinf=0.0).sum() for v in fb)
@@ -1000,7 +1299,8 @@ def main() -> int:
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": launches[name]["train_eval"], "launches_by_path": launches[name],
+         "launches": launches[name]["generate_cli"] + launches[name]["train_data_dir"],
+         "launches_by_path": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "call_ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": None} for name, r in results.items()]}

@@ -184,6 +184,43 @@ class Pipeline:
         return generate
 
 
+class HostCopy:
+    """A ``FrameBatch`` on its way to the host, for the writers.
+
+    On the card every field is copied into pinned host memory on a stream
+    of its own, which first waits on an event recorded where the batch's
+    work ends. So the copy of batch i is queued before batch i+1 is
+    generated and runs beside it, where a copy on the generating stream
+    would wait for batch i+1's kernels. ``wait()`` blocks on that copy's
+    event only and returns the batch as numpy views of the pinned buffers.
+    A batch on the CPU is its own host copy (numpy views)."""
+
+    def __init__(self, batch: FrameBatch):
+        self._done = None
+        if batch.frame_id.device.type != "cuda":
+            self._host = list(batch)
+            return
+        dev = batch.frame_id.device
+        made = torch.cuda.Event()
+        made.record(torch.cuda.current_stream(dev))
+        stream = torch.cuda.Stream(dev)
+        stream.wait_event(made)
+        self._host = []
+        with torch.cuda.stream(stream):
+            for v in batch:
+                h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                h.copy_(v, non_blocking=True)
+                v.record_stream(stream)  # not reused by the allocator before the copy ends
+                self._host.append(h)
+        self._done = torch.cuda.Event()
+        self._done.record(stream)
+
+    def wait(self) -> FrameBatch:
+        if self._done is not None:
+            self._done.synchronize()
+        return FrameBatch(*(v.numpy() for v in self._host))
+
+
 def _to_device(host: Dict[str, Tensor], device: torch.device) -> Dict[str, Tensor]:
     """Move a dict of float tensors to ``device`` in one copy."""
     flat = torch.cat([v.reshape(-1) for v in host.values()]).to(device)

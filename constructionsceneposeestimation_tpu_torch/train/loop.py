@@ -15,13 +15,15 @@ is the schedule's learning rate at the count of updates made before this
 one. So the first update has lr 0 and changes no weight, while the Adam
 moments advance. ``make_scanned_train_fn`` is a host loop of ``inner``
 steps; a step's randomness depends only on (seed, frame id).
+``make_data_train_step`` is the same step on batches read from packed
+shards (``io/reader.ShardDataset``) instead of generated.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -31,6 +33,7 @@ from ..config import Config, TrainConfig
 from ..models import pose_net
 from ..ops import preprocess
 from ..parallel import pipeline as pipeline_mod
+from ..scene import world as world_mod
 from . import losses
 
 Tensor = torch.Tensor
@@ -108,10 +111,11 @@ class BatchStep:
         w = None if self.ch_w is None else self.ch_w.to(pred.device)
         return losses.heatmap_mse(pred, targets, w)
 
-    def forward_backward(self, state: TrainState, batch: pipeline_mod.FrameBatch,
+    def forward_backward(self, state: TrainState, batch: pipeline_mod.FrameBatch | ShardBatch,
                          draws: preprocess.AugmentDraws) -> Tensor:
         """Preprocess with the augment, forward, loss, backward: leaves the
-        gradients in the parameters and returns the loss, detached."""
+        gradients in the parameters and returns the loss, detached. Reads
+        ``batch.rgb`` and ``batch.heatmaps`` only."""
         pc = self.cfg.pipeline
         images = preprocess.preprocess_frame(batch.rgb, pc.render_height, pc.render_width,
                                              augment=True, draws=draws)
@@ -166,6 +170,43 @@ class TrainStep:
 
 def make_train_step(cfg: Config, model: nn.Module, pipe: pipeline_mod.Pipeline) -> TrainStep:
     return TrainStep(cfg, model, pipe)
+
+
+class ShardBatch(NamedTuple):
+    """The two fields of a shard batch that a training step reads."""
+
+    rgb: Tensor  # (B, H, W, 3) uint8
+    heatmaps: Tensor  # (B, C, h, w) f32
+
+
+class DataTrainStep:
+    """``step(state, seed, rgb, heatmaps) -> (state, metrics)``: one training
+    step on a batch read from packed shards (numpy or tensors: rgb u8,
+    heatmaps f16 or f32), moved to the model's device, the heatmaps to f32.
+    Frame ids ``state.step * B + arange(B)`` key the augment draws, as the
+    JAX step folds ``state.step * B + i`` into its seed."""
+
+    def __init__(self, cfg: Config, model: nn.Module):
+        self.cfg = cfg
+        self.device = next(model.parameters()).device
+        self.train_on_batch = BatchStep(cfg, world_mod.make_roster(cfg.scene))
+
+    def draws(self, seed: int, step: int, batch: int) -> preprocess.AugmentDraws:
+        pc = self.cfg.pipeline
+        return preprocess.augment_draws(seed, range(step * batch, (step + 1) * batch),
+                                        pc.render_height, pc.render_width, self.device)
+
+    def __call__(self, state: TrainState, seed: int, rgb, heatmaps):
+        shard = ShardBatch(torch.as_tensor(rgb).to(self.device),
+                           torch.as_tensor(heatmaps).to(self.device).float())
+        draws = self.draws(seed, state.step, shard.rgb.shape[0])
+        metrics = {"loss": self.train_on_batch.forward_backward(state, shard, draws),
+                   "step": state.step}
+        return self.train_on_batch.update(state), metrics
+
+
+def make_data_train_step(cfg: Config, model: nn.Module) -> DataTrainStep:
+    return DataTrainStep(cfg, model)
 
 
 def make_scanned_train_fn(cfg: Config, model: nn.Module, pipe: pipeline_mod.Pipeline,

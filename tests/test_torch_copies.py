@@ -102,8 +102,9 @@ def test_convert_scene_pose_and_lighting():
 
 
 def test_port_imports_no_jax():
-    """Importing the port, running one tiny generate and one tiny evaluation
-    step load neither jax nor the JAX package."""
+    """Importing the port, running one tiny generate, one tiny evaluation
+    step and the ``generate`` command to shards, read back, load neither jax
+    nor the JAX package."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(2)\n"
@@ -121,6 +122,15 @@ def test_port_imports_no_jax():
         "out, hm = ev.evaluate_model(model, b, pipe.roster, pipe.intr, 4.0)\n"
         "assert hm.shape == b.heatmaps.shape and bool(torch.isfinite(hm).all())\n"
         "assert all(bool(torch.isfinite(v).all()) for r in out.values() for v in r.values())\n"
+        "import tempfile, contextlib, io\n"
+        "from constructionsceneposeestimation_tpu_torch import cli\n"
+        "from constructionsceneposeestimation_tpu_torch.io import dataset_writer, reader\n"
+        "d = tempfile.mkdtemp()\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    cli.main(['generate', '--device', 'cpu', '--size', '64', '--frames', '2',\n"
+        "              '--batch', '2', '--format', 'packed', '--heatmaps', '--out', d])\n"
+        "assert len(reader.ShardDataset(d)) == 2\n"
+        "import shutil; shutil.rmtree(d)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "       or m.startswith('constructionsceneposeestimation_tpu.')\n"
         "       or m == 'constructionsceneposeestimation_tpu']\n"

@@ -379,3 +379,28 @@ def test_training_step_on_cuda_matches_cpu(dev):
         assert abs(lc - lp) <= 1e-3 * abs(lp)
         for n, g in gp.items():
             assert torch.linalg.norm(gc[n] - g) <= 1e-2 * torch.linalg.norm(g), n
+
+
+def test_host_copy_equals_cpu(dev):
+    """``HostCopy`` of a card batch: pinned host buffers filled on a copy
+    stream of their own, bit-equal to ``.cpu()`` of each field, dtypes and
+    shapes kept, with the heatmaps left out (zero channels) too; the copy
+    of batch i is already queued when batch i+1 is generated."""
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import HostCopy
+
+    cfg = Config(scene=SceneConfig(n_cones=2, n_trees=1, n_fence_panels=4),
+                 pipeline=PipelineConfig(render_width=128, render_height=128))
+    pipe = Pipeline(cfg, device=dev)
+    for hms in (True, False):
+        gen = pipe.make_generate_fn(include_heatmaps=hms)
+        first = gen(0, range(4))
+        copy = HostCopy(first)
+        second = gen(0, range(4, 8))  # queued behind the copy, not before it
+        host = copy.wait()
+        for name, h, v in zip(FrameBatch._fields, host, first):
+            assert isinstance(h, np.ndarray), name
+            ref = v.cpu().numpy()
+            assert h.dtype == ref.dtype and h.shape == ref.shape, name
+            np.testing.assert_array_equal(h, ref, err_msg=name)
+        assert all(t.is_pinned() for t in copy._host if t.numel() > 0)
+        assert not torch.equal(second.rgb, first.rgb)

@@ -1,8 +1,9 @@
 """The port's training step against the JAX package's: the losses, the
 roster's channel weights, optax's schedule and ``adamw``, the photometric
-augment, the camera-mix choice, and ``train_on_batch`` on one JAX-generated
-``FrameBatch`` (``convert.frame_batch``) from flax's f32 weights and optax's
-state (``convert.train_state``). Where JAX draws randomness, the test draws
+augment, the camera-mix choice, and ``train_on_batch`` and the shard-fed
+``make_data_train_step`` on one JAX-generated ``FrameBatch``
+(``convert.frame_batch``) from flax's f32 weights and optax's state
+(``convert.train_state``). Where JAX draws randomness, the test draws
 it from the same key and hands it to the port.
 
 Tolerances (f32 on both sides): the losses 2e-6 relative (sums of 3584
@@ -290,3 +291,33 @@ def test_train_on_batch_matches_jax(jbatch, jstate, kind):
         np.testing.assert_allclose(p.detach().numpy(), ref_sd[name].numpy(), atol=1e-5,
                                    err_msg=name)
     assert st.step == int(js_i.step) == 3
+
+
+def test_data_train_step_matches_jax(jbatch, jstate):
+    """``make_data_train_step`` against the JAX package's on the rows of a
+    shard (rgb u8, heatmaps f16 as ``save_shard`` stores them) over 3
+    steps, JAX's augment draws (keys fold_in(seed, step * B + i)) handed to
+    the port's step: the losses 1e-5 relative, the parameters 1e-5."""
+    jm, js = jstate
+    tm = backbone.LiteBackbone(71, dtype=torch.float32)
+    state = convert.train_state(js, tm, CFG)
+    rgb = np.array(jbatch.rgb)  # writable, as the reader's rows are
+    hm16 = np.asarray(jbatch.heatmaps).astype(np.float16)
+    seed = jax.random.PRNGKey(7)
+    step = loop.make_data_train_step(CFG, tm)
+    # The port's own draws key frames step * B + arange(B).
+    own = step.draws(11, 2, B)
+    ref = preprocess.augment_draws(11, range(2 * B, 3 * B), RES, RES)
+    assert all(torch.equal(a, b) for a, b in zip(own, ref))
+    step.draws = lambda _seed, s, b: _jax_draws(seed, s * b + np.arange(b), (RES, RES, 3))
+    jstep = jax.jit(jloop.make_data_train_step(JCFG, jm))
+    for i in range(3):
+        js, jmet = jstep(js, seed, jnp.asarray(rgb), jnp.asarray(hm16, jnp.float32))
+        state, met = step(state, 0, rgb, hm16)
+        np.testing.assert_allclose(met["loss"].item(), float(jmet["loss"]), rtol=1e-5)
+        assert met["step"] == int(jmet["step"]) == i
+    ref_sd = convert.pose_net_params(js.params, tm)
+    for name, p in tm.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), ref_sd[name].numpy(), atol=1e-5,
+                                   err_msg=name)
+    assert state.step == int(js.step) == 3
