@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA GPU: datagen,
-evaluation, training (``train-eval``) and dataset writing (``generate``,
-``train-eval --data-dir``).
+evaluation, training (``train-eval``), dataset writing (``generate``,
+``train-eval --data-dir``) and the two-stage deployment path
+(``train-crop``, ``train-detect``, ``infer``).
 
     python3 chip_smoke.py
 
@@ -80,7 +81,27 @@ Run from the root of a checkout. Phases, each reported on its own line:
    augment draws): loss to 1e-3 relative, gradients to 1e-2 of their
    norm; frames/s incl. writes of both formats and the data step's img/s
    with its share waiting on the reader;
-9. timing: generate frames/s, the forward and the evaluation step with
+9. ``[two-stage]``, in a temporary directory removed at the end: the port's
+   ``train-crop`` in-process at the runs of record's widths (the dumper:
+   32 x 512^2 frames a step, crop 128, stride 4, focal; the crane:
+   ``--per-part --stride 2 --crop 192``, 4 crops a frame), 20 steps each
+   with a checkpoint, then ``train-detect --det-stride 2 --n-dumpers 2
+   --n-humans 3 --det-analysis`` with both crop checkpoints (20 steps of
+   32 x 512^2, 64 evaluation frames), then ``infer --det-stride 2
+   --crane-stride 2 --crane-crop 192 --track`` on 32 frames in batches of
+   16; every loss finite, the sweep and RGB kernels launched once a step
+   (or infer batch) and once for each evaluation batch, the heatmap kernel
+   once a crop step (the crop targets), every line of the JAX commands
+   printed, 32 records in the JAX key order; the heatmap kernel against
+   its plain version on the crop targets the two crop steps give it,
+   (32, 10, 32, 32) at stride 4 and (128, 28, 96, 96) at stride 2, within
+   2e-4; the card against the plain CPU path on 4 frames of 128^2 with an
+   f32 body: one crop step and one detector step (loss to 1e-3 relative,
+   each gradient to 1e-2 of its norm) and the infer function (boxes and
+   scores to 1e-3, the same detections kept); timing by CUDA events: the
+   dumper, crane and detector steps (ms, img/s), infer frames/s, the
+   heatmap kernel at the crop shapes beside its bound;
+10. timing: generate frames/s, the forward and the evaluation step with
    CUDA events; the training step's ms and img/s, its split between
    datagen, forward+backward and the optimizer, its device-busy share and
    launches (torch.profiler) and its peak memory; each kernel's device time
@@ -90,8 +111,9 @@ Run from the root of a checkout. Phases, each reported on its own line:
 
 Prints the kernels' JSON line (``ms`` the device time, ``call_ms`` the
 wrapper's call by CUDA events, ``launches`` those of this slice's paths,
-``generate_cli`` plus ``train_data_dir``, and ``launches_by_path`` each
-path's), then the card line, then as the
+``train_crop`` (both crop runs), ``train_detect`` and ``infer``, and
+``launches_by_path`` each path's; the heatmap kernel's entry also holds its
+times at the crop shapes), then the card line, then as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
 line, on any failure or when no GPU is present. Imports nothing of JAX.
 """
@@ -123,6 +145,14 @@ TRAIN_STEPS = 20
 # reference tree at 16 frames in batches of 8.
 GEN_FRAMES = 160
 REF_FRAMES, REF_B = 16, 8
+# The two-stage slice: the runs of record (RESULTS_MANIFEST.md:34-40) at 32
+# frames of 512^2 a step, cut to 20 steps; infer on 32 frames in batches of
+# 16 (the command's defaults).
+CROP_ARGS = ("--crop", "128")
+CRANE_ARGS = ("--cls", "crane", "--per-part", "--stride", "2", "--crop", "192")
+DETECT_ARGS = ("--det-stride", "2", "--n-dumpers", "2", "--n-humans", "3", "--det-analysis",
+               "--crane-stride", "2", "--crane-crop", "192")
+INFER_FRAMES, INFER_B = 32, 16
 # The line heads `train-eval` prints after training (the JAX cli.py:262-331).
 TRAIN_EVAL_LINES = (
     "decode-floor PCK@0.5:", "model PCK@0.5:", "assoc decode floor:",
@@ -648,6 +678,305 @@ def data_dir_phase(dev, card, counters, datagen, shards, work):
           f"{TRAIN_B * 1000.0 / ms:.1f} img/s (mean of 8 after 3 of warm-up, host clock); "
           f"waiting on the reader {100.0 * wait / total:.1f}% of it; on {card}")
     return launches
+
+
+def finite_step_losses(lines, steps, tag):
+    """The losses of the ``step N: loss=...`` lines, one a step, all finite."""
+    losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines if ln.startswith("step ")]
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"{tag}: {len(losses)} step lines, losses {losses}")
+    return losses
+
+
+def crop_heatmap_inputs(dev, per_part):
+    """The heatmap kernel's arguments as one crop step gives them: a crop
+    step's batch (32 x 512^2) cut into the dumper's crops (crop 128, stride
+    4) or the crane's per-part crops (crop 192, stride 2)."""
+    from constructionsceneposeestimation_tpu_torch.config import (Config, PipelineConfig,
+                                                                  TrainConfig)
+    from constructionsceneposeestimation_tpu_torch.ops import heatmap as hm
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
+    from constructionsceneposeestimation_tpu_torch.train import crop_loop
+
+    cfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES),
+                 train=TrainConfig(batch_size=TRAIN_B))
+    cls, size, stride = ("crane", 192, 2) if per_part else ("dumper", 128, 4)
+    model = crop_loop.make_crop_model(cls, roster=Pipeline(cfg, device="cpu").roster,
+                                      output_stride=stride, device=dev)
+    step = crop_loop.CropTrainStep(cfg, model, Pipeline(cfg, device=dev), cls, size,
+                                   per_part=per_part)
+    seen, plain_heatmaps = [], hm.heatmaps
+    hm.heatmaps = lambda *a: seen.append(a) or plain_heatmaps(*a)
+    try:
+        step.generate(SEED + 5, range(TRAIN_B))
+    finally:
+        hm.heatmaps = plain_heatmaps
+    check(len(seen) == 1, f"a crop step called the heatmaps {len(seen)} times")
+    return seen[0]
+
+
+def card_vs_cpu_two_stage(dev):
+    """One crop step, one detector step and the infer function on the card
+    against the plain CPU path: 4 ladder frames of 128^2 (two show the
+    dumper, whose crops carry the loss), full-width nets in
+    f32 (the same seeded weights), the same crop and augment draws."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch import cli
+    from constructionsceneposeestimation_tpu_torch.config import (Config, PipelineConfig,
+                                                                  TrainConfig)
+    from constructionsceneposeestimation_tpu_torch.ops import preprocess
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import FrameBatch, Pipeline
+    from constructionsceneposeestimation_tpu_torch.train import crop_loop, detect_loop
+    from constructionsceneposeestimation_tpu_torch.train import loop as train_loop
+
+    cfg = Config(pipeline=PipelineConfig(render_width=128, render_height=128),
+                 train=TrainConfig(batch_size=4, loss="focal"))
+    host_pipe = Pipeline(cfg, device="cpu")
+    ids = range(4, 8)  # ladder views 4 and 5 show the dumper at 128^2
+    g_host = host_pipe.make_generate_fn(ladder=True, include_heatmaps=False)(SEED, ids)
+    crops_host = crop_loop.crop_draws(SEED, ids, 1, 128, "cpu")
+    aug_host = preprocess.augment_draws(SEED, ids, 128, 128, "cpu")
+    f32 = dict(dtype=torch.float32)
+    out = {}
+    for tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        batch = FrameBatch(*(v.to(where) for v in g_host))
+        to = lambda x: type(x)(*(v.to(where) for v in x))
+        # One crop step (the dumper, crop 128, stride 4).
+        model = crop_loop.make_crop_model("dumper", device=where, **f32)
+        state = crop_loop.create_crop_train_state(cfg, model)
+        step = crop_loop.CropTrainStep(cfg, model, Pipeline(cfg, device=where), "dumper", 128)
+        images, targets, w = step.crops(batch, crop_loop.CropDraws(
+            crops_host.jitter.to(where), to(crops_host.augment)))
+        check(float(w.sum()) > 0, "card vs CPU crop step: no dumper in view")
+        crop_loss = step.forward_backward(state, images, targets, w).item()
+        crop_grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        # One detector step (stride 2).
+        det = detect_loop.make_detect_model(output_stride=2, device=where, **f32)
+        dstate = train_loop.create_train_state(cfg, det)
+        det_loss = detect_loop.DetectBatchStep(cfg, det, host_pipe.roster).forward_backward(
+            dstate, batch.rgb, batch, to(aug_host)).item()
+        det_grads = {n: p.grad.detach().cpu() for n, p in det.named_parameters()}
+        # The infer function on the same nets (the crane's per-part crops at
+        # stride 2, crop 192).
+        crane = crop_loop.make_crop_model("crane", roster=host_pipe.roster, output_stride=2,
+                                          device=where, **f32)
+        infer = cli.make_infer_fn(det.eval(), model.eval(), 128, host_pipe.intr,
+                                  host_pipe.roster, 4, crane.eval(), 192, 0.3)
+        o = {k: v.cpu() for k, v in infer(batch.rgb, batch.camera_pose7).items()}
+        out[tag] = (crop_loss, crop_grads, det_loss, det_grads, o)
+    rel = lambda a, b: abs(a - b) / abs(b)
+    worst = lambda ga, gb: max((torch.linalg.norm(ga[n] - g) / torch.clamp_min(
+        torch.linalg.norm(g), 1e-30)).item() for n, g in gb.items())
+    (cl_d, cg_d, dl_d, dg_d, o_d), (cl_c, cg_c, dl_c, dg_c, o_c) = out["card"], out["cpu"]
+    kept_d, kept_c = o_d["scores"] >= 0.3, o_c["scores"] >= 0.3
+    box_err = torch.abs(o_d["boxes"] - o_c["boxes"]).max().item()
+    score_err = torch.abs(o_d["scores"] - o_c["scores"]).max().item()
+    phase("two-stage", f"card vs plain CPU path (4 x 128^2, f32 body): crop step loss "
+          f"{cl_d:.6f} vs {cl_c:.6f}, relative {rel(cl_d, cl_c):.2e} (< 1e-3), worst gradient "
+          f"|d| / |g| {worst(cg_d, cg_c):.2e} (< 1e-2); detector step loss {dl_d:.6f} vs "
+          f"{dl_c:.6f}, relative {rel(dl_d, dl_c):.2e}, worst gradient {worst(dg_d, dg_c):.2e}; "
+          f"infer boxes max |d| {box_err:.2e} px, scores {score_err:.2e} (< 1e-3), kept "
+          f"{int(kept_d.sum())} vs {int(kept_c.sum())} detections, the same: "
+          f"{bool(torch.equal(kept_d, kept_c))}")
+    check(rel(cl_d, cl_c) < 1e-3 and worst(cg_d, cg_c) < 1e-2, "crop step: card vs CPU")
+    check(rel(dl_d, dl_c) < 1e-3 and worst(dg_d, dg_c) < 1e-2, "detector step: card vs CPU")
+    check(box_err < 1e-3 and score_err < 1e-3 and torch.equal(kept_d, kept_c),
+          "infer function: card vs CPU")
+
+
+def step_timing(card, step, state, parts, tag):
+    """ms a step (CUDA events around generate + crops + train, 5 steps after
+    3 of warm-up): min and mean, with img/s."""
+    import torch
+    frame = [0]
+
+    def fids():
+        frame[0] += TRAIN_B
+        return range(frame[0] - TRAIN_B, frame[0])
+
+    for _ in range(3):
+        state, _ = step(state, SEED + 1, fids())
+    steps_ms = []
+    for _ in range(5):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        state, m = step(state, SEED + 1, fids())
+        e1.record()
+        torch.cuda.synchronize()
+        check(math.isfinite(m["loss"].item()), f"{tag}: timed step's loss not finite")
+        steps_ms.append(e0.elapsed_time(e1))
+    best, mean = min(steps_ms), sum(steps_ms) / len(steps_ms)
+    phase("time", f"{tag}, {TRAIN_B} x {RES}^2 frames a step{parts}: steps "
+          f"{[round(x, 3) for x in steps_ms]} ms; min {best:.3f} ms = "
+          f"{TRAIN_B * 1000.0 / best:.1f} img/s, mean {mean:.3f} ms = "
+          f"{TRAIN_B * 1000.0 / mean:.1f} img/s on {card}")
+    return state
+
+
+def two_stage_timing(dev, card):
+    """The crop, crane and detector steps and the infer function timed on
+    the card at the runs of record's widths."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch import cli
+    from constructionsceneposeestimation_tpu_torch.config import (Config, PipelineConfig,
+                                                                  SceneConfig, TrainConfig)
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
+    from constructionsceneposeestimation_tpu_torch.train import crop_loop, detect_loop
+    from constructionsceneposeestimation_tpu_torch.train import loop as train_loop
+
+    cfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES),
+                 train=TrainConfig(batch_size=TRAIN_B, steps=8000, loss="focal"))
+    pipe = Pipeline(cfg, device=dev)
+    crop_model = crop_loop.make_crop_model("dumper", device=dev)
+    step_timing(card, crop_loop.CropTrainStep(cfg, crop_model, pipe, "dumper", 128),
+                crop_loop.create_crop_train_state(cfg, crop_model), ", dumper crops of 128^2",
+                "crop step (generate, crops, targets, augment, full-width forward and backward, "
+                "focal, AdamW)")
+    crane = crop_loop.make_crop_model("crane", roster=pipe.roster, output_stride=2, device=dev)
+    step_timing(card, crop_loop.CropTrainStep(cfg, crane, pipe, "crane", 192, per_part=True),
+                crop_loop.create_crop_train_state(cfg, crane),
+                f", {4 * TRAIN_B} per-part crane crops of 192^2 at stride 2", "crane crop step")
+    dcfg = Config(scene=SceneConfig(n_dumpers=2, n_humans=3),
+                  pipeline=PipelineConfig(render_width=RES, render_height=RES),
+                  train=TrainConfig(batch_size=TRAIN_B, steps=8000, loss="focal"))
+    det = detect_loop.make_detect_model(output_stride=2, device=dev)
+    step_timing(card, detect_loop.make_detect_train_step(dcfg, det, Pipeline(dcfg, device=dev)),
+                train_loop.create_train_state(dcfg, det), ", stride-2 maps of 256^2, "
+                "2 dumpers, 3 workers", "detector step (generate, augment, full-width forward "
+                "and backward, targets, focal + L1, AdamW)")
+    crane.eval()
+    infer = cli.make_infer_fn(det.eval(), crop_model.eval(), 128, pipe.intr, pipe.roster, 4,
+                              crane, 192, 0.3)
+    batch = pipe.make_generate_fn(include_heatmaps=False)(SEED + 2000, range(INFER_B))
+    ms = cuda_ms(lambda: infer(batch.rgb, batch.camera_pose7), iters=5, warmup=2)
+    phase("time", f"infer function, {INFER_B} x {RES}^2 (detector, 4 dumper crops and 4 crane "
+          f"part crops a frame, DARK, ground and crane solves): {ms:.3f} ms = "
+          f"{INFER_B * 1000.0 / ms:.1f} frames/s on {card}")
+
+
+def two_stage_phase(dev, card, counters, work):
+    """``train-crop`` (dumper, crane per part), ``train-detect`` with both
+    crop checkpoints and ``infer`` through the CLI at the runs of record's
+    widths, then the heatmap kernel at the crop shapes and the card against
+    the CPU. Returns the launches per path and the heatmap kernel's times
+    at the crop shapes."""
+    import json as json_mod
+    import torch
+    from constructionsceneposeestimation_tpu_torch.ops import heatmap as hm
+
+    base = ["--device", dev.type, "--size", str(RES), "--batch", str(TRAIN_B), "--steps",
+            str(TRAIN_STEPS), "--inner", "1", "--seed", str(SEED)]
+    ck = {k: str(work / k) for k in ("dumper", "crane", "det")}
+    launches = {}
+    runs = {"dumper": [*CROP_ARGS], "crane": [*CRANE_ARGS]}
+    for name, extra in runs.items():
+        reset(counters)
+        lines = drive_cli(["train-crop", *base, *extra, "--ckpt-dir", ck[name]])
+        torch.cuda.synchronize()
+        launches[name] = read(counters)
+        losses = finite_step_losses(lines, TRAIN_STEPS, f"train-crop {name}")
+        phase("two-stage", f"train-crop {' '.join(extra)}: {TRAIN_STEPS} steps of {TRAIN_B} x "
+              f"{RES}^2 frames, full-width HeatmapBackbone (bf16 body), focal, then 64 eval "
+              f"frames; launches {launches[name]}; losses {[round(v, 4) for v in losses]}")
+        check(all(launches[name][k] == TRAIN_STEPS + 1 for k in ("pixel_sweep", "rgb_epilogue"))
+              and launches[name]["heatmap_targets"] == TRAIN_STEPS
+              and launches[name]["peak_decode"] == 0,
+              f"train-crop {name}: want the sweep and RGB once a step and once for the eval "
+              f"batch, the heatmaps once a step: {launches[name]}")
+        heads = [f"saved checkpoint at step {TRAIN_STEPS} -> {ck[name]}",
+                 f"{'crane' if name == 'crane' else 'dumper'} crop-stage 6DoF: ADD mean "]
+        if name == "crane":
+            heads.append("  per-part err split (t/rot): [")
+        missing = [h for h in heads if not any(ln.startswith(h) for ln in lines)]
+        check(not missing, f"train-crop {name} did not print: {missing}")
+    reset(counters)
+    lines = drive_cli(["train-detect", *base, *DETECT_ARGS, "--crop-ckpt", ck["dumper"],
+                       "--crane-crop-ckpt", ck["crane"], "--eval-frames", "64", "--ckpt-dir",
+                       ck["det"]])
+    torch.cuda.synchronize()
+    launches["detect"] = read(counters)
+    losses = finite_step_losses(lines, TRAIN_STEPS, "train-detect")
+    phase("two-stage", f"train-detect {' '.join(DETECT_ARGS)}: {TRAIN_STEPS} steps of "
+          f"{TRAIN_B} x {RES}^2, 64 eval frames; launches {launches['detect']}; losses "
+          f"{[round(v, 4) for v in losses]}")
+    check(all(launches["detect"][k] == TRAIN_STEPS + 1 for k in ("pixel_sweep", "rgb_epilogue"))
+          and launches["detect"]["heatmap_targets"] == 0
+          and launches["detect"]["peak_decode"] == 0,
+          f"train-detect: want the sweep and RGB once a step and once for the eval batch: "
+          f"{launches['detect']}")
+    heads = ["detector P/R @IoU0.5: ", "  crane parts P/R: [", "  miss split ",
+             "FULL two-stage dumper 6DoF (detector boxes): ",
+             "FULL two-stage multi-dumper 6DoF (detector boxes, 2 instances): ",
+             "FULL two-stage crane 6DoF (detector part boxes): "]
+    missing = [h for h in heads if not any(ln.startswith(h) for ln in lines)]
+    check(not missing, f"train-detect did not print: {missing}")
+    check(any(" mAP@0.5 " in ln for ln in lines), "train-detect did not print mAP")
+
+    poses = work / "poses.jsonl"
+    reset(counters)
+    t0 = time.perf_counter()
+    lines = drive_cli(["infer", "--device", dev.type, "--size", str(RES), "--frames",
+                       str(INFER_FRAMES), "--batch", str(INFER_B), "--det-ckpt", ck["det"],
+                       "--det-stride", "2", "--crop-ckpt", ck["dumper"], "--crane-crop-ckpt",
+                       ck["crane"], "--crane-stride", "2", "--crane-crop", "192", "--track",
+                       "--seed", str(SEED), "--out", str(poses)])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    launches["infer"] = read(counters)
+    records = [json_mod.loads(ln) for ln in poses.read_text().splitlines()]
+    n_det = sum(len(r["detections"]) for r in records)
+    check(len(records) == INFER_FRAMES
+          and [r["frame_id"] for r in records] == list(range(INFER_FRAMES))
+          and all(list(r) == ["frame_id", "camera_pose7", "detections"] for r in records)
+          and lines == [f"wrote {INFER_FRAMES} frame records ({n_det} detections) -> {poses}"],
+          f"infer wrote {len(records)} records; printed {lines}")
+    heads = {"crane": ["class", "pose_accepted", "reproj_rmse_px", "parts"],
+             "dumper": ["class", "score", "bbox2d", "pose_accepted", "R_cam", "t_cam",
+                        "reproj_rmse_px", "track_id"]}
+    for d in (d for r in records for d in r["detections"]):
+        want = heads.get(d["class"], ["class", "score", "bbox2d", "track_id"])
+        check(list(d)[:len(want)] == want and "track_id" in d,
+              f"infer record keys {list(d)} for {d['class']}")
+    kinds = sorted({d["class"] for r in records for d in r["detections"]})
+    phase("two-stage", f"infer --det-stride 2 --crane-stride 2 --crane-crop 192 --track, "
+          f"{INFER_FRAMES} frames in batches of {INFER_B}: {len(records)} records, {n_det} "
+          f"detections ({', '.join(kinds) or 'none'}), keys in the JAX order; launches "
+          f"{launches['infer']}; the command in {infer_s:.3f} s (host clock, the checkpoints' "
+          f"loads included)")
+    check(all(launches["infer"][k] == INFER_FRAMES // INFER_B
+              for k in ("pixel_sweep", "rgb_epilogue"))
+          and launches["infer"]["heatmap_targets"] == 0 and launches["infer"]["peak_decode"] == 0,
+          f"infer: want the sweep and RGB once a batch: {launches['infer']}")
+
+    # The heatmap kernel at the crop shapes the two crop steps give it.
+    crop_hm = []
+    for per_part in (False, True):
+        args = crop_heatmap_inputs(dev, per_part)
+        uv, ch, vis, C, h, w, sigma, stride = args
+        shape = (uv.shape[0], C, h, w)
+        want = ((TRAIN_B, 10, 32, 32), 4.0) if not per_part else ((4 * TRAIN_B, 28, 96, 96), 2.0)
+        check((shape, stride) == want and sigma == 1.5, f"crop targets {shape} stride {stride}")
+        err = torch.abs(hm.heatmap_cuda(*args) - hm.render_heatmaps(*args)).max().item()
+        torch.cuda.synchronize()
+        out_bytes = uv.shape[0] * C * h * w * 4
+        nbytes = out_bytes + uv.numel() * 4 + ch.numel() * 4 + vis.numel()
+        r = {"shape": list(shape), "stride": stride, "max_abs_err": err,
+             "ms": device_ms(lambda: hm.heatmap_cuda(*args), "heatmap_kernel", iters=20),
+             "call_ms": cuda_ms(lambda: hm.heatmap_cuda(*args), iters=20),
+             "plain_ms": cuda_ms(lambda: hm.render_heatmaps(*args), iters=3),
+             "bound_ms": bound(nbytes, int(vis.sum()) * h * w * HEATMAP_KPT_OPS)[0],
+             "visible": int(vis.sum())}
+        crop_hm.append(r)
+        phase("heatmap", f"crop targets {tuple(shape)} stride {stride} sigma {sigma}: max |d| "
+              f"{err:.2e} (< 2e-4); {r['visible']} visible keypoints of {vis.numel()}; kernel "
+              f"{r['ms']:.4f} ms (call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms (bytes over 3.35 TB/s) on {card}")
+        check(err < 2e-4, f"heatmap kernel disagrees at the crop shape {shape}")
+    card_vs_cpu_two_stage(dev)
+    two_stage_timing(dev, card)
+    total = {k: launches["dumper"][k] + launches["crane"][k] for k in counters}
+    return {"train_crop": total, "train_detect": launches["detect"],
+            "infer": launches["infer"]}, crop_hm
 
 
 def main() -> int:
@@ -1234,7 +1563,21 @@ def main() -> int:
         launches[k]["generate_cli"] = gen_cli_launches[k]
         launches[k]["train_data_dir"] = data_dir_launches[k]
 
-    # 9. Timing: generate frames/s (every field consumed), min of 4 regions.
+    # 9. [two-stage]: train-crop, train-detect and infer through the CLI,
+    # their checkpoints and records in a temporary directory removed at the
+    # end, then the heatmap kernel at the crop shapes, the card against the
+    # CPU and the steps' timing.
+    work = Path(tempfile.mkdtemp(prefix="cspe_smoke_two_stage_"))
+    try:
+        two_stage_launches, crop_hm = two_stage_phase(dev, card, counters, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for k in counters:
+        for path, counts in two_stage_launches.items():
+            launches[k][path] = counts[k]
+    results["heatmap_targets"]["crop_shapes"] = crop_hm
+
+    # 10. Timing: generate frames/s (every field consumed), min of 4 regions.
     def consume(fb):
         return sum(v.float().sum() if v.dtype != torch.float32
                    else torch.nan_to_num(v, posinf=0.0).sum() for v in fb)
@@ -1299,11 +1642,12 @@ def main() -> int:
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": launches[name]["generate_cli"] + launches[name]["train_data_dir"],
+         "launches": sum(launches[name][p] for p in ("train_crop", "train_detect", "infer")),
          "launches_by_path": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "call_ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": None} for name, r in results.items()]}
+         "library_ms": None, **({"crop_shapes": r["crop_shapes"]} if "crop_shapes" in r else {})}
+        for name, r in results.items()]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

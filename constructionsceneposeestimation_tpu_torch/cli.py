@@ -1,5 +1,6 @@
-"""Command-line interface of the port (the ``generate``, ``train`` and
-``train-eval`` commands of the JAX ``cli.py``).
+"""Command-line interface of the port (the ``generate``, ``train``,
+``train-eval``, ``train-crop``, ``train-detect`` and ``infer`` commands of
+the JAX ``cli.py``).
 
   python -m constructionsceneposeestimation_tpu_torch.cli generate --out DIR --frames N
       Batched dataset generation, to the reference's file tree or
@@ -10,16 +11,27 @@
   python -m constructionsceneposeestimation_tpu_torch.cli train-eval --steps N ...
       Train (or restore), then evaluate PCK, the human keypoints, the
       dumper's and the crane's ADD on fresh frames with the trained model.
+  python -m constructionsceneposeestimation_tpu_torch.cli train-crop --cls dumper ...
+      Second-stage crop training around one equipment class, then its
+      two-stage 6DoF on fresh frames with the label boxes.
+  python -m constructionsceneposeestimation_tpu_torch.cli train-detect ...
+      CenterNet detector training and its P/R and mAP; with crop
+      checkpoints, the full two-stage path from detector boxes.
+  python -m constructionsceneposeestimation_tpu_torch.cli infer --det-ckpt D --crop-ckpt C
+      The deployment loop: detector, ROI crops, keypoints, the ground-prior
+      and crane solves, one JSON line a frame.
 
 All run on the card unless ``--device cpu``. The printed lines read as
-the JAX package's do. Not yet accepted: ``generate``'s ``--sequence-len``,
-``--hifi`` and ``--image-textures``.
+the JAX package's do. Not yet accepted: ``--sequence-len``, ``--hifi``
+(``generate``, ``infer``), ``--image-textures`` (``generate``,
+``train-detect``), ``--hifi-mix`` and ``--hifi-eval`` (``train-detect``).
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures as cf
+import json
 import os
 import time
 
@@ -27,6 +39,14 @@ import torch
 
 # generate's flags whose paths are not ported yet.
 NOT_PORTED = ("sequence_len", "hifi", "image_textures")
+
+
+def _refuse(args, flags=NOT_PORTED) -> None:
+    """Exit with the port's message if any of ``flags`` is set."""
+    for flag in flags:
+        if getattr(args, flag, None):
+            raise SystemExit(f"--{flag.replace('_', '-')} is not ported to the PyTorch "
+                             "package yet")
 
 
 def cmd_generate(args) -> None:
@@ -38,10 +58,7 @@ def cmd_generate(args) -> None:
     from .io import dataset_writer, packed, resume
     from .parallel import pipeline as pipeline_mod
 
-    for flag in NOT_PORTED:
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported to the PyTorch "
-                             "package yet")
+    _refuse(args)
     cfg = Config(
         scene=SceneConfig(n_dumpers=args.n_dumpers, n_humans=args.n_humans),
         pipeline=PipelineConfig(
@@ -123,14 +140,8 @@ def _run_training(args):
     )
     model = pose_net.make_model(lite=args.lite, device=args.device, seed=args.seed)
     pipe = pipeline_mod.Pipeline(cfg, device=args.device)
-    state = train_loop.create_train_state(cfg, model)
-    mgr = None
-    if args.ckpt_dir:
-        from .train import checkpoint
-        mgr = checkpoint.CheckpointManager(args.ckpt_dir, save_every=args.save_every)
-        if mgr.latest_step() is not None:
-            state = mgr.restore(state)
-            print(f"restored checkpoint at step {int(state.step)}")
+    mgr = _manager(args)
+    state = _restore_latest(mgr, train_loop.create_train_state(cfg, model))
     done = trained_from = int(state.step)
     if done < args.steps and args.data_dir:
         step_fn = train_loop.make_data_train_step(cfg, model)
@@ -138,22 +149,11 @@ def _run_training(args):
             args, state, mgr, done, fields=("rgb", "heatmaps"),
             run_one=lambda st, seed, b: step_fn(st, seed, b["rgb"], b["heatmaps"]))
     elif done < args.steps:
-        inner = max(1, min(args.inner, args.steps))
-        run = train_loop.make_scanned_train_fn(cfg, model, pipe, inner)
-        seed = args.seed + 1
-        t0 = time.time()
-        while done < args.steps:
-            state, metrics = run(state, seed, done * args.batch)
-            done += inner
-            print(f"step {done}: loss={float(metrics['loss']):.5f} "
-                  f"({(done - trained_from) * args.batch / (time.time() - t0):.1f} img/s avg)")
-            if mgr is not None and mgr.maybe_save(state):
-                print(f"checkpointed step {int(state.step)}")
-    if done > trained_from and mgr is not None:
-        mgr.maybe_save(state, force=True)
-        print(f"saved checkpoint at step {int(state.step)} -> {args.ckpt_dir}")
-    if mgr is not None:
-        mgr.close()
+        run = train_loop.make_scanned_train_fn(cfg, model, pipe, max(1, min(args.inner,
+                                                                            args.steps)))
+        state = _train_loop(args, state, mgr, run, lambda done, m, rate: (
+            f"step {done}: loss={float(m['loss']):.5f} ({rate:.1f} img/s avg)"))
+    _save_final(args, mgr, state, trained_from)
     return cfg, model, pipe, state
 
 
@@ -278,13 +278,372 @@ def report_lines(out, joint_names):
                  f"rmse {float(add['rmse']):.4f})")
     for tag, key in (("GT kpts", "crane_gt_kpts"), ("model kpts", "crane_model")):
         cr = out[key]
-        parts = " ".join(
-            f"{p.replace('crane', '')}={float(cr[f'add_0_1d_{p}']):.2f}"
-            for p in ("cranebase", "cranecolumn", "craneboom", "cranetelescopic"))
         lines.append(f"crane ADD ({tag}):  mean {float(cr['add_mean']):.3f} m, "
-                     f"ADD-0.1d {float(cr['add_0_1d']):.3f} [{parts}] "
+                     f"ADD-0.1d {float(cr['add_0_1d']):.3f} [{_parts(cr)}] "
                      f"(accepted {int(cr['n_accepted'])}/{int(cr['n_valid'])})")
     return lines
+
+
+def _restore_model(directory: str, cfg, model):
+    """``model`` with the weights of the latest checkpoint under
+    ``directory``, in eval mode."""
+    from .train import checkpoint
+    from .train import loop as train_loop
+
+    mgr = checkpoint.CheckpointManager(directory, save_every=0)
+    state = mgr.restore(train_loop.create_train_state(cfg, model))
+    mgr.close()
+    return state.model.eval()
+
+
+def _train_loop(args, state, mgr, run, line):
+    """Run ``run`` (``--inner`` steps at a time) until ``--steps``, printing
+    ``line(done, metrics, img/s)`` after each and checkpointing as
+    ``--save-every`` asks. Returns the state."""
+    done = t0_done = int(state.step)
+    inner = max(1, min(args.inner, args.steps))
+    seed = args.seed + 1
+    t0 = time.time()
+    while done < args.steps:
+        state, metrics = run(state, seed, done * args.batch)
+        done += inner
+        print(line(done, metrics, (done - t0_done) * args.batch / (time.time() - t0)))
+        if mgr is not None and mgr.maybe_save(state):
+            print(f"checkpointed step {int(state.step)}")
+    return state
+
+
+def _save_final(args, mgr, state, trained_from: int) -> None:
+    """Save the state if this run trained it, as the JAX commands do, and
+    close the manager."""
+    if mgr is None:
+        return
+    if int(state.step) > trained_from:
+        mgr.maybe_save(state, force=True)
+        print(f"saved checkpoint at step {int(state.step)} -> {args.ckpt_dir}")
+    mgr.close()
+
+
+def _manager(args):
+    """The ``--ckpt-dir`` checkpoint manager, or None."""
+    if not args.ckpt_dir:
+        return None
+    from .train import checkpoint
+    return checkpoint.CheckpointManager(args.ckpt_dir, save_every=args.save_every)
+
+
+def _restore_latest(mgr, state):
+    if mgr is not None and mgr.latest_step() is not None:
+        state = mgr.restore(state)
+        print(f"restored checkpoint at step {int(state.step)}")
+    return state
+
+
+CRANE_PARTS = ("cranebase", "cranecolumn", "craneboom", "cranetelescopic")
+
+
+def _parts(out) -> str:
+    """A crane evaluator's per-part ADD-0.1d, as the JAX commands print it."""
+    return " ".join(f"{p.replace('crane', '')}={float(out[f'add_0_1d_{p}']):.2f}"
+                    for p in CRANE_PARTS)
+
+
+def cmd_train_crop(args) -> None:
+    """Second-stage (detect-then-crop) keypoint training for one equipment
+    class (``train/crop_loop.py``), then its 6DoF on ``--eval-frames``
+    fresh frames of another seed, from the label boxes."""
+    from .config import Config, PipelineConfig, SceneConfig, TrainConfig
+    from .eval import pipeline as eval_pipeline
+    from .parallel import pipeline as pipeline_mod
+    from .train import crop_loop
+
+    cfg = Config(scene=SceneConfig(n_dumpers=args.n_dumpers),
+                 pipeline=PipelineConfig(render_width=args.size, render_height=args.size),
+                 train=TrainConfig(batch_size=args.batch, steps=max(args.steps, 1),
+                                   loss=args.loss, camera_mix=args.camera_mix))
+    pipe = pipeline_mod.Pipeline(cfg, device=args.device)
+    model = crop_loop.make_crop_model(args.cls, lite=args.lite, roster=pipe.roster,
+                                      output_stride=args.stride, device=args.device,
+                                      seed=args.seed)
+    mgr = _manager(args)
+    state = _restore_latest(mgr, crop_loop.create_crop_train_state(cfg, model))
+    trained_from = int(state.step)
+    if trained_from < args.steps:
+        run = crop_loop.make_scanned_crop_train_fn(
+            cfg, model, pipe, max(1, min(args.inner, args.steps)), args.cls, args.crop,
+            per_part=args.per_part)
+        state = _train_loop(args, state, mgr, run, lambda done, m, rate: (
+            f"step {done}: loss={float(m['loss']):.5f} vis={float(m['n_visible']):.0f}/"
+            f"{args.batch} ({rate:.1f} img/s avg)"))
+    _save_final(args, mgr, state, trained_from)
+
+    model.eval()
+    with torch.no_grad():
+        batch = pipe.make_generate_fn(ladder=args.eval_ladder, include_heatmaps=False)(
+            args.seed + 1000, range(args.eval_frames))
+    if args.cls == "crane":
+        out = eval_pipeline.evaluate_crop_crane_6dof(
+            batch, pipe.roster, pipe.intr, model, args.crop, score_threshold=args.pnp_threshold,
+            loss=args.loss, per_part=args.per_part)
+        print(f"crane crop-stage 6DoF: ADD mean {float(out['add_mean']):.3f} m, "
+              f"ADD-0.1d {float(out['add_0_1d']):.3f} [{_parts(out)}] "
+              f"(accepted {int(out['n_accepted'])}/{int(out['n_valid'])}, "
+              f"detectable {int(out['n_detectable'])}/{args.eval_frames})")
+        errs = " ".join(f"{p.replace('crane', '')}={float(out[f't_err_{p}']):.2f}m/"
+                        f"{float(out[f'rot_err_deg_{p}']):.1f}deg" for p in CRANE_PARTS)
+        print(f"  per-part err split (t/rot): [{errs}]")
+    else:
+        out = eval_pipeline.evaluate_crop_6dof(
+            batch, pipe.roster, pipe.intr, model, args.cls, args.crop,
+            score_threshold=args.pnp_threshold, loss=args.loss)
+        print(f"{args.cls} crop-stage 6DoF: ADD mean {float(out['add_mean']):.3f} m, "
+              f"ADD-0.1d {float(out['add_0_1d']):.3f} "
+              f"(accepted {int(out['n_accepted'])}/{int(out['n_valid'])}, "
+              f"detectable {int(out['n_detectable'])}/{args.eval_frames}, "
+              f"rmse {float(out['rmse']):.4f})")
+
+
+# train-detect's flags whose paths (the CAD-mesh tiers) are not ported yet.
+DETECT_NOT_PORTED = ("hifi_mix", "hifi_eval", "image_textures")
+
+
+def cmd_train_detect(args) -> None:
+    """CenterNet detector training (``train/detect_loop.py``) and its P/R
+    and mAP on ``--eval-frames`` fresh frames; with ``--crop-ckpt`` and
+    ``--crane-crop-ckpt``, the full two-stage path: detector boxes (not
+    labels) -> crop nets -> the ground-prior and crane solves -> ADD."""
+    from .config import Config, PipelineConfig, SceneConfig, TrainConfig
+    from .eval import pipeline as eval_pipeline
+    from .ops import detect as detect_ops
+    from .parallel import pipeline as pipeline_mod
+    from .train import crop_loop, detect_loop
+    from .train import loop as train_loop
+
+    _refuse(args, DETECT_NOT_PORTED)
+    cfg = Config(scene=SceneConfig(n_dumpers=args.n_dumpers, n_humans=args.n_humans),
+                 pipeline=PipelineConfig(render_width=args.size, render_height=args.size),
+                 train=TrainConfig(batch_size=args.batch, steps=max(args.steps, 1),
+                                   loss="focal", camera_mix=args.camera_mix))
+    pipe = pipeline_mod.Pipeline(cfg, device=args.device)
+    model = detect_loop.make_detect_model(lite=args.lite, output_stride=args.det_stride,
+                                          device=args.device, seed=args.seed)
+    mgr = _manager(args)
+    state = _restore_latest(mgr, train_loop.create_train_state(cfg, model))
+    done = trained_from = int(state.step)
+    if done < args.steps and args.data_dir:
+        step_fn = detect_loop.make_data_detect_train_step(cfg, model, pipe.roster)
+        state, done = _offline_train(
+            args, state, mgr, done, fields=("rgb", "bbox2d", "inst_visible"),
+            run_one=lambda st, seed, b: step_fn(st, seed, b["rgb"], b["bbox2d"],
+                                                b["inst_visible"]),
+            roster=pipe.roster)
+    elif done < args.steps:
+        run = detect_loop.make_scanned_detect_train_fn(cfg, model, pipe,
+                                                       max(1, min(args.inner, args.steps)))
+        state = _train_loop(args, state, mgr, run, lambda done, m, rate: (
+            f"step {done}: loss={float(m['loss']):.5f} ({rate:.1f} img/s avg)"))
+    _save_final(args, mgr, state, trained_from)
+
+    model.eval()
+    with torch.no_grad():
+        batch = pipe.make_generate_fn(ladder=args.eval_ladder, include_heatmaps=False)(
+            args.seed + 1000, range(args.eval_frames))
+    det = eval_pipeline.evaluate_detector(batch, pipe.roster, model, analysis=args.det_analysis)
+    pr = lambda c: f"{float(det[f'precision_{c}']):.2f}/{float(det[f'recall_{c}']):.2f}"
+    per_cls = " ".join(f"{c}={pr(c)}" for c in ("dumper", "crane", "human", "trafficcone"))
+    parts = " ".join(f"{c.replace('crane', '')}={pr(c)}" for c in detect_ops.CRANE_PART_CLASSES)
+    print(f"detector P/R @IoU0.5: {float(det['precision']):.3f}/"
+          f"{float(det['recall']):.3f}  [{per_cls}]")
+    print(f"  crane parts P/R: [{parts}]  mAP@0.5 {float(det['map']):.3f}")
+    if args.det_analysis:
+        for c in detect_ops.DET_CLASSES:
+            ms, mc, ml = (float(det[f"miss_{k}_{c}"]) for k in ("score", "cls", "loc"))
+            if ms + mc + ml > 1e-6:
+                print(f"  miss split {c}: score {ms:.2f} cls {mc:.2f} "
+                      f"loc {ml:.2f}  (recall {float(det[f'recall_{c}']):.2f})")
+
+    if args.crop_ckpt:
+        crop_model = _restore_model(args.crop_ckpt, cfg, crop_loop.make_crop_model(
+            "dumper", roster=pipe.roster, device=args.device))
+        out = eval_pipeline.evaluate_crop_6dof(batch, pipe.roster, pipe.intr, crop_model,
+                                               "dumper", args.crop, boxes=det["dumper_boxes"])
+        print(f"FULL two-stage dumper 6DoF (detector boxes): "
+              f"ADD mean {float(out['add_mean']):.3f} m, "
+              f"ADD-0.1d {float(out['add_0_1d']):.3f} "
+              f"(accepted {int(out['n_accepted'])}/{int(out['n_valid'])})")
+        if args.n_dumpers > 1:
+            di = detect_ops.DET_CLASSES.index("dumper")
+            mout = eval_pipeline.evaluate_crop_6dof_multi(
+                batch, pipe.roster, pipe.intr, crop_model, "dumper", args.crop,
+                boxes=det["boxes"][:, di], box_scores=det["scores"][:, di])
+            print(f"FULL two-stage multi-dumper 6DoF (detector boxes, "
+                  f"{args.n_dumpers} instances): "
+                  f"ADD mean {float(mout['add_mean']):.3f} m, "
+                  f"ADD-0.1d {float(mout['add_0_1d']):.3f} "
+                  f"(accepted {int(mout['n_accepted'])}/"
+                  f"{int(mout['n_detectable'])} detectable)")
+
+    if args.crane_crop_ckpt:
+        crane_crop = args.crane_crop or args.crop
+        crane_model = _restore_model(args.crane_crop_ckpt, cfg, crop_loop.make_crop_model(
+            "crane", roster=pipe.roster, output_stride=args.crane_stride, device=args.device))
+        pb, ps = eval_pipeline.best_part_boxes(det["boxes"], det["scores"])
+        cout = eval_pipeline.evaluate_crop_crane_6dof(
+            batch, pipe.roster, pipe.intr, crane_model, crane_crop, per_part=True,
+            part_boxes=pb, part_scores=ps)
+        print(f"FULL two-stage crane 6DoF (detector part boxes): "
+              f"ADD mean {float(cout['add_mean']):.3f} m, "
+              f"ADD-0.1d {float(cout['add_0_1d']):.3f} [{_parts(cout)}] "
+              f"(accepted {int(cout['n_accepted'])}/{int(cout['n_valid'])})")
+
+
+def make_infer_fn(det_model, crop_model, crop_size: int, intr, roster, max_det: int = 4,
+                  crane_model=None, crane_crop: int | None = None, det_threshold: float = 0.3):
+    """``infer(rgb, camera_pose7) -> dict``: frames (B, H, W, 3) u8 and their
+    camera poses (B, 7) -> every class's decoded boxes (B, C, max_det, 4)
+    and scores; each dumper detection slot's crop, DARK keypoints (score >=
+    0.15) and ground-prior solve (``dumper_R``, ``_t``, ``_rmse``,
+    ``_valid``, (B, max_det, ...)); with ``crane_model``, the best crane part
+    boxes, their per-part crops and the FK-constrained joint solve
+    (``crane_part_boxes``, ``_scores``, ``crane_R``, ``_t``, ``_rmse``,
+    ``_valid``). No label is read."""
+    from .core import rotation
+    from .eval import pipeline as eval_pipeline
+    from .models import pose_net
+    from .ops import crop as crop_ops, detect as det_ops, pnp as pnp_ops, preprocess
+    from .scene import assets
+    from .train import crop_loop
+
+    tpl = assets.all_templates()["dumper"]
+    di = det_ops.DET_CLASSES.index("dumper")
+
+    @torch.inference_mode()
+    def infer(rgb, camera_pose7):
+        dev = rgb.device
+        pred = pose_net.forward(det_model, preprocess.normalize(rgb.float() / 255.0))
+        boxes, scores = det_ops.decode_detections(
+            pred, float(getattr(det_model, "output_stride", 4)), max_det)
+        R_wp = rotation.matrix_from_quat_xyzw(camera_pose7[..., 3:])
+        cam = camera_pose7[..., :3]
+        B, D = boxes.shape[0], max_det
+        # Dumper: every detection slot gets its own crop and ground solve.
+        roi = crop_ops.square_roi(boxes[:, di])  # (B, D) each
+        uv_c, sc = eval_pipeline.crop_keypoints(
+            crop_model, eval_pipeline.crop_images(rgb, roi, crop_size), "focal")
+        K = uv_c.shape[1]
+        uv = crop_ops.crop_to_uv(uv_c.reshape(B, D, K, 2), *(x[..., None] for x in roi),
+                                 crop_size)
+        sc = sc.reshape(B, D, K)
+        x = pnp_ops.normalize_pixels(uv, intr.fx, intr.fy, intr.cx, intr.cy)
+        model_pts = torch.as_tensor(tpl.keypoints, dtype=torch.float32, device=dev)
+        dres = pnp_ops.solve_ground_pose(model_pts.expand(B, D, K, 3), x,
+                                         torch.where(sc >= 0.15, sc, 0.0),
+                                         R_wp[:, None].expand(B, D, 3, 3),
+                                         cam[:, None].expand(B, D, 3))
+        out = {"boxes": boxes, "scores": scores, "dumper_R": dres.R, "dumper_t": dres.t,
+               "dumper_rmse": dres.rmse, "dumper_valid": dres.valid}
+        if crane_model is not None:
+            pb, ps = eval_pipeline.best_part_boxes(boxes, scores)
+            cuv, _, cw = eval_pipeline.crane_part_keypoints(
+                rgb, pb, ps >= det_threshold, roster, crane_model,
+                crop_size=crane_crop or crop_size)
+            s0, Kp = crop_loop.crane_channels(roster)
+            cres = pnp_ops.solve_crane_pose(
+                roster.tensor("inst_kpts", dev)[s0:s0 + 4, :Kp],
+                pnp_ops.normalize_pixels(cuv, intr.fx, intr.fy, intr.cx, intr.cy), cw, R_wp,
+                cam)
+            out.update({"crane_part_boxes": pb, "crane_part_scores": ps, "crane_R": cres.R,
+                        "crane_t": cres.t, "crane_rmse": cres.rmse, "crane_valid": cres.valid})
+        return out
+
+    return infer
+
+
+def frame_record(o, i: int, frame_id: int, camera_pose7, det_threshold: float, px2n: float):
+    """The JSON record of frame ``i`` of an ``infer`` batch ``o`` (numpy):
+    every above-threshold detection of the plain classes, the dumper's with
+    its pose (``pose_accepted`` at a reprojection RMSE of at most 8 px), and
+    one articulated crane record with its parts when any part is detected."""
+    from .ops import detect as det_ops
+
+    dets = []
+    for ci, cname in enumerate(det_ops.DET_CLASSES):
+        if cname in det_ops.CRANE_PART_CLASSES or cname == "crane":
+            continue  # the crane is one articulated record
+        for d in range(o["scores"].shape[2]):
+            s = float(o["scores"][i, ci, d])
+            if s < det_threshold:
+                continue
+            rec = {"class": cname, "score": s, "bbox2d": o["boxes"][i, ci, d].tolist()}
+            if cname == "dumper":
+                rec.update({
+                    "pose_accepted": (bool(o["dumper_valid"][i, d])
+                                      and float(o["dumper_rmse"][i, d]) <= 8.0 * px2n),
+                    "R_cam": o["dumper_R"][i, d].tolist(),
+                    "t_cam": o["dumper_t"][i, d].tolist(),
+                    "reproj_rmse_px": float(o["dumper_rmse"][i, d]) / px2n,
+                })
+            dets.append(rec)
+    if "crane_valid" in o and bool((o["crane_part_scores"][i] >= det_threshold).any()):
+        dets.append({
+            "class": "crane",
+            "pose_accepted": (bool(o["crane_valid"][i])
+                              and float(o["crane_rmse"][i]) <= 8.0 * px2n),
+            "reproj_rmse_px": float(o["crane_rmse"][i]) / px2n,
+            "parts": [{"name": CRANE_PARTS[pi],
+                       "score": float(o["crane_part_scores"][i, pi]),
+                       "bbox2d": o["crane_part_boxes"][i, pi].tolist(),
+                       "R_cam": o["crane_R"][i, pi].tolist(),
+                       "t_cam": o["crane_t"][i, pi].tolist()} for pi in range(4)],
+        })
+    return {"frame_id": int(frame_id), "camera_pose7": [float(v) for v in camera_pose7],
+            "detections": dets}
+
+
+def cmd_infer(args) -> None:
+    """The serving path on freshly generated frames: detector -> ROI crops
+    -> keypoints -> the ground-prior and crane solves, one JSON record a
+    frame to ``--out``. No label is read. The last batch is padded to the
+    batch shape; only real frame ids are written. ``--track`` assigns track
+    ids and smooths accepted poses (``eval/tracking.py``)."""
+    from .config import Config, PipelineConfig
+    from .parallel import pipeline as pipeline_mod
+    from .train import crop_loop, detect_loop
+
+    _refuse(args, ("sequence_len", "hifi"))
+    cfg = Config(pipeline=PipelineConfig(render_width=args.size, render_height=args.size))
+    pipe = pipeline_mod.Pipeline(cfg, device=args.device)
+    det_model = _restore_model(args.det_ckpt, cfg, detect_loop.make_detect_model(
+        output_stride=args.det_stride, device=args.device))
+    crop_model = _restore_model(args.crop_ckpt, cfg, crop_loop.make_crop_model(
+        "dumper", roster=pipe.roster, device=args.device))
+    crane_model = None
+    if args.crane_crop_ckpt:
+        crane_model = _restore_model(args.crane_crop_ckpt, cfg, crop_loop.make_crop_model(
+            "crane", roster=pipe.roster, output_stride=args.crane_stride, device=args.device))
+    infer = make_infer_fn(det_model, crop_model, args.crop, pipe.intr, pipe.roster,
+                          args.max_det, crane_model, args.crane_crop, args.det_threshold)
+    gen = pipe.make_generate_fn(ladder=args.ladder, include_heatmaps=False)
+    px2n = 1.0 / float(pipe.intr.fx)
+    tracker = None
+    if args.track:
+        from .eval import tracking
+        tracker = tracking.Tracker(smooth=args.smooth)
+    n_out = n_det = 0
+    with open(args.out, "w") as f:
+        for lo in range(0, args.frames, args.batch):
+            with torch.no_grad():
+                batch = gen(args.seed, range(lo, lo + args.batch))
+            o = {k: v.cpu().numpy() for k, v in infer(batch.rgb, batch.camera_pose7).items()}
+            cam7 = batch.camera_pose7.cpu().numpy()
+            for i in range(min(args.frames - lo, args.batch)):
+                rec = frame_record(o, i, lo + i, cam7[i], args.det_threshold, px2n)
+                if tracker is not None:
+                    tracker.update(rec["detections"], rec["camera_pose7"])
+                n_det += len(rec["detections"])
+                f.write(json.dumps(rec) + "\n")
+                n_out += 1
+    print(f"wrote {n_out} frame records ({n_det} detections) -> {args.out}")
 
 
 def _train_flags(p, steps: int, batch: int, inner: int) -> None:
@@ -351,6 +710,106 @@ def build_parser() -> argparse.ArgumentParser:
     te.add_argument("--eval-ladder", action="store_true",
                     help="evaluate on the close-range reference viewpoint ladder")
     te.set_defaults(fn=cmd_train_eval)
+    tc = sub.add_parser("train-crop", help="two-stage (detect-then-crop) equipment training")
+    tc.add_argument("--steps", type=int, default=8000)
+    tc.add_argument("--batch", type=int, default=32)
+    tc.add_argument("--size", type=int, default=512,
+                    help="full-image render size the ROIs are cut from")
+    tc.add_argument("--crop", type=int, default=128)
+    tc.add_argument("--cls", default="dumper")
+    tc.add_argument("--seed", type=int, default=0)
+    tc.add_argument("--lite", action="store_true")
+    tc.add_argument("--loss", choices=["mse", "focal"], default="focal")
+    tc.add_argument("--inner", type=int, default=50, help="train steps between log lines")
+    tc.add_argument("--eval-frames", type=int, default=64)
+    tc.add_argument("--pnp-threshold", type=float, default=0.15)
+    tc.add_argument("--ckpt-dir", default=None)
+    tc.add_argument("--eval-ladder", action="store_true")
+    tc.add_argument("--camera-mix", type=float, default=0.0,
+                    help="P(close-range ladder view) per train frame")
+    tc.add_argument("--stride", type=int, default=4, choices=[2, 4],
+                    help="crop-net output stride (2 = double heatmap res)")
+    tc.add_argument("--per-part", action="store_true",
+                    help="crane only: one ROI per part (4 crops/frame) instead of the "
+                         "machine union box")
+    tc.add_argument("--n-dumpers", type=int, default=1,
+                    help="train/eval scenes with N dumpers (multi-instance)")
+    tc.add_argument("--save-every", type=int, default=0,
+                    help="also checkpoint every N steps mid-run (0 = only at the end)")
+    _device_flag(tc)
+    tc.set_defaults(fn=cmd_train_crop)
+    td = sub.add_parser("train-detect", help="CenterNet detector training + two-stage eval")
+    td.add_argument("--steps", type=int, default=8000)
+    td.add_argument("--batch", type=int, default=32)
+    td.add_argument("--size", type=int, default=512)
+    td.add_argument("--crop", type=int, default=128)
+    td.add_argument("--seed", type=int, default=0)
+    td.add_argument("--lite", action="store_true")
+    td.add_argument("--inner", type=int, default=50, help="train steps between log lines")
+    td.add_argument("--eval-frames", type=int, default=64)
+    td.add_argument("--ckpt-dir", default=None)
+    td.add_argument("--save-every", type=int, default=0,
+                    help="also checkpoint every N steps mid-run (0 = only at the end)")
+    td.add_argument("--crop-ckpt", default=None,
+                    help="crop-stage checkpoint: run the full detector->crop->PnP path")
+    td.add_argument("--crane-crop-ckpt", default=None,
+                    help="per-part crane crop checkpoint: report the full "
+                         "detector-part-boxes -> FK-solve crane path")
+    td.add_argument("--det-stride", type=int, default=4, choices=[2, 4],
+                    help="detector output stride: 2 doubles map resolution")
+    td.add_argument("--crane-stride", type=int, default=4, choices=[2, 4],
+                    help="output stride the crane crop ckpt was trained at")
+    td.add_argument("--crane-crop", type=int, default=None,
+                    help="crop size the crane crop ckpt was trained at (default: --crop)")
+    td.add_argument("--n-humans", type=int, default=1,
+                    help="workers per training/eval scene")
+    td.add_argument("--n-dumpers", type=int, default=1,
+                    help="train/eval scenes with N dumpers; with --crop-ckpt also reports "
+                         "the multi-instance two-stage path")
+    td.add_argument("--data-dir", default=None,
+                    help="train from packed npz shards (io/reader) instead of the generator")
+    td.add_argument("--eval-ladder", action="store_true")
+    td.add_argument("--camera-mix", type=float, default=0.0)
+    td.add_argument("--hifi-mix", type=int, default=0, help="not ported yet")
+    td.add_argument("--image-textures", action="store_true", help="not ported yet")
+    td.add_argument("--hifi-eval", action="store_true", help="not ported yet")
+    td.add_argument("--det-analysis", action="store_true",
+                    help="oracle-IoU miss diagnosis per class: split missed GTs into "
+                         "score / classification / localization misses")
+    _device_flag(td)
+    td.set_defaults(fn=cmd_train_detect)
+    inf = sub.add_parser("infer", help="deployment inference: detector -> crop -> 6DoF pose "
+                                       "JSON lines")
+    inf.add_argument("--det-ckpt", required=True)
+    inf.add_argument("--det-stride", type=int, default=4, choices=[2, 4],
+                     help="must match the det-ckpt's training stride")
+    inf.add_argument("--crop-ckpt", required=True)
+    inf.add_argument("--crane-crop-ckpt", default=None,
+                     help="per-part crane crop checkpoint: adds articulated crane records "
+                          "(FK joint solve) to the output")
+    inf.add_argument("--out", default="poses.jsonl")
+    inf.add_argument("--frames", type=int, default=32)
+    inf.add_argument("--batch", type=int, default=16)
+    inf.add_argument("--size", type=int, default=512)
+    inf.add_argument("--crop", type=int, default=128)
+    inf.add_argument("--seed", type=int, default=0)
+    inf.add_argument("--ladder", action="store_true")
+    inf.add_argument("--det-threshold", type=float, default=0.3)
+    inf.add_argument("--max-det", type=int, default=4,
+                     help="detection slots per class (each dumper slot pays a crop+solve)")
+    inf.add_argument("--sequence-len", type=int, default=0, help="not ported yet")
+    inf.add_argument("--crane-stride", type=int, default=4, choices=[2, 4],
+                     help="output stride the crane crop ckpt was trained at")
+    inf.add_argument("--crane-crop", type=int, default=None,
+                     help="crop size the crane crop ckpt was trained at (default: --crop)")
+    inf.add_argument("--track", action="store_true",
+                     help="assign track_ids across frames (greedy same-class IoU) and "
+                          "EMA-smooth accepted poses in the world frame (eval/tracking.py)")
+    inf.add_argument("--smooth", type=float, default=0.5,
+                     help="EMA keep-fraction for --track pose smoothing (0 = ids only)")
+    inf.add_argument("--hifi", action="store_true", help="not ported yet")
+    _device_flag(inf)
+    inf.set_defaults(fn=cmd_infer)
     return ap
 
 

@@ -8,6 +8,8 @@
   A CUDA tensor launches the peak kernel (``ops/peak_kernel.py``,
   ``csrc/peaks.cu``); a CPU tensor takes its plain version.
 * ``associate_peaks``: peaks routed to instances by their 2D boxes.
+* ``_topk_iterative``: exact top-k of non-negative rows by k rounds of
+  max, argmax and suppression (the detector's decode).
 
 The TPU-only top-K machinery of the JAX module (2x2 block packing with a
 mantissa payload, one-hot einsums in place of gathers) is not carried
@@ -153,3 +155,18 @@ def associate_peaks(uv_pk: Tensor, sc_pk: Tensor, channels: Tensor, bbox2d: Tens
     best = torch.argmax(sc_gated, -1, keepdim=True)  # (..., O, K, 1)
     uv = torch.take_along_dim(pk, best[..., None], -2)[..., 0, :]
     return uv, torch.take_along_dim(sc_gated, best, -1)[..., 0]
+
+
+def _topk_iterative(flat: Tensor, k: int):
+    """Top-k of non-negative rows (..., n) -> (values (..., k), indices
+    (..., k)) by k rounds of max, argmax and suppress-to-0, as the JAX
+    function does: the argmax takes the first index on ties, so a row with
+    fewer than k non-zero entries repeats index 0 with value 0 (``torch.topk``
+    does not fix the order of ties)."""
+    vals, idxs = [], []
+    for _ in range(k):
+        i = torch.argmax(flat, -1)
+        vals.append(torch.amax(flat, -1))
+        idxs.append(i)
+        flat = flat.scatter(-1, i[..., None], 0.0)
+    return torch.stack(vals, -1), torch.stack(idxs, -1)

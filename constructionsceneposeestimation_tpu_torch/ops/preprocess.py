@@ -73,8 +73,15 @@ def augment_draws(seed: int, frame_ids: Sequence[int], height: int, width: int,
         g_host, g_dev = prng.augment_generators(seed, f, device)
         u[i] = torch.rand(5, generator=g_host)
         torch.randn(height, width, 3, generator=g_dev, device=device, out=noise[i])
+    return draws_from_uniforms(u, noise)
+
+
+def draws_from_uniforms(u: Tensor, noise: Tensor) -> AugmentDraws:
+    """AugmentDraws from uniforms u (B, 5) in [0, 1) (brightness, contrast,
+    three gains) and a standard normal noise image (B, H, W, 3); the
+    scalars go to the noise's device."""
     lo = torch.tensor([-BRIGHTNESS, -CONTRAST] + [-HUE_SHIFT] * 3)
-    s = (1.0 + lo + u * (-2.0 * lo)).to(device)
+    s = (1.0 + lo + u * (-2.0 * lo)).to(noise.device)
     return AugmentDraws(s[:, 0], s[:, 1], s[:, 2:], noise)
 
 

@@ -83,6 +83,15 @@ def create_train_state(cfg: Config, model: nn.Module) -> TrainState:
     return TrainState(model, opt, sched, 0)
 
 
+def apply_update(state: TrainState) -> TrainState:
+    """One AdamW update from the gradients left in the parameters, then the
+    schedule's step."""
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    return state
+
+
 def channel_weights_from_roster(roster) -> Tensor:
     """Per-channel loss weights: 1/sqrt(instances of the channel's class),
     normalized to mean 1, so crowded classes (fence x20) stop drowning out
@@ -125,10 +134,7 @@ class BatchStep:
         return loss.detach()
 
     def update(self, state: TrainState) -> TrainState:
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        return state
+        return apply_update(state)
 
     def __call__(self, state: TrainState, batch: pipeline_mod.FrameBatch,
                  draws: preprocess.AugmentDraws):
@@ -214,14 +220,19 @@ def make_scanned_train_fn(cfg: Config, model: nn.Module, pipe: pipeline_mod.Pipe
     """``run(state, seed, start_frame) -> (state, last_metrics)``: ``inner_steps``
     train steps on the contiguous frames from ``start_frame``, the metrics of
     the last."""
-    step = make_train_step(cfg, model, pipe)
-    B = cfg.train.batch_size
+    return run_steps(make_train_step(cfg, model, pipe), cfg.train.batch_size, inner_steps)
+
+
+def run_steps(step, batch_size: int, inner_steps: int):
+    """``run(state, seed, start_frame) -> (state, last_metrics)``: ``step(state,
+    seed, frame_ids)`` on ``inner_steps`` runs of ``batch_size`` contiguous
+    frames from ``start_frame``."""
 
     def run(state: TrainState, seed: int, start_frame: int):
         metrics: Dict = {}
         for i in range(inner_steps):
-            first = int(start_frame) + i * B
-            state, metrics = step(state, seed, range(first, first + B))
+            first = int(start_frame) + i * batch_size
+            state, metrics = step(state, seed, range(first, first + batch_size))
         return state, metrics
 
     return run

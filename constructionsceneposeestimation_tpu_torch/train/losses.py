@@ -23,19 +23,43 @@ def _clip(x: Tensor, lo: float, hi: float) -> Tensor:
     return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
-def focal_heatmap_loss(pred: Tensor, target: Tensor, alpha: float = 2.0, beta: float = 4.0,
-                       eps: float = 1e-6, channel_weights: Tensor | None = None) -> Tensor:
-    """CenterNet-style penalty-reduced focal loss on logits ``pred``;
-    ``channel_weights`` (C,) scales each leading-axis channel's positive and
-    negative terms."""
+def _focal_terms(pred: Tensor, target: Tensor, alpha: float, beta: float, eps: float,
+                 channel_weights: Tensor | None, channel_dim: int):
+    """Elementwise positive and negative focal terms and the positive mask;
+    ``channel_weights`` (C,) scale both terms along ``channel_dim``."""
     p = _clip(torch.sigmoid(pred), eps, 1.0 - eps)
     pos = (target > 0.9).to(pred.dtype)
     neg_w = torch.pow(1.0 - target, beta)
     pos_loss = -torch.pow(1.0 - p, alpha) * torch.log(p) * pos
     neg_loss = -torch.pow(p, alpha) * torch.log(1.0 - p) * neg_w * (1.0 - pos)
     if channel_weights is not None:
-        w = channel_weights.reshape(channel_weights.shape + (1,) * (pred.ndim - 1))
+        w = channel_weights.reshape(channel_weights.shape + (1,) * (pred.ndim - 1 - channel_dim))
         pos_loss = pos_loss * w
         neg_loss = neg_loss * w
+    return pos_loss, neg_loss, pos
+
+
+def focal_heatmap_loss(pred: Tensor, target: Tensor, alpha: float = 2.0, beta: float = 4.0,
+                       eps: float = 1e-6, channel_weights: Tensor | None = None) -> Tensor:
+    """CenterNet-style penalty-reduced focal loss on logits ``pred``;
+    ``channel_weights`` (C,) scales each leading-axis channel's positive and
+    negative terms."""
+    pos_loss, neg_loss, pos = _focal_terms(pred, target, alpha, beta, eps, channel_weights, 0)
     n_pos = torch.clamp_min(torch.sum(pos), 1.0)
     return (torch.sum(pos_loss) + torch.sum(neg_loss)) / n_pos
+
+
+def focal_per_sample(pred: Tensor, target: Tensor, alpha: float = 2.0, beta: float = 4.0,
+                     eps: float = 1e-6, channel_weights: Tensor | None = None) -> Tensor:
+    """``focal_heatmap_loss`` of each sample of (B, C, h, w) maps -> (B,): a
+    sample's terms over its own positives, as ``jax.vmap`` of the JAX loss
+    gives; ``channel_weights`` (C,) on axis 1."""
+    pos_loss, neg_loss, pos = _focal_terms(pred, target, alpha, beta, eps, channel_weights, 1)
+    dims = tuple(range(1, pred.ndim))
+    n_pos = torch.clamp_min(torch.sum(pos, dims), 1.0)
+    return (torch.sum(pos_loss, dims) + torch.sum(neg_loss, dims)) / n_pos
+
+
+def mse_per_sample(pred: Tensor, target: Tensor) -> Tensor:
+    """``heatmap_mse`` of each sample of (B, ...) -> (B,)."""
+    return torch.mean((pred - target) ** 2, tuple(range(1, pred.ndim)))

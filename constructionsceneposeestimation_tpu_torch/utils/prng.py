@@ -21,6 +21,7 @@ FRAME_STREAM = 2
 MIX_STREAM = 3
 AUGMENT_STREAM = 4
 LADDER_STREAM = 5
+CROP_STREAM = 6
 
 _MASK64 = (1 << 64) - 1
 
@@ -68,3 +69,12 @@ def augment_generators(seed: int, frame_id: int, device="cpu"):
     noise = torch.Generator(device=device)
     noise.manual_seed(mix(seed, AUGMENT_STREAM, int(frame_id), 1))
     return generator(seed, AUGMENT_STREAM, int(frame_id), 0), noise
+
+
+def crop_generators(seed: int, frame_id: int, part: int, device="cpu"):
+    """The ROI jitter and augment of crop ``part`` of a training frame (the
+    crane's per-part crops are parts 0-3, every other crop part 0): a CPU
+    generator for its scalars and one on ``device`` for its noise image."""
+    noise = torch.Generator(device=device)
+    noise.manual_seed(mix(seed, CROP_STREAM, int(frame_id), int(part), 1))
+    return generator(seed, CROP_STREAM, int(frame_id), int(part), 0), noise

@@ -2,10 +2,15 @@
 JAX command prints (``constructionsceneposeestimation_tpu/cli.py:262-331``),
 in its order and format, crane rows included; ``train`` saves and resumes
 checkpoints with the JAX command's messages; ``--data-dir`` trains from
-packed shards and refuses what the JAX loop refuses."""
+packed shards and refuses what the JAX loop refuses. The two-stage
+commands: ``train-crop`` (the dumper, the crane per part), ``train-detect``
+(with both crop checkpoints, the miss split and the FULL rows; from shards)
+and ``infer`` print the JAX commands' lines, save and resume, write the
+JAX records, and refuse the flags whose paths are not ported."""
 
 import contextlib
 import io
+import json
 import math
 import re
 import subprocess
@@ -150,3 +155,157 @@ def test_train_from_data_dir(shards, tmp_path, capsys, monkeypatch):
     assert lines[0] == "restored checkpoint at step 4"
     assert lines[1].startswith("step 6: loss=") and lines[1].endswith("offline shards)")
     assert lines[2] == f"saved checkpoint at step 6 -> {ck}"
+
+
+# The two-stage commands: the JAX command's lines after training
+# (constructionsceneposeestimation_tpu/cli.py:379-421, :493-590, :789).
+STEP_VIS = rf"step \d+: loss={D(5)} vis=\d+/2 \({D(1)} img/s avg\)"
+CRANE_PARTS = rf"\[base={D(2)} column={D(2)} boom={D(2)} telescopic={D(2)}\]"
+CROP_LINES = {
+    "dumper": [rf"dumper crop-stage 6DoF: ADD mean {D(3)} m, ADD-0\.1d {D(3)} \(accepted \d+/\d+, "
+               rf"detectable \d+/2, rmse {D(4)}\)"],
+    "crane": [rf"crane crop-stage 6DoF: ADD mean {D(3)} m, ADD-0\.1d {D(3)} {CRANE_PARTS} "
+              rf"\(accepted \d+/\d+, detectable \d+/2\)",
+              rf"  per-part err split \(t/rot\): \[base={D(2)}m/{D(1)}deg column={D(2)}m/"
+              rf"{D(1)}deg boom={D(2)}m/{D(1)}deg telescopic={D(2)}m/{D(1)}deg\]"],
+}
+PR = rf"{D(2)}/{D(2)}"
+DETECT_LINES = [
+    rf"detector P/R @IoU0\.5: {D(3)}/{D(3)}  \[dumper={PR} crane={PR} human={PR} "
+    rf"trafficcone={PR}\]",
+    rf"  crane parts P/R: \[base={PR} column={PR} boom={PR} telescopic={PR}\]  "
+    rf"mAP@0\.5 {D(3)}",
+]
+MISS = rf"  miss split \w+: score {D(2)} cls {D(2)} loc {D(2)}  \(recall {D(2)}\)"
+FULL_LINES = [
+    rf"FULL two-stage dumper 6DoF \(detector boxes\): ADD mean {D(3)} m, ADD-0\.1d {D(3)} "
+    rf"\(accepted \d+/\d+\)",
+    rf"FULL two-stage multi-dumper 6DoF \(detector boxes, 2 instances\): ADD mean {D(3)} m, "
+    rf"ADD-0\.1d {D(3)} \(accepted \d+/\d+ detectable\)",
+    rf"FULL two-stage crane 6DoF \(detector part boxes\): ADD mean {D(3)} m, ADD-0\.1d {D(3)} "
+    rf"{CRANE_PARTS} \(accepted \d+/\d+\)",
+]
+# Full-width networks (`infer` restores the full-width crop nets, as the JAX
+# command does), 2 frames of 64^2 a step, 32^2 crops.
+TWO = ["--device", "cpu", "--size", "64", "--batch", "2", "--crop", "32", "--eval-frames", "2"]
+CRANE = ["--cls", "crane", "--per-part", "--stride", "2"]
+
+
+@pytest.fixture(scope="module")
+def two_stage(tmp_path_factory):
+    """train-crop (dumper, then the crane per part), train-detect with both
+    crop checkpoints and infer, run once: their checkpoint dirs and output."""
+    root = tmp_path_factory.mktemp("two_stage")
+    ck = {k: str(root / k) for k in ("dumper", "crane", "det")}
+    out = {}
+
+    def run(name, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        out[name] = buf.getvalue().splitlines()
+
+    run("dumper", ["train-crop", *TWO, "--steps", "2", "--inner", "1", "--save-every", "1",
+                   "--ckpt-dir", ck["dumper"]])
+    run("crane", ["train-crop", *TWO, *CRANE, "--steps", "2", "--inner", "2",
+                  "--ckpt-dir", ck["crane"]])
+    run("det", ["train-detect", *TWO, "--steps", "2", "--inner", "2", "--det-stride", "2",
+                "--n-dumpers", "2", "--n-humans", "3", "--det-analysis", "--crop-ckpt",
+                ck["dumper"], "--crane-crop-ckpt", ck["crane"], "--crane-stride", "2",
+                "--crane-crop", "32", "--ckpt-dir", ck["det"]])
+    poses = str(root / "poses.jsonl")
+    run("infer", ["infer", "--device", "cpu", "--size", "64", "--frames", "3", "--batch", "2",
+                  "--crop", "32", "--det-ckpt", ck["det"], "--det-stride", "2", "--crop-ckpt",
+                  ck["dumper"], "--crane-crop-ckpt", ck["crane"], "--crane-stride", "2",
+                  "--crane-crop", "32", "--det-threshold", "0.05", "--track", "--out", poses])
+    return ck, out, poses
+
+
+def test_train_crop_prints_every_line_of_the_jax_command(two_stage):
+    ck, out, _ = two_stage
+    lines = out["dumper"]
+    assert [ln.split(":")[0] for ln in lines if ln.startswith("step")] == ["step 1", "step 2"]
+    assert all(re.fullmatch(STEP_VIS, ln) for ln in lines if ln.startswith("step"))
+    assert "checkpointed step 1" in lines and "checkpointed step 2" in lines
+    assert lines[-2] == f"saved checkpoint at step 2 -> {ck['dumper']}"
+    assert re.fullmatch(CROP_LINES["dumper"][0], lines[-1]), lines[-1]
+    lines = out["crane"]
+    assert re.fullmatch(STEP_VIS, lines[0])
+    assert lines[0].startswith("step 2:") and len(lines) == 4
+    assert lines[1] == f"saved checkpoint at step 2 -> {ck['crane']}"
+    for line, pattern in zip(lines[2:], CROP_LINES["crane"]):
+        assert re.fullmatch(pattern, line), (line, pattern)
+
+
+def test_train_crop_resumes(two_stage, tmp_path, capsys):
+    """A copy of the dumper's checkpoint dir: one more step, then nothing
+    left to train (restore, no step, no save, the evaluation)."""
+    import shutil
+    ck = str(tmp_path / "ck")
+    shutil.copytree(two_stage[0]["dumper"], ck)
+    lines = _run(capsys, ["train-crop", *TWO, "--steps", "3", "--inner", "1", "--ckpt-dir", ck])
+    assert lines[0] == "restored checkpoint at step 2"
+    assert re.fullmatch(STEP_VIS, lines[1]) and lines[1].startswith("step 3:")
+    assert lines[2] == f"saved checkpoint at step 3 -> {ck}"
+    lines = _run(capsys, ["train-crop", *TWO, "--steps", "3", "--ckpt-dir", ck])
+    assert lines[0] == "restored checkpoint at step 3" and len(lines) == 2
+    assert re.fullmatch(CROP_LINES["dumper"][0], lines[1])
+
+
+def test_train_detect_prints_every_line_of_the_jax_command(two_stage):
+    ck, out, _ = two_stage
+    lines = out["det"]
+    assert re.fullmatch(rf"step 2: loss={D(5)} \({D(1)} img/s avg\)", lines[0]), lines[0]
+    assert lines[1] == f"saved checkpoint at step 2 -> {ck['det']}"
+    assert re.fullmatch(DETECT_LINES[0], lines[2]) and re.fullmatch(DETECT_LINES[1], lines[3])
+    misses = [ln for ln in lines if ln.startswith("  miss split")]
+    assert misses and all(re.fullmatch(MISS, ln) for ln in misses)
+    assert lines[4:4 + len(misses)] == misses
+    rest = lines[4 + len(misses):]
+    assert len(rest) == len(FULL_LINES)
+    for line, pattern in zip(rest, FULL_LINES):
+        assert re.fullmatch(pattern, line), (line, pattern)
+
+
+def test_infer_writes_the_jax_records(two_stage):
+    """3 frames in batches of 2: the padded last batch writes frame 2 only;
+    key order as the JAX command's; --track adds track ids."""
+    _, out, poses = two_stage
+    records = [json.loads(ln) for ln in open(poses)]
+    n_det = sum(len(r["detections"]) for r in records)
+    assert out["infer"] == [f"wrote 3 frame records ({n_det} detections) -> {poses}"]
+    assert [r["frame_id"] for r in records] == [0, 1, 2]
+    assert all(list(r) == ["frame_id", "camera_pose7", "detections"] for r in records)
+    assert n_det > 0 and all(len(r["camera_pose7"]) == 7 for r in records)
+    for d in (d for r in records for d in r["detections"]):
+        assert "track_id" in d
+        head = ["class", "pose_accepted", "reproj_rmse_px", "parts"] if d["class"] == "crane" \
+            else ["class", "score", "bbox2d"]
+        assert list(d)[:len(head)] == head
+
+
+def test_train_detect_from_data_dir(shards, tmp_path, capsys):
+    """``train-detect --data-dir`` (lite, stride 4) trains from the shards
+    with the JAX loop's line and checkpoints, then evaluates."""
+    ck = str(tmp_path / "ck")
+    lines = _run(capsys, ["train-detect", *TWO, "--lite", "--steps", "2", "--data-dir",
+                          shards["hm"], "--ckpt-dir", ck])
+    assert re.fullmatch(rf"step 2: loss={D(5)} \({D(1)} img/s avg, offline shards\)", lines[0])
+    assert lines[1] == f"saved checkpoint at step 2 -> {ck}"
+    assert re.fullmatch(DETECT_LINES[0], lines[2]) and len(lines) == 4
+
+
+@pytest.mark.parametrize("argv,flag", [
+    (["train-detect", "--hifi-mix", "4"], "--hifi-mix"),
+    (["train-detect", "--hifi-eval"], "--hifi-eval"),
+    (["train-detect", "--image-textures"], "--image-textures"),
+    (["infer", "--det-ckpt", "d", "--crop-ckpt", "c", "--sequence-len", "30"], "--sequence-len"),
+    (["infer", "--det-ckpt", "d", "--crop-ckpt", "c", "--hifi"], "--hifi"),
+])
+def test_two_stage_refuses_unported_flags(argv, flag):
+    """With generate's words, before anything is built; the commands run on
+    the card unless ``--device cpu``."""
+    with pytest.raises(SystemExit, match=f"^{flag} is not ported to the PyTorch package yet$"):
+        cli.main(argv + ["--device", "cpu"])
+    for cmd in (["train-crop"], ["train-detect"], ["infer", "--det-ckpt", "d", "--crop-ckpt", "c"]):
+        assert cli.build_parser().parse_args(cmd).device == "cuda"

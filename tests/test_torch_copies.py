@@ -101,10 +101,25 @@ def test_convert_scene_pose_and_lighting():
     assert cam.shape == tgt.shape == (2, 3) and cam.dtype == torch.float32
 
 
+def test_tracking_is_a_copy():
+    """``eval/tracking.py`` is the JAX module's code, text for text, under a
+    docstring of its own."""
+    import ast
+
+    def body(path):
+        src = path.read_text()
+        doc = ast.get_docstring(ast.parse(src), clean=False)
+        return src[src.index(doc) + len(doc) + 3:]
+
+    assert body(ROOT / "constructionsceneposeestimation_tpu_torch" / "eval" / "tracking.py") \
+        == body(ROOT / "constructionsceneposeestimation_tpu" / "eval" / "tracking.py")
+
+
 def test_port_imports_no_jax():
     """Importing the port, running one tiny generate, one tiny evaluation
-    step and the ``generate`` command to shards, read back, load neither jax
-    nor the JAX package."""
+    step, the ``generate`` command to shards, read back, and ``infer`` on
+    freshly initialized full-width checkpoints load neither jax nor the JAX
+    package."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(2)\n"
@@ -130,6 +145,17 @@ def test_port_imports_no_jax():
         "    cli.main(['generate', '--device', 'cpu', '--size', '64', '--frames', '2',\n"
         "              '--batch', '2', '--format', 'packed', '--heatmaps', '--out', d])\n"
         "assert len(reader.ShardDataset(d)) == 2\n"
+        "from constructionsceneposeestimation_tpu_torch.train import (checkpoint, crop_loop,\n"
+        "    detect_loop, loop)\n"
+        "for name, m in (('det', detect_loop.make_detect_model(device='cpu')),\n"
+        "                ('crop', crop_loop.make_crop_model('dumper', device='cpu'))):\n"
+        "    checkpoint.CheckpointManager(f'{d}/{name}').maybe_save(\n"
+        "        loop.create_train_state(cfg, m), force=True)\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    cli.main(['infer', '--device', 'cpu', '--size', '64', '--frames', '2', '--batch',\n"
+        "              '2', '--crop', '32', '--det-ckpt', f'{d}/det', '--crop-ckpt',\n"
+        "              f'{d}/crop', '--out', f'{d}/poses.jsonl'])\n"
+        "assert len(open(f'{d}/poses.jsonl').readlines()) == 2\n"
         "import shutil; shutil.rmtree(d)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "       or m.startswith('constructionsceneposeestimation_tpu.')\n"

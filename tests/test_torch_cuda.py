@@ -404,3 +404,72 @@ def test_host_copy_equals_cpu(dev):
             np.testing.assert_array_equal(h, ref, err_msg=name)
         assert all(t.is_pinned() for t in copy._host if t.numel() > 0)
         assert not torch.equal(second.rgb, first.rgb)
+
+
+@pytest.mark.parametrize("shape,stride", [((32, 10, 32, 32), 4), ((128, 28, 96, 96), 2)])
+def test_heatmap_kernel_at_the_crop_shapes(dev, shape, stride):
+    """The crop targets' shapes: the dumper's (crop 128, stride 4) and the
+    crane's per-part crops (crop 192, stride 2), keypoint k on channel k,
+    some outside the crop, sigma 1.5."""
+    N, C, h, w = shape
+    rng = np.random.RandomState(C)
+    uv = torch.tensor(rng.uniform(-10, w * stride + 10, (N, C, 2)), dtype=torch.float32,
+                      device=dev)
+    ch = torch.arange(C, dtype=torch.int32, device=dev).expand(N, C).contiguous()
+    vis = torch.tensor(rng.rand(N, C) > 0.4, device=dev)
+    before = heatmap.heatmap_cuda.launches
+    a = heatmap.heatmaps(uv, ch, vis, C, h, w, 1.5, stride)
+    assert heatmap.heatmap_cuda.launches == before + 1
+    b = heatmap.render_heatmaps(uv, ch, vis, C, h, w, 1.5, stride)
+    torch.cuda.synchronize()
+    assert torch.abs(a - b).max() < 2e-4
+
+
+def test_two_stage_on_cuda_matches_cpu(dev):
+    """One crop step (the dumper, crop 128) and one detector step (stride 2)
+    on the card against the plain CPU path, full-width nets in f32, 4
+    ladder frames of 128^2 (views 4 and 5 show the dumper), the same draws:
+    loss to 1e-3 relative, each gradient to 1e-2 of its norm; the infer
+    function's boxes and scores to 1e-3 (its crane net on per-part crops of
+    96^2). These are chip_smoke.py's inputs: on 2 of these frames the
+    detector's deepest GroupNorms see 4 x 4 maps and its gradients part by
+    2% of a norm, the per-part crops of 128^2 frames lie mostly off the
+    frame, and GroupNorm over their constant regions leaves their gradients
+    to rounding."""
+    from constructionsceneposeestimation_tpu_torch import cli
+    from constructionsceneposeestimation_tpu_torch.ops import preprocess
+    from constructionsceneposeestimation_tpu_torch.train import crop_loop, detect_loop
+    from constructionsceneposeestimation_tpu_torch.train import loop
+
+    cfg = Config(pipeline=PipelineConfig(render_width=128, render_height=128))
+    host = Pipeline(cfg, device="cpu")
+    batch = host.make_generate_fn(ladder=True, include_heatmaps=False)(0, range(4, 8))
+    crops = crop_loop.crop_draws(0, range(4, 8), 1, 128)
+    aug = preprocess.augment_draws(0, range(4, 8), 128, 128)
+    runs = {}
+    for tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        b = FrameBatch(*(v.to(where) for v in batch))
+        model = crop_loop.make_crop_model("dumper", device=where, dtype=torch.float32)
+        state = crop_loop.create_crop_train_state(cfg, model)
+        step = crop_loop.CropTrainStep(cfg, model, Pipeline(cfg, device=where), "dumper", 128)
+        draws = crop_loop.CropDraws(crops.jitter.to(where), preprocess.AugmentDraws(
+            *(v.to(where) for v in crops.augment)))
+        loss = step.forward_backward(state, *step.crops(b, draws)).item()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        det = detect_loop.make_detect_model(output_stride=2, device=where, dtype=torch.float32)
+        dloss = detect_loop.DetectBatchStep(cfg, det, host.roster).forward_backward(
+            loop.create_train_state(cfg, det), b.rgb, b,
+            preprocess.AugmentDraws(*(v.to(where) for v in aug))).item()
+        dgrads = {n: p.grad.cpu() for n, p in det.named_parameters()}
+        crane = crop_loop.make_crop_model("crane", roster=host.roster, output_stride=2,
+                                          device=where, dtype=torch.float32)
+        out = cli.make_infer_fn(det.eval(), model.eval(), 128, host.intr, host.roster, 4,
+                                crane.eval(), 96)(b.rgb, b.camera_pose7)
+        runs[tag] = (loss, grads, dloss, dgrads, {k: v.cpu() for k, v in out.items()})
+    (l_d, g_d, dl_d, dg_d, o_d), (l_c, g_c, dl_c, dg_c, o_c) = runs["card"], runs["cpu"]
+    for a, b_, ga, gb in ((l_d, l_c, g_d, g_c), (dl_d, dl_c, dg_d, dg_c)):
+        assert abs(a - b_) <= 1e-3 * abs(b_)
+        for n, g in gb.items():
+            assert torch.linalg.norm(ga[n] - g) <= 1e-2 * torch.linalg.norm(g), n
+    assert torch.abs(o_d["boxes"] - o_c["boxes"]).max() < 1e-3
+    assert torch.abs(o_d["scores"] - o_c["scores"]).max() < 1e-3
