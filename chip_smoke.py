@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA GPU: datagen,
 evaluation, training (``train-eval``), dataset writing (``generate``,
-``train-eval --data-dir``) and the two-stage deployment path
-(``train-crop``, ``train-detect``, ``infer``).
+``train-eval --data-dir``), the two-stage deployment path
+(``train-crop``, ``train-detect``, ``infer``), clips (``--sequence-len``,
+``seq-eval``) and the hifi CAD-mesh tier (``--hifi``, ``--hifi-mix``,
+``--hifi-eval``).
 
     python3 chip_smoke.py
 
@@ -101,7 +103,29 @@ Run from the root of a checkout. Phases, each reported on its own line:
    scores to 1e-3, the same detections kept); timing by CUDA events: the
    dumper, crane and detector steps (ms, img/s), infer frames/s, the
    heatmap kernel at the crop shapes beside its bound;
-10. timing: generate frames/s, the forward and the evaluation step with
+10. ``[sequence]``, in the same directory: ``generate --sequence-len 30
+   --format packed --heatmaps`` of 60 frames (2 clips) in batches of 32
+   (sweep, RGB and heatmaps once a batch; every shard bit-equal to
+   ``make_sequence_fn`` on the same padded ids and to a repeat), within each
+   clip the static poses and the light bit-equal frame to frame and the
+   camera and crane joints moving a frame at most 1.5 / 29 of their move
+   over the clip (at most 30 deg of orbit, 4 m, 1 m); ``infer
+   --sequence-len 30 --track`` on the two-stage checkpoints (60 frames),
+   then ``seq-eval --sequence-len 30 --fps 30`` on its records: every line
+   of the JAX command, finite where the metric is defined; sequence
+   generate beside i.i.d. generate (CUDA events, in turns); ``[hifi]``: the
+   sweep kernel on the masked schedule against its plain version (the
+   ``[sweep]`` thresholds, tile cull bit-equal), 4 x 128^2 hifi frames card
+   against CPU (depth and instance) with center, size and euler bit-equal
+   to the proxy render, ``generate --hifi`` of 32 frames (bit-equal to
+   direct hifi generate), ``train-detect`` with the two-stage detector's
+   arguments plus ``--hifi-mix 4 --hifi-eval`` (20 steps; hifi batches at
+   steps 0, 4, 8, 12, 16 and for the evaluation), ``infer --hifi`` of 32
+   frames; a ``[mesh]`` line for the triangle sweep on 32 x 512^2 (pixels
+   and segments: ms, device time and launches, visited pairs and bound
+   beside the brute force), its share of a hifi batch, and the detector
+   step with hifi batches beside the proxy step;
+11. timing: generate frames/s, the forward and the evaluation step with
    CUDA events; the training step's ms and img/s, its split between
    datagen, forward+backward and the optimizer, its device-busy share and
    launches (torch.profiler) and its peak memory; each kernel's device time
@@ -110,10 +134,12 @@ Run from the root of a checkout. Phases, each reported on its own line:
    on the model heatmaps), and the heatmap kernel's write rate.
 
 Prints the kernels' JSON line (``ms`` the device time, ``call_ms`` the
-wrapper's call by CUDA events, ``launches`` those of this slice's paths,
-``train_crop`` (both crop runs), ``train_detect`` and ``infer``, and
-``launches_by_path`` each path's; the heatmap kernel's entry also holds its
-times at the crop shapes), then the card line, then as the
+wrapper's call by CUDA events, ``launches`` those of the two-stage,
+sequence and hifi paths, ``train_crop`` (both crop runs), ``train_detect``,
+``infer``, ``generate_sequence``, ``infer_sequence``, ``generate_hifi``,
+``train_detect_hifi`` and ``infer_hifi``, and ``launches_by_path`` each
+path's; the heatmap kernel's entry also holds its times at the crop
+shapes), then the card line, then as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
 line, on any failure or when no GPU is present. Imports nothing of JAX.
 """
@@ -153,6 +179,19 @@ CRANE_ARGS = ("--cls", "crane", "--per-part", "--stride", "2", "--crop", "192")
 DETECT_ARGS = ("--det-stride", "2", "--n-dumpers", "2", "--n-humans", "3", "--det-analysis",
                "--crane-stride", "2", "--crane-crop", "192")
 INFER_FRAMES, INFER_B = 32, 16
+INFER_ARGS = ("--det-stride", "2", "--crane-stride", "2", "--crane-crop", "192")
+# The clips slice: the run of record's clips of 30 (RESULTS_MANIFEST.md:40,
+# `infer --sequence-len 30 --frames 600`), cut to 2 clips: generate in
+# batches of 32 (the first straddles the clips), infer in the command's 16.
+SEQ_LEN, SEQ_FRAMES, SEQ_B = 30, 60, 32
+# The hifi slice: `generate --hifi` and `infer --hifi` on 32 frames, and the
+# detector's run of record (`train-detect ... --hifi-mix 4 --hifi-eval`).
+HIFI_FRAMES, HIFI_MIX = 32, 4
+# Operations of one (ray, triangle) pair of the mesh sweep's test
+# (render/meshcast.py): three 3-term dots 15, the reciprocal and its guard 3,
+# t, u and v 3, u + v 1, four compares and two ands 6, the select and the
+# min 2.
+MESH_PAIR_OPS = 30
 # The line heads `train-eval` prints after training (the JAX cli.py:262-331).
 TRAIN_EVAL_LINES = (
     "decode-floor PCK@0.5:", "model PCK@0.5:", "assoc decode floor:",
@@ -237,23 +276,83 @@ def device_ms(fn, key, iters=10):
     kernel's own time, without its wrapper's host work, which exceeds a
     0.2 ms kernel and would hide it from CUDA events around the calls.
     The profiler has dropped records of a short kernel on the H100 (9 of
-    20 peak-kernel launches seen once), so the mean is over the launches
-    it recorded, and a shortfall is printed."""
+    20 peak-kernel launches seen once, none of 10 heatmap launches once),
+    so the mean is over the launches it recorded, and a shortfall is
+    printed; a window in which it recorded none is profiled again, up to 3
+    times, and then the kernel is timed by CUDA events around its calls
+    instead, which is printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(3):
+        fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key]
-    seen = sum(e.count for e in evs)
-    check(0 < seen <= iters, f"profiler saw {key} launched {seen} times in {iters} calls")
-    if seen < iters:
-        phase("time", f"profiler recorded {seen} of {iters} {key} launches; mean over those")
-    return sum(e.self_device_time_total for e in evs) / 1000.0 / seen
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key]
+        seen = sum(e.count for e in evs)
+        check(seen <= iters, f"profiler saw {key} launched {seen} times in {iters} calls")
+        if seen:
+            if seen < iters:
+                phase("time", f"profiler recorded {seen} of {iters} {key} launches; mean over "
+                      "those")
+            return sum(e.self_device_time_total for e in evs) / 1000.0 / seen
+        phase("time", f"profiler recorded no {key} launch in {iters} calls (window "
+              f"{attempt + 1} of 3)")
+    ms = cuda_ms(fn, iters=iters)
+    phase("time", f"{key}: timed by CUDA events around {iters} calls instead: {ms:.4f} ms, the "
+          "wrapper's host work included")
+    return ms
+
+
+def sweep_agreement(tag, packed_k, packed_p):
+    """The sweep kernel's packed output (B, H*W) against its plain
+    version's, RES x RES frames: printed and held. Returns (t, code) of
+    both and the same-instance hit mask."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.render import raycast
+    tk, ck = raycast._unpack(packed_k)
+    tp, cp = raycast._unpack(packed_p)
+    torch.cuda.synchronize()
+    n = tk.shape[0]
+    hk, hp = tk < raycast.INF * 0.99, tp < raycast.INF * 0.99
+    both = hk & hp
+    same = both & (ck == cp)
+    rel_all = torch.abs(tk - tp) / tp
+    rel = rel_all[both]
+    rel_same = rel_all[same]
+    hit_agree = (hk == hp).float().mean().item()
+    inst_agree = (ck[both] == cp[both]).float().mean().item()
+    frac_1e5 = (rel > 1e-5).float().mean().item()
+    # The TPU kernel's own test bounds the max at 2e-4 on ~1e5 pixels. Over
+    # ~1e7 hit pixels a few dozen grazing rays (disc ~ 0 on a quadric, or a
+    # flip to the surface behind) exceed it, so the bound is held on all but
+    # 1e-5 of the hit pixels; those exceeding it are reported with whether
+    # they sit on an instance or depth edge (> 1% jump to a 4-neighbour).
+    big = both & (rel_all > 2e-4)
+    tg = torch.where(hp, tp, raycast.INF).reshape(n, RES, RES)
+    cg = cp.reshape(n, RES, RES)
+    edge = torch.zeros_like(cg, dtype=torch.bool)
+    for dim in (1, 2):
+        for s in (1, -1):
+            edge |= ((torch.roll(cg, s, dim) != cg)
+                     | (torch.abs(torch.roll(tg, s, dim) - tg) > 0.01 * tg))
+    off_edge = big & ~edge.reshape(n, -1)
+    for b_i, p_i in torch.nonzero(off_edge).tolist()[:5]:
+        phase(tag, f"off-edge frame {b_i} px {divmod(p_i, RES)}: kernel t "
+              f"{tk[b_i, p_i].item()} code {ck[b_i, p_i].item()}, plain t "
+              f"{tp[b_i, p_i].item()} code {cp[b_i, p_i].item()}")
+    frac_big = int(big.sum()) / int(both.sum())
+    phase(tag, f"hit agree {hit_agree:.6f} (> 0.9995), inst agree {inst_agree:.6f} "
+          f"(> 0.999), rel > 1e-5 on {frac_1e5:.5f} (< 0.005) of {int(both.sum())} hit "
+          f"pixels; rel > 2e-4 on {int(big.sum())} pixels ({frac_big:.2e} < 1e-5): "
+          f"{int((big & (ck != cp)).sum())} instance flips, {int(off_edge.sum())} off an edge; "
+          f"max rel {rel.max().item():.3e}, {rel_same.max().item():.3e} on same-instance hits")
+    check(hit_agree > 0.9995 and frac_big < 1e-5 and frac_1e5 < 0.005 and inst_agree > 0.999,
+          f"{tag}: sweep kernel disagrees with its plain version")
+    return tk, ck, tp, cp, same
 
 
 def bound(nbytes: float, nops: float):
@@ -979,6 +1078,408 @@ def two_stage_phase(dev, card, counters, work):
             "infer": launches["infer"]}, crop_hm
 
 
+def consume(fb):
+    """A device scalar that reads every field of a ``FrameBatch``."""
+    import torch
+    return sum(v.float().sum() if v.dtype != torch.float32
+               else torch.nan_to_num(v, posinf=0.0).sum() for v in fb)
+
+
+def region_ms(fn, start, n=B):
+    """CUDA events around ``fn(SEED, frames start..start+n)`` consumed."""
+    import torch
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    total = consume(fn(SEED, range(start, start + n)))
+    e1.record()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(total)), "consumed total not finite")
+    return e0.elapsed_time(e1)
+
+
+def wrapped_deg(a):
+    """Angles in degrees wrapped to [-180, 180)."""
+    return (a + 180.0) % 360.0 - 180.0
+
+
+def sequence_phase(dev, card, counters, datagen, work, ck):
+    """``generate --sequence-len 30`` (packed, heatmaps; 2 clips), its clips'
+    coherence, ``infer --sequence-len 30 --track`` on the two-stage
+    checkpoints ``ck``, ``seq-eval`` on its records, and sequence generate
+    beside i.i.d. generate. Returns the launches per path."""
+    import numpy as np
+    import torch
+    from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
+    from constructionsceneposeestimation_tpu_torch.eval import sequence_metrics
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
+
+    launches = {}
+    out = work / "clips"
+    chunks = [list(range(lo, min(lo + SEQ_B, SEQ_FRAMES))) for lo in range(0, SEQ_FRAMES, SEQ_B)]
+    reset(counters)
+    lines = drive_cli(["generate", "--device", dev.type, "--size", str(RES), "--batch", str(SEQ_B),
+                       "--frames", str(SEQ_FRAMES), "--sequence-len", str(SEQ_LEN), "--format",
+                       "packed", "--heatmaps", "--seed", str(SEED), "--out", str(out)])
+    launches["generate_sequence"] = read(counters)
+    check(lines[0] == f"generating {SEQ_FRAMES}/{SEQ_FRAMES} frames (resume skipped 0, "
+          "format=packed)" and lines[-1].startswith(f"done: {SEQ_FRAMES} frames in "),
+          f"generate --sequence-len printed {lines}")
+    check(all(launches["generate_sequence"][k] == len(chunks) for k in datagen)
+          and launches["generate_sequence"]["peak_decode"] == 0,
+          f"generate --sequence-len: launches {launches['generate_sequence']}, want "
+          f"{len(chunks)} a kernel")
+    cfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES, batch_size=SEQ_B,
+                                         max_iterations=SEQ_FRAMES, seed=SEED))
+    pipe = Pipeline(cfg, device=dev)
+    gen = pipe.make_sequence_fn(SEQ_LEN)
+    for c in chunks:
+        ids = c + [c[-1]] * (SEQ_B - len(c))
+        with torch.no_grad():
+            want, again = host_fields(gen(SEED, ids)), host_fields(gen(SEED, ids))
+        got = shard_arrays(out / f"shard_{c[0]:06d}.npz")
+        check(got.keys() == want.keys() and all(np.array_equal(got[k], v) and
+                                                np.array_equal(again[k], v)
+                                                for k, v in want.items()),
+              f"clip shard {c[0]}: not bit-equal to make_sequence_fn, or a repeat differs")
+    phase("sequence", f"generate --sequence-len {SEQ_LEN} --format packed --heatmaps: "
+          f"{SEQ_FRAMES} frames ({SEQ_FRAMES // SEQ_LEN} clips) in batches of {SEQ_B}; launches "
+          f"{launches['generate_sequence']}; every shard bit-equal to make_sequence_fn on the "
+          f"same padded ids, and to a repeat with the same seed")
+
+    # Within a clip: the statics and the light bit-equal frame to frame; the
+    # camera and the crane's joints move, a frame at most 1.5 / (L - 1) of
+    # their move over the clip (smoothstep's steepest slope), and over the
+    # clip at most 30 deg of orbit, 4 m of distance and 1 m of height.
+    inp = pipe.sample_sequence_inputs(SEED, range(SEQ_FRAMES), SEQ_LEN)
+    h0, h1 = pipe.roster.human_slice
+    statics = np.ones(pipe.roster.num_instances, bool)
+    statics[:4] = False  # the crane's parts
+    statics[h0:h1] = False
+    slope = 1.5 / (SEQ_LEN - 1)
+    worst = {"orbit": 0.0, "distance": 0.0, "height": 0.0, "joints": 0.0}
+    for clip in range(SEQ_FRAMES // SEQ_LEN):
+        rows = list(range(clip * SEQ_LEN, (clip + 1) * SEQ_LEN))
+        pos = inp.pose.positions[rows][:, statics]
+        yaw = inp.pose.yaw_deg[rows][:, statics]
+        lit_same = all(bool((getattr(inp.lighting, f)[rows] == getattr(inp.lighting, f)[rows[0]])
+                            .all()) for f in inp.lighting._fields)
+        check(bool((pos == pos[0]).all()) and bool((yaw == yaw[0]).all()) and lit_same,
+              f"clip {clip}: a static pose or the light changed within the clip")
+        cam = inp.cam_pos[rows].double().cpu().numpy()
+        ang = np.degrees(np.arctan2(cam[:, 1], cam[:, 0]))
+        r, h = np.linalg.norm(cam[:, :2], axis=1), cam[:, 2]
+        moves = {"orbit": (wrapped_deg(np.diff(ang)), wrapped_deg(ang[-1] - ang[0]), 30.0),
+                 "distance": (np.diff(r), r[-1] - r[0], 4.0),
+                 "height": (np.diff(h), h[-1] - h[0], 1.0)}
+        j = inp.pose.crane_joints[rows].double().cpu().numpy()
+        dj = np.diff(j, axis=0)
+        dj[:, 0] = wrapped_deg(dj[:, 0])
+        total_j = j[-1] - j[0]
+        total_j[0] = wrapped_deg(total_j[0])
+        check(np.abs(dj).sum() > 0 and np.abs(np.diff(cam, axis=0)).sum() > 0,
+              f"clip {clip}: the camera or the crane does not move")
+        check(bool((np.abs(dj) <= np.abs(total_j) * slope + 1e-4).all()),
+              f"clip {clip}: a crane joint moved {np.abs(dj).max(0)} in a frame of a clip move "
+              f"of {total_j}")
+        worst["joints"] = max(worst["joints"], float((np.abs(dj) / np.maximum(
+            np.abs(total_j), 1e-9)).max()))
+        for k, (step, total, lim) in moves.items():
+            check(abs(total) <= lim + 1e-3 and bool((np.abs(step) <= lim * slope + 1e-3).all()),
+                  f"clip {clip}: {k} moved {total} over the clip, {np.abs(step).max()} in a frame")
+            worst[k] = max(worst[k], float(np.abs(step).max()))
+    phase("sequence", f"within each clip the static poses and the light are bit-equal frame to "
+          f"frame; largest move a frame: orbit {worst['orbit']:.4f} deg (<= "
+          f"{30 * slope:.4f}), distance {worst['distance']:.4f} m (<= {4 * slope:.4f}), height "
+          f"{worst['height']:.4f} m (<= {slope:.4f}), crane joints {worst['joints']:.4f} of "
+          f"their clip move (<= {slope:.4f})")
+
+    # infer on the clips with the two-stage checkpoints, then seq-eval.
+    poses = work / "clips.jsonl"
+    reset(counters)
+    t0 = time.perf_counter()
+    lines = drive_cli(["infer", "--device", dev.type, "--size", str(RES), "--frames",
+                       str(SEQ_FRAMES), "--batch", str(INFER_B), "--det-ckpt", ck["det"],
+                       "--crop-ckpt", ck["dumper"], "--crane-crop-ckpt", ck["crane"], *INFER_ARGS,
+                       "--sequence-len", str(SEQ_LEN), "--track", "--seed", str(SEED), "--out",
+                       str(poses)])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    launches["infer_sequence"] = read(counters)
+    records = sequence_metrics.load_records(str(poses))
+    n_batches = -(-SEQ_FRAMES // INFER_B)
+    check([r["frame_id"] for r in records] == list(range(SEQ_FRAMES))
+          and len(lines) == 1 and lines[0].startswith(f"wrote {SEQ_FRAMES} frame records"),
+          f"infer --sequence-len: {len(records)} records, printed {lines}")
+    check(all(launches["infer_sequence"][k] == n_batches for k in ("pixel_sweep", "rgb_epilogue"))
+          and launches["infer_sequence"]["heatmap_targets"] == 0
+          and launches["infer_sequence"]["peak_decode"] == 0,
+          f"infer --sequence-len: want the sweep and RGB once a batch: "
+          f"{launches['infer_sequence']}")
+    lines = drive_cli(["seq-eval", "--poses", str(poses), "--sequence-len", str(SEQ_LEN), "--fps",
+                       "30"])
+    m = sequence_metrics.sequence_metrics(records, SEQ_LEN, fps=30.0)
+    heads = [f"sequence eval ({SEQ_FRAMES // SEQ_LEN} clips x {SEQ_LEN} frames, {SEQ_FRAMES} "
+             "frames):", "  id stability:       ", "  pose track rate:    ",
+             "  mean |dt| world:    ", "  mean |dR| world:    "]
+    heads += ["  id switch rate:     "] * ("id_switch_rate" in m) + ["  implied speed:      "]
+    check(len(lines) == len(heads) and all(ln.startswith(hd) for ln, hd in zip(lines, heads)),
+          f"seq-eval printed {lines}")
+    # Each metric is defined where its denominator is not empty: the rates
+    # always; the deltas and the speed when an accepted pose was matched in
+    # the next frame; the spread across clips with two clips, the worst
+    # clip with one, that hold detections before their last frame.
+    moved = m["pose_track_rate"] > 0
+    by_id = {r["frame_id"]: r for r in records}
+    clips_seen = sum(any(by_id[f]["detections"] for f in range(g, g + SEQ_LEN - 1))
+                     for g in range(0, SEQ_FRAMES, SEQ_LEN))
+    defined = {"id_stability": True, "pose_track_rate": True, "mean_t_delta_m": moved,
+               "mean_r_delta_deg": moved,
+               "p95_t_delta_m": moved, "mean_speed_mps": moved,
+               "id_stability_std": clips_seen > 1, "id_stability_min_clip": clips_seen > 0}
+    check(all(math.isfinite(m[k]) == d for k, d in defined.items()), f"seq-eval metrics {m}")
+    n_det = sum(len(r["detections"]) for r in records)
+    phase("sequence", f"infer {' '.join(INFER_ARGS)} --sequence-len {SEQ_LEN} --track, "
+          f"{SEQ_FRAMES} frames in batches of {INFER_B}: {n_det} detections; launches "
+          f"{launches['infer_sequence']}; the command in {infer_s:.3f} s (host clock, "
+          f"checkpoint loads included); seq-eval printed every line: "
+          + " | ".join(ln.strip() for ln in lines))
+
+    # Sequence generate beside i.i.d. generate: 64 x 512^2 with heatmaps,
+    # CUDA events, in turns (i.i.d., clips, clips, i.i.d.) after a warm-up.
+    tpipe = Pipeline(Config(pipeline=PipelineConfig(render_width=RES, render_height=RES)),
+                     device=dev)
+    fns = {"iid": tpipe.make_generate_fn(), "clips": tpipe.make_sequence_fn(SEQ_LEN)}
+    times = {k: [] for k in fns}
+    for k in fns:
+        region_ms(fns[k], 0)
+    for r, k in enumerate(("iid", "clips", "clips", "iid") * 2):
+        times[k].append(region_ms(fns[k], B * (r + 2)))
+    best = {k: min(v) for k, v in times.items()}
+    phase("time", f"generate {B} x {RES}^2 with heatmaps, in turns: i.i.d. {times['iid']} ms, "
+          f"clips of {SEQ_LEN} {times['clips']} ms; min {best['iid']:.3f} ms = "
+          f"{B * 1000.0 / best['iid']:.1f} frames/s i.i.d., {best['clips']:.3f} ms = "
+          f"{B * 1000.0 / best['clips']:.1f} frames/s clips, on {card}")
+    return launches
+
+
+def hifi_phase(dev, card, counters, datagen, work, ck, scene):
+    """The hifi CAD-mesh tier: the sweep kernel on the masked schedule
+    against its plain version on ``scene`` (the main path's world,
+    cameras, M, intrinsics), a hifi batch card against CPU and its labels
+    against the proxy's, ``generate --hifi``, ``train-detect --hifi-mix 4
+    --hifi-eval``, ``infer --hifi``, then the mesh sweep's and the hifi
+    steps' times. Returns the launches per path."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from constructionsceneposeestimation_tpu_torch.config import (Config, PipelineConfig,
+                                                                  SceneConfig, TrainConfig)
+    from constructionsceneposeestimation_tpu_torch.core import camera as cam_mod
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
+    from constructionsceneposeestimation_tpu_torch.render import meshcast, sweep_kernel
+    from constructionsceneposeestimation_tpu_torch.scene import world as world_mod
+    from constructionsceneposeestimation_tpu_torch.train import detect_loop
+    from constructionsceneposeestimation_tpu_torch.train import loop as train_loop
+
+    launches = {}
+    world, cam, M, intr = scene
+    cfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES, batch_size=B))
+    hpipe = Pipeline(cfg, device=dev, hifi_mesh=True)
+    base = hpipe.sweeper.base
+    si, sf, radii = base.schedule(dev)
+    k_fn = lambda: sweep_kernel.sweep_cuda(si, sf, world, cam, M, intr, radii)
+    packed = k_fn()
+    full = sweep_kernel.sweep_cuda(si, sf, world, cam, M, intr, torch.full_like(radii, 1e15))
+    cull_exact = bool(torch.equal(packed.view(torch.int32), full.view(torch.int32)))
+    check(cull_exact, "hifi: the masked sweep's tile cull changed the result")
+    sweep_agreement("hifi", packed,
+                    sweep_kernel.plain_pixel_sweep(base.caster, world, cam, M, intr))
+    del packed, full
+    masked_ms = device_ms(k_fn, "sweep_kernel")
+    phase("hifi", f"sweep kernel on the masked schedule ({si.shape[0]} of "
+          f"{len(hpipe.roster.prim_inst)} rows; the meshed cones, fences, trees and worker "
+          f"left out), {B} x {RES}^2: tile-culled bit-equal to every row kept: {cull_exact}; "
+          f"held to the [sweep] thresholds above; kernel {masked_ms:.4f} ms on {card}")
+
+    # A hifi batch: card against CPU, and its labels against the proxy's.
+    small = Config(pipeline=PipelineConfig(render_width=128, render_height=128, batch_size=4))
+    ids = range(10, 14)
+    g_dev = Pipeline(small, device=dev, hifi_mesh=True).make_generate_fn()(SEED, ids)
+    g_cpu = Pipeline(small, device="cpu", hifi_mesh=True).make_generate_fn()(SEED, ids)
+    proxy = Pipeline(small, device=dev).make_generate_fn()(SEED, ids)
+    fd, fc = g_dev.depth.cpu(), g_cpu.depth
+    fin = torch.isfinite(fd) & torch.isfinite(fc)
+    rel = (torch.abs(fd - fc) / fc)[fin]
+    agree = {"depth_finite": (torch.isfinite(fd) == torch.isfinite(fc)).float().mean().item(),
+             "instance": (g_dev.instance.cpu() == g_cpu.instance).float().mean().item(),
+             "rel > 1e-5": (rel > 1e-5).float().mean().item(),
+             "rel > 2e-4": (rel > 2e-4).float().mean().item()}
+    labels = all(torch.equal(getattr(g_dev, f), getattr(proxy, f))
+                 for f in ("center", "size", "euler_deg"))
+    differs = not torch.equal(g_dev.instance, proxy.instance)
+    phase("hifi", "4 x 128^2 hifi frames, card vs plain CPU path: " + ", ".join(
+        f"{k} {v:.6f}" for k, v in agree.items()) + f" (> 0.9995, > 0.999, < 0.005, <= 1e-4); "
+          f"center, size, euler bit-equal to the proxy render: {labels}; silhouettes differ "
+          f"from it: {differs}")
+    check(agree["depth_finite"] > 0.9995 and agree["instance"] > 0.999
+          and agree["rel > 1e-5"] < 0.005 and agree["rel > 2e-4"] <= 1e-4 and labels and differs,
+          "hifi frame: card vs CPU, or its labels against the proxy render")
+
+    # generate --hifi, packed with heatmaps: bit-equal to direct hifi generate.
+    out = work / "hifi"
+    reset(counters)
+    lines = drive_cli(["generate", "--device", dev.type, "--size", str(RES), "--batch",
+                       str(HIFI_FRAMES), "--frames", str(HIFI_FRAMES), "--hifi", "--format",
+                       "packed", "--heatmaps", "--seed", str(SEED), "--out", str(out)])
+    launches["generate_hifi"] = read(counters)
+    gcfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES,
+                                          batch_size=HIFI_FRAMES, max_iterations=HIFI_FRAMES,
+                                          seed=SEED))
+    with torch.no_grad():
+        want = host_fields(Pipeline(gcfg, device=dev, hifi_mesh=True).make_generate_fn()(
+            SEED, range(HIFI_FRAMES)))
+    got = shard_arrays(out / "shard_000000.npz")
+    check(lines[-1].startswith(f"done: {HIFI_FRAMES} frames in ")
+          and got.keys() == want.keys() and all(np.array_equal(got[k], v)
+                                                for k, v in want.items())
+          and all(launches["generate_hifi"][k] == 1 for k in datagen),
+          f"generate --hifi: {lines}, launches {launches['generate_hifi']}, or its shard is not "
+          f"bit-equal to direct hifi generate")
+    phase("hifi", f"generate --hifi --format packed --heatmaps, {HIFI_FRAMES} frames: shard "
+          f"bit-equal to direct hifi generate; launches {launches['generate_hifi']}")
+
+    # train-detect with the two-stage detector's arguments, --hifi-mix 4
+    # --hifi-eval: the hifi sweep renders steps 0, 4, 8, 12, 16 and the
+    # evaluation batch.
+    sweeper_call, gen_step = meshcast.HifiSweeper.__call__, detect_loop.DetectTrainStep.generate
+    hifi_calls, hifi_steps = [0], []
+
+    def counting(self, *a):
+        hifi_calls[0] += 1
+        return sweeper_call(self, *a)
+
+    def recording(self, seed, frame_ids, step):
+        before = hifi_calls[0]
+        out = gen_step(self, seed, frame_ids, step)
+        if hifi_calls[0] > before:
+            hifi_steps.append(step)
+        return out
+
+    meshcast.HifiSweeper.__call__, detect_loop.DetectTrainStep.generate = counting, recording
+    reset(counters)
+    try:
+        lines = drive_cli(["train-detect", "--device", dev.type, "--size", str(RES), "--batch",
+                           str(TRAIN_B), "--steps", str(TRAIN_STEPS), "--inner", "1", "--seed",
+                           str(SEED), *DETECT_ARGS, "--crop-ckpt", ck["dumper"],
+                           "--crane-crop-ckpt", ck["crane"], "--eval-frames", "64",
+                           "--hifi-mix", str(HIFI_MIX), "--hifi-eval"])
+    finally:
+        meshcast.HifiSweeper.__call__, detect_loop.DetectTrainStep.generate = (sweeper_call,
+                                                                               gen_step)
+    torch.cuda.synchronize()
+    launches["train_detect_hifi"] = read(counters)
+    losses = finite_step_losses(lines, TRAIN_STEPS, "train-detect --hifi-mix")
+    want_steps = list(range(0, TRAIN_STEPS, HIFI_MIX))
+    evl = "eval frames: hifi CAD-mesh renders (proxy-trained models)"
+    heads = [evl, "detector P/R @IoU0.5: ", "  crane parts P/R: [",
+             "FULL two-stage dumper 6DoF (detector boxes): ",
+             "FULL two-stage crane 6DoF (detector part boxes): "]
+    missing = [h for h in heads if not any(ln.startswith(h) for ln in lines)]
+    check(hifi_steps == want_steps and hifi_calls[0] == len(want_steps) + 1 and not missing
+          and lines.index(evl) < min(i for i, ln in enumerate(lines)
+                                     if ln.startswith("detector P/R")),
+          f"train-detect --hifi-mix {HIFI_MIX} --hifi-eval: hifi steps {hifi_steps}, hifi "
+          f"batches {hifi_calls[0]}, missing lines {missing}")
+    check(all(launches["train_detect_hifi"][k] == TRAIN_STEPS + 1
+              for k in ("pixel_sweep", "rgb_epilogue"))
+          and launches["train_detect_hifi"]["heatmap_targets"] == 0,
+          f"train-detect --hifi-mix: launches {launches['train_detect_hifi']}")
+    phase("hifi", f"train-detect {' '.join(DETECT_ARGS)} --hifi-mix {HIFI_MIX} --hifi-eval: "
+          f"{TRAIN_STEPS} steps of {TRAIN_B} x {RES}^2, hifi batches at steps {hifi_steps} and "
+          f"the 64 evaluation frames; launches {launches['train_detect_hifi']}; losses "
+          f"{[round(v, 4) for v in losses]}")
+
+    poses = work / "hifi.jsonl"
+    reset(counters)
+    lines = drive_cli(["infer", "--device", dev.type, "--size", str(RES), "--frames",
+                       str(HIFI_FRAMES), "--batch", str(INFER_B), "--det-ckpt", ck["det"],
+                       "--crop-ckpt", ck["dumper"], "--crane-crop-ckpt", ck["crane"], *INFER_ARGS,
+                       "--hifi", "--track", "--seed", str(SEED), "--out", str(poses)])
+    torch.cuda.synchronize()
+    launches["infer_hifi"] = read(counters)
+    records = [json.loads(ln) for ln in poses.read_text().splitlines()]
+    check([r["frame_id"] for r in records] == list(range(HIFI_FRAMES))
+          and all(launches["infer_hifi"][k] == HIFI_FRAMES // INFER_B
+                  for k in ("pixel_sweep", "rgb_epilogue")),
+          f"infer --hifi: {len(records)} records, launches {launches['infer_hifi']}")
+    phase("hifi", f"infer --hifi --track, {HIFI_FRAMES} frames in batches of {INFER_B}: "
+          f"{sum(len(r['detections']) for r in records)} detections; launches "
+          f"{launches['infer_hifi']}")
+
+    # The mesh sweep on 32 x 512^2 hifi frames: pixel rays (square tiles)
+    # and keypoint segments (one range a frame), against its bound: the
+    # visited (ray, triangle) pairs x MESH_PAIR_OPS at the FP32 rate, beside
+    # the brute-force count of every ray against every triangle.
+    n = HIFI_FRAMES
+    inp = hpipe.sample_inputs(SEED + 3000, range(n))
+    w = world_mod.build_world(hpipe.roster, inp.pose)
+    Mh = cam_mod.look_at_matrix(inp.cam_pos, inp.target)
+    mesh = hpipe.caster.mesh
+    px = cam_mod.pixel_rays(intr, Mh).reshape(n, -1, 3)
+    kp = world_mod.world_keypoints(w["inst_rot"], w["inst_pos"], w["kpts_local"])
+    seg = kp.reshape(n, -1, 3) - inp.cam_pos[:, None]
+    rays = {"pixels": px, "segments": seg}
+    mesh_r = {}
+    for name, d in rays.items():
+        visited = int(mesh.visited(w, inp.cam_pos, d).sum())
+        group = min(d.shape[1], mesh.tile)
+        pairs = visited * group * mesh.tri_block
+        brute = n * d.shape[1] * mesh.n_triangles
+        ms = cuda_ms(lambda: mesh.packed(w, inp.cam_pos, d), iters=3, warmup=1)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mesh.packed(w, inp.cam_pos, d)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        mesh_r[name] = {"ms": ms, "pairs": pairs, "brute": brute, "visited": visited,
+                        "launches": sum(e.count for e in kern),
+                        "device_ms": sum(e.self_device_time_total for e in kern) / 1e3,
+                        "bound_ms": bound(0.0, pairs * MESH_PAIR_OPS)[0]}
+    hgen = hpipe.make_generate_fn()
+    pgen = Pipeline(cfg, device=dev).make_generate_fn()
+    region_ms(hgen, 0, n)
+    region_ms(pgen, 0, n)
+    turns = {"hifi": [], "proxy": []}
+    for r, k in enumerate(("hifi", "proxy", "proxy", "hifi")):
+        turns[k].append(region_ms(hgen if k == "hifi" else pgen, n * (r + 1), n))
+    hifi_ms = min(turns["hifi"])
+    mesh_ms = mesh_r["pixels"]["ms"] + mesh_r["segments"]["ms"]
+    for name, r in mesh_r.items():
+        phase("mesh", f"{name}, {n} x {RES}^2: {r['ms']:.3f} ms a batch (CUDA events), device "
+              f"time {r['device_ms']:.3f} ms in {r['launches']} kernel launches; "
+              f"{r['visited']} (frame, ray group, block) visits = {r['pairs']:.4e} (ray, "
+              f"triangle) pairs, brute force {r['brute']:.4e}; bound {r['bound_ms']:.4f} ms "
+              f"(operations: {MESH_PAIR_OPS} a pair at 67 TFLOP/s), brute-force bound "
+              f"{bound(0.0, r['brute'] * MESH_PAIR_OPS)[0]:.4f} ms; on {card}")
+    phase("time", f"generate {n} x {RES}^2 with heatmaps, in turns: hifi {turns['hifi']} ms, "
+          f"proxy {turns['proxy']} ms; min {hifi_ms:.3f} ms = {n * 1000.0 / hifi_ms:.1f} "
+          f"frames/s hifi, {min(turns['proxy']):.3f} ms proxy; the mesh sweep's "
+          f"{mesh_ms:.3f} ms is {100 * mesh_ms / hifi_ms:.1f}% of the hifi batch; on {card}")
+
+    # The detector step (the run of record's scene) with every batch hifi,
+    # beside the proxy step.
+    dcfg = Config(scene=SceneConfig(n_dumpers=2, n_humans=3),
+                  pipeline=PipelineConfig(render_width=RES, render_height=RES),
+                  train=TrainConfig(batch_size=TRAIN_B, steps=8000, loss="focal"))
+    for tag, hifi in (("proxy", None), ("hifi", Pipeline(dcfg, device=dev, hifi_mesh=True))):
+        det = detect_loop.make_detect_model(output_stride=2, device=dev)
+        step_timing(card, detect_loop.make_detect_train_step(
+            dcfg, det, Pipeline(dcfg, device=dev), hifi_pipe=hifi, hifi_every=1),
+                    train_loop.create_train_state(dcfg, det), ", stride-2 maps, 2 dumpers, "
+                    "3 workers", f"detector step, {tag} batches")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "constructionsceneposeestimation_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout; the port's package is missing", file=sys.stderr)
@@ -1040,45 +1541,9 @@ def main() -> int:
     phase("sweep", f"tile-culled kernel bit-equal to the kernel with every row kept: "
           f"{cull_exact}")
     check(cull_exact, "the sweep's tile cull changed the result")
-    tk, ck = raycast._unpack(packed)
-    tp, cp = raycast._unpack(p_fn())
-    torch.cuda.synchronize()
+    tk, ck, tp, cp, same = sweep_agreement("sweep", packed, p_fn())
+    hp = tp < raycast.INF * 0.99
     del packed, full
-    hk, hp = tk < raycast.INF * 0.99, tp < raycast.INF * 0.99
-    both = hk & hp
-    same = both & (ck == cp)
-    rel_all = torch.abs(tk - tp) / tp
-    rel = rel_all[both]
-    rel_same = rel_all[same]
-    hit_agree = (hk == hp).float().mean().item()
-    inst_agree = (ck[both] == cp[both]).float().mean().item()
-    frac_1e5 = (rel > 1e-5).float().mean().item()
-    # The TPU kernel's own test bounds the max at 2e-4 on ~1e5 pixels. Over
-    # ~1e7 hit pixels a few dozen grazing rays (disc ~ 0 on a quadric, or a
-    # flip to the surface behind) exceed it, so the bound is held on all but
-    # 1e-5 of the hit pixels; those exceeding it are reported with whether
-    # they sit on an instance or depth edge (> 1% jump to a 4-neighbour).
-    big = both & (rel_all > 2e-4)
-    tg = torch.where(hp, tp, raycast.INF).reshape(B, RES, RES)
-    cg = cp.reshape(B, RES, RES)
-    edge = torch.zeros_like(cg, dtype=torch.bool)
-    for dim in (1, 2):
-        for s in (1, -1):
-            edge |= ((torch.roll(cg, s, dim) != cg)
-                     | (torch.abs(torch.roll(tg, s, dim) - tg) > 0.01 * tg))
-    off_edge = big & ~edge.reshape(B, -1)
-    for b_i, p_i in torch.nonzero(off_edge).tolist()[:5]:
-        phase("sweep", f"off-edge frame {b_i} px {divmod(p_i, RES)}: kernel t "
-              f"{tk[b_i, p_i].item()} code {ck[b_i, p_i].item()}, plain t "
-              f"{tp[b_i, p_i].item()} code {cp[b_i, p_i].item()}")
-    frac_big = int(big.sum()) / int(both.sum())
-    phase("sweep", f"hit agree {hit_agree:.6f} (> 0.9995), inst agree {inst_agree:.6f} "
-          f"(> 0.999), rel > 1e-5 on {frac_1e5:.5f} (< 0.005) of {int(both.sum())} hit "
-          f"pixels; rel > 2e-4 on {int(big.sum())} pixels ({frac_big:.2e} < 1e-5): "
-          f"{int((big & (ck != cp)).sum())} instance flips, {int(off_edge.sum())} off an edge; "
-          f"max rel {rel.max().item():.3e}, {rel_same.max().item():.3e} on same-instance hits")
-    check(hit_agree > 0.9995 and frac_big < 1e-5 and frac_1e5 < 0.005 and inst_agree > 0.999,
-          "sweep kernel disagrees with its plain version")
     # The bound charges the (ray, row) pairs these inputs need: each ray
     # its own cost plus, for every schedule row whose bounding sphere it
     # meets (the plane always), that row's kind. The brute-force walk's
@@ -1567,9 +2032,15 @@ def main() -> int:
     # their checkpoints and records in a temporary directory removed at the
     # end, then the heatmap kernel at the crop shapes, the card against the
     # CPU and the steps' timing.
+    # 10. [sequence] and [hifi]: clips and the CAD-mesh tier through the
+    # commands, the infer and train-detect runs on the two-stage checkpoints.
     work = Path(tempfile.mkdtemp(prefix="cspe_smoke_two_stage_"))
+    ck = {k: str(work / k) for k in ("dumper", "crane", "det")}
     try:
         two_stage_launches, crop_hm = two_stage_phase(dev, card, counters, work)
+        two_stage_launches.update(sequence_phase(dev, card, counters, datagen, work, ck))
+        two_stage_launches.update(hifi_phase(dev, card, counters, datagen, work, ck,
+                                             (world, inputs.cam_pos, M, intr)))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for k in counters:
@@ -1577,32 +2048,18 @@ def main() -> int:
             launches[k][path] = counts[k]
     results["heatmap_targets"]["crop_shapes"] = crop_hm
 
-    # 10. Timing: generate frames/s (every field consumed), min of 4 regions.
-    def consume(fb):
-        return sum(v.float().sum() if v.dtype != torch.float32
-                   else torch.nan_to_num(v, posinf=0.0).sum() for v in fb)
-
-    region_ms = []
-    start = B * 10
-    for r in range(5):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        total = consume(gen(SEED, range(start + r * B, start + (r + 1) * B)))
-        e1.record()
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(total)), "consumed total not finite")
-        if r > 0:  # region 0 is the warm-up
-            region_ms.append(e0.elapsed_time(e1))
-    best = min(region_ms)
+    # 11. Timing: generate frames/s (every field consumed), min of 4 regions.
+    region_ms(gen, B * 10)  # the warm-up
+    regions = [region_ms(gen, B * (11 + r)) for r in range(4)]
+    best = min(regions)
     phase("time", f"generate {B} x {RES}^2, all modalities: regions "
-          f"{[round(x, 3) for x in region_ms]} ms; min {best:.3f} ms = "
+          f"{[round(x, 3) for x in regions]} ms; min {best:.3f} ms = "
           f"{B * 1000.0 / best:.1f} frames/s on {card}")
     with torch.inference_mode():
         images = preprocess.preprocess_frame(batch.rgb, RES, RES)
         fwd_ms = cuda_ms(lambda: pose_net.forward(model, images), iters=5)
     del images
-    region_ms = []
+    regions = []
     for r in range(4):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -1614,12 +2071,12 @@ def main() -> int:
         torch.cuda.synchronize()
         check(bool(torch.isfinite(total)), "evaluation step: total not finite")
         if r > 0:  # region 0 is the warm-up
-            region_ms.append(e0.elapsed_time(e1))
-    best = min(region_ms)
+            regions.append(e0.elapsed_time(e1))
+    best = min(regions)
     phase("time", f"forward, full-width HeatmapBackbone, bf16, {B} x {RES}^2: {fwd_ms:.3f} ms "
           f"on {card}")
     phase("time", f"evaluation step {B} x {RES}^2 (preprocess, forward, every evaluator on GT "
-          f"and model heatmaps): regions {[round(x, 3) for x in region_ms]} ms; min "
+          f"and model heatmaps): regions {[round(x, 3) for x in regions]} ms; min "
           f"{best:.3f} ms = {B * 1000.0 / best:.1f} frames/s on {card}")
     train_timing(dev, card)
     phase("time", f"peak_decode on the model heatmaps: kernel {peak_model_ms:.4f} ms at "
@@ -1642,7 +2099,10 @@ def main() -> int:
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": sum(launches[name][p] for p in ("train_crop", "train_detect", "infer")),
+         "launches": sum(launches[name][p] for p in ("train_crop", "train_detect", "infer",
+                                                     "generate_sequence", "infer_sequence",
+                                                     "generate_hifi", "train_detect_hifi",
+                                                     "infer_hifi")),
          "launches_by_path": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "call_ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -1,10 +1,11 @@
 """Command-line interface of the port (the ``generate``, ``train``,
-``train-eval``, ``train-crop``, ``train-detect`` and ``infer`` commands of
-the JAX ``cli.py``).
+``train-eval``, ``train-crop``, ``train-detect``, ``infer`` and ``seq-eval``
+commands of the JAX ``cli.py``).
 
   python -m constructionsceneposeestimation_tpu_torch.cli generate --out DIR --frames N
       Batched dataset generation, to the reference's file tree or
-      (``--format packed``) to npz shards, resuming where a run stopped.
+      (``--format packed``) to npz shards, resuming where a run stopped;
+      ``--sequence-len N`` writes clips, ``--hifi`` the CAD-mesh tier.
   python -m constructionsceneposeestimation_tpu_torch.cli train --steps N [--batch B]
       Datagen in the loop (or ``--data-dir`` shards) -> heatmap-regression
       training.
@@ -20,11 +21,12 @@ the JAX ``cli.py``).
   python -m constructionsceneposeestimation_tpu_torch.cli infer --det-ckpt D --crop-ckpt C
       The deployment loop: detector, ROI crops, keypoints, the ground-prior
       and crane solves, one JSON line a frame.
+  python -m constructionsceneposeestimation_tpu_torch.cli seq-eval --poses P --sequence-len N
+      Temporal metrics of ``infer --sequence-len N`` records.
 
 All run on the card unless ``--device cpu``. The printed lines read as
-the JAX package's do. Not yet accepted: ``--sequence-len``, ``--hifi``
-(``generate``, ``infer``), ``--image-textures`` (``generate``,
-``train-detect``), ``--hifi-mix`` and ``--hifi-eval`` (``train-detect``).
+the JAX package's do. Not yet accepted: ``--image-textures``
+(``generate``, ``train-detect``).
 """
 
 from __future__ import annotations
@@ -37,13 +39,13 @@ import time
 
 import torch
 
-# generate's flags whose paths are not ported yet.
-NOT_PORTED = ("sequence_len", "hifi", "image_textures")
+# The flags whose paths are not ported yet.
+NOT_PORTED = ("image_textures",)
 
 
-def _refuse(args, flags=NOT_PORTED) -> None:
-    """Exit with the port's message if any of ``flags`` is set."""
-    for flag in flags:
+def _refuse(args) -> None:
+    """Exit with the port's message if a flag of ``NOT_PORTED`` is set."""
+    for flag in NOT_PORTED:
         if getattr(args, flag, None):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported to the PyTorch "
                              "package yet")
@@ -66,9 +68,12 @@ def cmd_generate(args) -> None:
             render_height=args.height or args.size,
             batch_size=args.batch, max_iterations=args.frames, seed=args.seed,
         ))
-    pipe = pipeline_mod.Pipeline(cfg, device=args.device)
-    gen = pipe.make_generate_fn(ladder=args.ladder,
-                                include_heatmaps=args.format == "packed" and args.heatmaps)
+    pipe = pipeline_mod.Pipeline(cfg, device=args.device, hifi_mesh=args.hifi)
+    want_hms = args.format == "packed" and args.heatmaps
+    if args.sequence_len:
+        gen = pipe.make_sequence_fn(args.sequence_len, include_heatmaps=want_hms)
+    else:
+        gen = pipe.make_generate_fn(ladder=args.ladder, include_heatmaps=want_hms)
 
     # Pending ids batched into CONTIGUOUS runs: the pipeline's scene-cadence
     # dedup samples one scene per cadence group of the batch's ids, so a
@@ -403,10 +408,6 @@ def cmd_train_crop(args) -> None:
               f"rmse {float(out['rmse']):.4f})")
 
 
-# train-detect's flags whose paths (the CAD-mesh tiers) are not ported yet.
-DETECT_NOT_PORTED = ("hifi_mix", "hifi_eval", "image_textures")
-
-
 def cmd_train_detect(args) -> None:
     """CenterNet detector training (``train/detect_loop.py``) and its P/R
     and mAP on ``--eval-frames`` fresh frames; with ``--crop-ckpt`` and
@@ -419,7 +420,7 @@ def cmd_train_detect(args) -> None:
     from .train import crop_loop, detect_loop
     from .train import loop as train_loop
 
-    _refuse(args, DETECT_NOT_PORTED)
+    _refuse(args)
     cfg = Config(scene=SceneConfig(n_dumpers=args.n_dumpers, n_humans=args.n_humans),
                  pipeline=PipelineConfig(render_width=args.size, render_height=args.size),
                  train=TrainConfig(batch_size=args.batch, steps=max(args.steps, 1),
@@ -438,15 +439,26 @@ def cmd_train_detect(args) -> None:
                                                 b["inst_visible"]),
             roster=pipe.roster)
     elif done < args.steps:
-        run = detect_loop.make_scanned_detect_train_fn(cfg, model, pipe,
-                                                       max(1, min(args.inner, args.steps)))
+        # Mixed-geometry stream: every --hifi-mix-th batch renders the baked
+        # CAD meshes.
+        hifi_pipe = (pipeline_mod.Pipeline(cfg, device=args.device, hifi_mesh=True)
+                     if args.hifi_mix else None)
+        run = detect_loop.make_scanned_detect_train_fn(
+            cfg, model, pipe, max(1, min(args.inner, args.steps)), hifi_pipe=hifi_pipe,
+            hifi_every=args.hifi_mix)
         state = _train_loop(args, state, mgr, run, lambda done, m, rate: (
             f"step {done}: loss={float(m['loss']):.5f} ({rate:.1f} img/s avg)"))
     _save_final(args, mgr, state, trained_from)
 
     model.eval()
+    eval_pipe = pipe
+    if args.hifi_eval:
+        # Sim-to-sim transfer: the model trained on the analytic proxies is
+        # evaluated on frames rendered from the CAD meshes.
+        eval_pipe = pipeline_mod.Pipeline(cfg, device=args.device, hifi_mesh=True)
+        print("eval frames: hifi CAD-mesh renders (proxy-trained models)")
     with torch.no_grad():
-        batch = pipe.make_generate_fn(ladder=args.eval_ladder, include_heatmaps=False)(
+        batch = eval_pipe.make_generate_fn(ladder=args.eval_ladder, include_heatmaps=False)(
             args.seed + 1000, range(args.eval_frames))
     det = eval_pipeline.evaluate_detector(batch, pipe.roster, model, analysis=args.det_analysis)
     pr = lambda c: f"{float(det[f'precision_{c}']):.2f}/{float(det[f'recall_{c}']):.2f}"
@@ -605,14 +617,15 @@ def cmd_infer(args) -> None:
     -> keypoints -> the ground-prior and crane solves, one JSON record a
     frame to ``--out``. No label is read. The last batch is padded to the
     batch shape; only real frame ids are written. ``--track`` assigns track
-    ids and smooths accepted poses (``eval/tracking.py``)."""
+    ids and smooths accepted poses (``eval/tracking.py``), starting afresh
+    at each clip of ``--sequence-len``; ``--hifi`` renders the frames from
+    the CAD meshes."""
     from .config import Config, PipelineConfig
     from .parallel import pipeline as pipeline_mod
     from .train import crop_loop, detect_loop
 
-    _refuse(args, ("sequence_len", "hifi"))
     cfg = Config(pipeline=PipelineConfig(render_width=args.size, render_height=args.size))
-    pipe = pipeline_mod.Pipeline(cfg, device=args.device)
+    pipe = pipeline_mod.Pipeline(cfg, device=args.device, hifi_mesh=args.hifi)
     det_model = _restore_model(args.det_ckpt, cfg, detect_loop.make_detect_model(
         output_stride=args.det_stride, device=args.device))
     crop_model = _restore_model(args.crop_ckpt, cfg, crop_loop.make_crop_model(
@@ -623,7 +636,10 @@ def cmd_infer(args) -> None:
             "crane", roster=pipe.roster, output_stride=args.crane_stride, device=args.device))
     infer = make_infer_fn(det_model, crop_model, args.crop, pipe.intr, pipe.roster,
                           args.max_det, crane_model, args.crane_crop, args.det_threshold)
-    gen = pipe.make_generate_fn(ladder=args.ladder, include_heatmaps=False)
+    if args.sequence_len:
+        gen = pipe.make_sequence_fn(args.sequence_len, include_heatmaps=False)
+    else:
+        gen = pipe.make_generate_fn(ladder=args.ladder, include_heatmaps=False)
     px2n = 1.0 / float(pipe.intr.fx)
     tracker = None
     if args.track:
@@ -639,11 +655,43 @@ def cmd_infer(args) -> None:
             for i in range(min(args.frames - lo, args.batch)):
                 rec = frame_record(o, i, lo + i, cam7[i], args.det_threshold, px2n)
                 if tracker is not None:
+                    if args.sequence_len and (lo + i) % args.sequence_len == 0:
+                        tracker.reset()  # clips are independent
                     tracker.update(rec["detections"], rec["camera_pose7"])
                 n_det += len(rec["detections"])
                 f.write(json.dumps(rec) + "\n")
                 n_out += 1
     print(f"wrote {n_out} frame records ({n_det} detections) -> {args.out}")
+
+
+def cmd_seq_eval(args) -> None:
+    """Temporal quality of ``infer --sequence-len N`` records: mean
+    inter-frame world-frame pose delta of tracked objects, rotation delta,
+    and detection identity stability (``eval/sequence_metrics.py``)."""
+    import math
+
+    from .eval import sequence_metrics as seq_metrics
+
+    records = seq_metrics.load_records(args.poses)
+    out = seq_metrics.sequence_metrics(records, args.sequence_len, fps=args.fps)
+    print(f"sequence eval ({int(out['n_clips'])} clips x "
+          f"{args.sequence_len} frames, {int(out['n_frames'])} frames):")
+    disp = ("" if math.isnan(out.get("id_stability_std", float("nan")))
+            else f" +- {out['id_stability_std']:.3f} across clips "
+                 f"(worst clip {out['id_stability_min_clip']:.3f})")
+    print(f"  id stability:       {out['id_stability']:.3f}{disp} "
+          f"(adjacent-frame detection matches)")
+    print(f"  pose track rate:    {out['pose_track_rate']:.3f} "
+          f"(accepted poses matched to the next frame)")
+    print(f"  mean |dt| world:    {out['mean_t_delta_m']:.3f} m/frame "
+          f"(p95 {out['p95_t_delta_m']:.3f})")
+    print(f"  mean |dR| world:    {out['mean_r_delta_deg']:.2f} deg/frame")
+    if "id_switch_rate" in out:
+        print(f"  id switch rate:     {out['id_switch_rate']:.3f} "
+              f"(IoU-matched pairs whose --track ids differ)")
+    if "mean_speed_mps" in out:
+        print(f"  implied speed:      {out['mean_speed_mps']:.2f} m/s @ "
+              f"{args.fps} fps")
 
 
 def _train_flags(p, steps: int, batch: int, inner: int) -> None:
@@ -690,8 +738,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reference: exact drop-in text/PNG tree; packed: npz shards")
     g.add_argument("--heatmaps", action="store_true",
                    help="include f16 heatmap targets in packed shards")
-    g.add_argument("--sequence-len", type=int, default=0, help="not ported yet")
-    g.add_argument("--hifi", action="store_true", help="not ported yet")
+    g.add_argument("--sequence-len", type=int, default=0,
+                   help="N>0: temporally coherent N-frame clips (crane and worker "
+                        "animation, a camera flight) instead of i.i.d. frames")
+    g.add_argument("--hifi", action="store_true",
+                   help="render cones, fences, trees and the worker from baked CAD "
+                        "triangle meshes (render/meshcast.py) instead of the analytic "
+                        "proxies: mesh-faithful silhouettes, slower")
     g.add_argument("--image-textures", action="store_true", help="not ported yet")
     g.add_argument("--n-dumpers", type=int, default=1,
                    help="dumpers per scene (match the trainer's scene when writing "
@@ -770,9 +823,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="train from packed npz shards (io/reader) instead of the generator")
     td.add_argument("--eval-ladder", action="store_true")
     td.add_argument("--camera-mix", type=float, default=0.0)
-    td.add_argument("--hifi-mix", type=int, default=0, help="not ported yet")
+    td.add_argument("--hifi-mix", type=int, default=0,
+                    help="render every k-th training batch with the hifi CAD-mesh sweep "
+                         "(0 = proxies only): mixed-geometry training for sim-to-sim "
+                         "transfer")
     td.add_argument("--image-textures", action="store_true", help="not ported yet")
-    td.add_argument("--hifi-eval", action="store_true", help="not ported yet")
+    td.add_argument("--hifi-eval", action="store_true",
+                    help="evaluate on hifi CAD-mesh renders (the sim-to-sim transfer gap of "
+                         "proxy-trained models)")
     td.add_argument("--det-analysis", action="store_true",
                     help="oracle-IoU miss diagnosis per class: split missed GTs into "
                          "score / classification / localization misses")
@@ -797,19 +855,31 @@ def build_parser() -> argparse.ArgumentParser:
     inf.add_argument("--det-threshold", type=float, default=0.3)
     inf.add_argument("--max-det", type=int, default=4,
                      help="detection slots per class (each dumper slot pays a crop+solve)")
-    inf.add_argument("--sequence-len", type=int, default=0, help="not ported yet")
+    inf.add_argument("--sequence-len", type=int, default=0,
+                     help="run on temporally coherent clips of this length (pairs with "
+                          "seq-eval)")
     inf.add_argument("--crane-stride", type=int, default=4, choices=[2, 4],
                      help="output stride the crane crop ckpt was trained at")
     inf.add_argument("--crane-crop", type=int, default=None,
                      help="crop size the crane crop ckpt was trained at (default: --crop)")
     inf.add_argument("--track", action="store_true",
                      help="assign track_ids across frames (greedy same-class IoU) and "
-                          "EMA-smooth accepted poses in the world frame (eval/tracking.py)")
+                          "EMA-smooth accepted poses in the world frame (eval/tracking.py); "
+                          "tracks reset per clip")
     inf.add_argument("--smooth", type=float, default=0.5,
                      help="EMA keep-fraction for --track pose smoothing (0 = ids only)")
-    inf.add_argument("--hifi", action="store_true", help="not ported yet")
+    inf.add_argument("--hifi", action="store_true",
+                     help="run the detector on hifi CAD-mesh renders (sim-to-sim transfer: "
+                          "the models are trained on proxies)")
     _device_flag(inf)
     inf.set_defaults(fn=cmd_infer)
+    se = sub.add_parser("seq-eval", help="temporal metrics over infer JSONL from "
+                                         "sequence-mode clips")
+    se.add_argument("--poses", required=True, help="infer --out JSONL path")
+    se.add_argument("--sequence-len", type=int, default=30)
+    se.add_argument("--fps", type=float, default=None,
+                    help="clip frame rate for implied-speed reporting")
+    se.set_defaults(fn=cmd_seq_eval)
     return ap
 
 

@@ -12,12 +12,23 @@ systematic ladder (frame f takes entry f % 41); with ``camera_mix=p`` (the
 training stream) a per-frame coin picks the ladder entry with probability
 p, else the DR camera.
 
+Sequence mode (``make_sequence_fn``): frame f belongs to clip f //
+seq_len at time fraction (f % seq_len) / (seq_len - 1); each clip present
+in the batch samples its two endpoint scenes, camera flight and light once
+(``sample/sequence.py``), and every frame interpolates its own.
+
+The hifi tier (``hifi_mesh=True``): baked CAD triangles replace the
+proxies of the cones, fences, trees and the worker (``render/meshcast.py``)
+in the pixel sweep, as the pixel-sweep kernel on the schedule without them
+merged with the triangle sweep, and in the keypoint segments.
+
 Random numbers: each scene group and each frame has its own CPU
 ``torch.Generator`` (utils/prng.py), so a frame's scene, camera and light
-do not depend on the batch it falls in. The camera-mix coin has a stream
-of its own, so the mix leaves every other draw as it was. The few thousand
-uniforms a batch consumes are drawn on the host and moved to the device in
-one copy; the sampling arithmetic then runs on the device.
+do not depend on the batch it falls in; in sequence mode each clip has
+three. The camera-mix coin has a stream of its own, so the mix leaves
+every other draw as it was. The few thousand uniforms a batch consumes are
+drawn on the host and moved to the device in one copy; the sampling
+arithmetic then runs on the device.
 """
 
 from __future__ import annotations
@@ -30,9 +41,10 @@ import torch
 from ..config import Config
 from ..core import camera as cam_mod
 from ..ops import heatmap as heatmap_ops
-from ..render import annotate, raycast, shading
+from ..render import annotate, meshcast, raycast, shading
 from ..render.sweep_kernel import PixelSweeper
 from ..sample import camera_sampler, lighting as lighting_mod, placement
+from ..sample import sequence as seq_mod
 from ..scene import assets, world as world_mod
 from ..utils import prng
 
@@ -73,10 +85,13 @@ class FrameInputs(NamedTuple):
 class Pipeline:
     """The generate step for a fixed ``Config`` on one ``device``: the card
     unless the caller passes ``device="cpu"``. Nothing touches the device
-    until the first batch, which raises where there is no card."""
+    until the first batch, which raises where there is no card.
+    ``hifi_mesh=True`` renders the baked CAD meshes of the hifi tier; the
+    labels stay the templates'."""
 
     cfg: Config
     device: str | torch.device = "cuda"
+    hifi_mesh: bool = False
 
     def __post_init__(self):
         # Geometry is f32: no TF32 in matmuls or convolutions.
@@ -85,11 +100,16 @@ class Pipeline:
         self.device = torch.device(self.device)
         pc = self.cfg.pipeline
         self.roster = world_mod.make_roster(self.cfg.scene)
-        self.caster = raycast.Raycaster(self.roster)
         self.intr = cam_mod.intrinsics_from_apertures(
             self.cfg.camera.focal_length, self.cfg.camera.horizontal_aperture,
             pc.render_width, pc.render_height)
-        self.sweeper = PixelSweeper(self.roster, self.intr, self.caster)
+        if self.hifi_mesh:
+            self.caster = meshcast.HifiCaster(self.roster,
+                                              grid_hw=(pc.render_height, pc.render_width))
+            self.sweeper = meshcast.HifiSweeper(self.roster, self.intr, self.caster)
+        else:
+            self.caster = raycast.Raycaster(self.roster)
+            self.sweeper = PixelSweeper(self.roster, self.intr, self.caster)
         self.hm_w = pc.render_width // pc.heatmap_stride
         self.hm_h = pc.render_height // pc.heatmap_stride
         self.num_channels = assets.NUM_KEYPOINT_CHANNELS
@@ -141,6 +161,46 @@ class Pipeline:
         lit = lighting_mod.lighting_from_draws(dev["frame"][:, n_cam:], cfg.lighting)
         return FrameInputs(poses.index(dev["gidx"].long()), cam_pos, target, lit)
 
+    def sample_sequence_inputs(self, seed: int, frame_ids: Sequence[int],
+                               seq_len: int) -> FrameInputs:
+        """Clip frames' inputs: each clip present in ``frame_ids`` samples its
+        endpoint scenes, camera flight and light once, from its own streams
+        (``prng.clip_generator``); each frame interpolates its clip's
+        endpoints and flight at t = (f % seq_len) / max(seq_len - 1, 1)."""
+        cfg = self.cfg
+        fids = [int(f) for f in frame_ids]
+        clips = sorted({f // seq_len for f in fids})
+        draws_a, draws_b, cams, lights = [], [], [], []
+        for c in clips:
+            gen = prng.clip_generator(seed, c, prng.CLIP_ENDPOINTS)
+            draws_a.append(placement.scene_draws(gen, cfg.scene, cfg.randomization))
+            draws_b.append(placement.resample_draws(gen, cfg.scene, cfg.randomization))
+            gen = prng.clip_generator(seed, c, prng.CLIP_CAMERA)
+            cams.append(torch.cat([camera_sampler.camera_draws(gen, 1)[0],
+                                   torch.rand(5, generator=gen)]))
+            lights.append(lighting_mod.lighting_draws(
+                prng.clip_generator(seed, c, prng.CLIP_LIGHT), 1)[0])
+        host = {f"{end}{k}": v for end, d in (("a.", draws_a), ("b.", draws_b))
+                for k, v in placement.stack_draws(d).items()}
+        host.update(cam=torch.stack(cams), light=torch.stack(lights),
+                    cidx=torch.tensor([clips.index(f // seq_len) for f in fids],
+                                      dtype=torch.float32),
+                    t=torch.tensor([f % seq_len for f in fids], dtype=torch.float32)
+                    / max(seq_len - 1, 1))
+        dev = _to_device(host, self.device)
+        end = lambda e: {k[2:]: v for k, v in dev.items() if k.startswith(e)}
+        pa, pb = seq_mod.sequence_endpoints(end("a."), end("b."), self.roster, cfg.scene,
+                                            cfg.randomization)
+        cidx, t = dev["cidx"].long(), dev["t"]
+        pose = seq_mod.interpolate_pose(pa.index(cidx), pb.index(cidx), t, self.roster)
+        n_cam = camera_sampler.CAMERA_DRAWS
+        cam = dev["cam"][cidx]
+        cam0, tgt0 = camera_sampler.cameras_from_draws(cam[:, :n_cam], cfg.camera)
+        cam_pos, target = seq_mod.sequence_camera(cam0, tgt0, cam[:, n_cam:] * 2.0 - 1.0, t,
+                                                  cfg.camera)
+        lit = lighting_mod.lighting_from_draws(dev["light"][cidx], cfg.lighting)
+        return FrameInputs(pose, cam_pos, target, lit)
+
     def render(self, frame_ids: Tensor, inputs: FrameInputs,
                include_heatmaps: bool = True) -> FrameBatch:
         cfg = self.cfg
@@ -179,6 +239,19 @@ class Pipeline:
         def generate(seed: int, frame_ids: Sequence[int]) -> FrameBatch:
             fids = torch.as_tensor([int(f) for f in frame_ids], dtype=torch.int32)
             inputs = self.sample_inputs(seed, fids.tolist(), cams, camera_mix)
+            return self.render(fids.to(self.device), inputs, include_heatmaps)
+
+        return generate
+
+    def make_sequence_fn(self, seq_len: int = 30, include_heatmaps: bool = True):
+        """``generate(seed: int, frame_ids) -> FrameBatch`` of temporally
+        coherent clips (``sample_sequence_inputs``): the contract of
+        ``make_generate_fn``, so every writer and evaluator takes clips as
+        they are."""
+
+        def generate(seed: int, frame_ids: Sequence[int]) -> FrameBatch:
+            fids = torch.as_tensor([int(f) for f in frame_ids], dtype=torch.int32)
+            inputs = self.sample_sequence_inputs(seed, fids.tolist(), seq_len)
             return self.render(fids.to(self.device), inputs, include_heatmaps)
 
         return generate

@@ -1,0 +1,344 @@
+"""The hifi CAD-mesh tier: a culled Möller–Trumbore triangle sweep, batched
+over frames (port of the JAX ``render/meshcast.py``).
+
+The classes whose triangle geometry the reference crate authors (traffic
+cone, fence panel, tree; ``data/mesh_templates.npz``) and a skinned worker
+(a capsule-shell mesh with two-bone linear-blend weights against the
+human's own capsule primitives as bones, ``data/worker_skin.npz``) replace
+their analytic proxies for primary and keypoint-segment rays. Both files
+are byte copies of the JAX package's.
+
+With one camera origin a frame, each Möller–Trumbore quantity is a dot of
+the ray direction with a per-triangle vector: det = d . (e2 x e1), u_num =
+d . (e2 x s), v_num = d . (s x e1), t_num = e2 . (s x e1), s = o - v0. So
+a (rays x triangles) block test is one batched (R, 3) @ (3, 3T) product
+plus elementwise work, and the packed min (``raycast._pack``) yields depth
+and instance together.
+
+Culling, as in the JAX sweep: each instance's faces are Morton-sorted and
+cut into blocks of ``tri_block`` triangles (padded with degenerate
+triangles, which miss), each block with its exact posed AABB inflated by
+1e-5 of its extent, so a grazing ray that passes Möller–Trumbore is not
+culled by an ulp. Rays go in groups of ``tile``: square image tiles on the
+pixel grid (``grid_hw``), contiguous ranges otherwise (the keypoint
+segments). The JAX sweep visits each tile's hit blocks in a ``while_loop``;
+here every (frame, group, block) slab test runs at once, the visited
+triples are gathered with one ``nonzero``, and the test runs on fixed-size
+chunks of triples, each (P, tile, tri_block), reduced into (B, groups,
+tile) with ``scatter_reduce(amin)``. The packed min does not depend on the
+order of visits, so the result is the JAX sweep's.
+
+This sweep is PyTorch on tensors: the JAX package computes it in ``jnp``,
+outside any Pallas kernel. It is bound by the memory traffic of its
+elementwise passes over each chunk.
+"""
+
+from __future__ import annotations
+
+import math
+from pathlib import Path
+from typing import Dict, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core import camera as cam_mod
+from ..scene import world as world_mod
+from . import raycast
+from .sweep_kernel import PixelSweeper
+
+Tensor = torch.Tensor
+
+DATA_DIR = Path(__file__).resolve().parents[1] / "data"
+TEMPLATES_NPZ = DATA_DIR / "mesh_templates.npz"
+SKIN_NPZ = DATA_DIR / "worker_skin.npz"
+DEFAULT_CLASSES = ("trafficcone", "tree", "fence", "human")
+
+_BIG = np.float32(3e38)
+# Elements of one (triples, rays, triangles) chunk of the triangle test and
+# of one chunk of the slab test: 128 MB a f32 intermediate.
+MAX_PAIRS = 1 << 25
+
+
+def load_skin(path=SKIN_NPZ) -> Dict[str, np.ndarray]:
+    """The baked skinned worker: vertices, faces, two bone ids and weights a
+    vertex, and each vertex in its two bones' local frames (``v_loc``). A
+    bone is one of the human template's own primitives, in template order:
+    v_w = sum_j w_j (prim_rot[bone_j] @ v_loc_j + prim_pos[bone_j])."""
+    with np.load(path) as z:
+        return {k: z[k] for k in ("verts", "faces", "bone_ids", "weights", "v_loc")}
+
+
+def load_templates(path=TEMPLATES_NPZ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """{class: (verts (V, 3) f32 in the proxy's local frame, faces (T, 3) i32)}."""
+    out = {}
+    with np.load(path) as z:
+        for key in z.files:
+            if key.endswith("_verts"):
+                cls = key[:-6]
+                out[cls] = (z[f"{cls}_verts"].astype(np.float32),
+                            z[f"{cls}_faces"].astype(np.int32))
+    return out
+
+
+def _morton_sort_faces(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Reorder faces along a 3D Morton curve of their centroids so that each
+    ``tri_block`` slice is spatially compact -> tight per-block AABBs for the
+    tile cull. Pure permutation: the packed-min sweep is order-independent."""
+    if len(faces) == 0:
+        return faces
+    c = verts[faces].mean(1)
+    lo, hi = c.min(0), c.max(0)
+    q = np.clip((c - lo) / np.maximum(hi - lo, 1e-9) * 1023.0,
+                0, 1023).astype(np.uint64)
+    key = np.zeros(len(faces), np.uint64)
+    for b in range(10):
+        for a in range(3):
+            key |= ((q[:, a] >> np.uint64(b)) & np.uint64(1)) << np.uint64(3 * b + a)
+    return faces[np.argsort(key, kind="stable")]
+
+
+class MeshClass(NamedTuple):
+    """One meshed class: its template and the roster instances it covers."""
+
+    verts: np.ndarray  # (V, 3) f32, the class's local frame
+    faces: np.ndarray  # (n_blocks * tri_block, 3) Morton-sorted, padded
+    ids: np.ndarray  # (I,) int64 roster instances
+    n_blocks: int  # blocks an instance
+    n_faces: int  # faces before the padding
+    skin: Dict[str, np.ndarray] | None  # the worker's LBS tables and bone rows
+
+
+def _aabb_hit_any(ray_o: Tensor, ray_d: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
+    """Conservative slab test: does ANY ray o + t d (t > EPS) of a group hit
+    box i? ray_o (B, 3), ray_d (B, G, N, 3), lo and hi (B, I, 3) -> (B, G, I)
+    bool. An axis-parallel ray (|d_a| < 1e-12) passes that axis' slab only
+    from inside it."""
+    o = ray_o[:, None, None, None, :]  # (B, 1, 1, 1, 3)
+    lo_, hi_ = lo[:, None, None], hi[:, None, None]  # (B, 1, 1, I, 3)
+    tmn = tmx = ok = None
+    for a in range(3):
+        d = ray_d[..., a, None]  # (B, G, N, 1)
+        near = torch.abs(d) < 1e-12
+        inv = 1.0 / torch.where(near, 1.0, d)
+        t1 = (lo_[..., a] - o[..., a]) * inv
+        t2 = (hi_[..., a] - o[..., a]) * inv
+        mn = torch.where(near, -float(_BIG), torch.minimum(t1, t2))
+        mx = torch.where(near, float(_BIG), torch.maximum(t1, t2))
+        inside = (o[..., a] >= lo_[..., a]) & (o[..., a] <= hi_[..., a])
+        ax_ok = ~near | inside
+        tmn = mn if tmn is None else torch.maximum(tmn, mn)
+        tmx = mx if tmx is None else torch.minimum(tmx, mx)
+        ok = ax_ok if ok is None else ok & ax_ok
+    return torch.any(ok & (tmn <= tmx) & (tmx > raycast.EPS), dim=2)
+
+
+class MeshCaster:
+    """The culled triangle sweep over every roster instance of a meshed
+    class (``make_mesh_caster``). ``packed(world, ray_o (B,
+    3), ray_d (B, N, 3)) -> (B, N)`` packed f32 (t | instance + 2), INF where
+    no triangle is hit. ``covered_prims`` (P,) bool marks the analytic
+    primitives the meshes replace."""
+
+    def __init__(self, roster: world_mod.Roster, classes: Sequence[MeshClass], tri_block: int,
+                 tile: int, grid_hw: Tuple[int, int] | None):
+        self.classes = classes
+        self.tri_block, self.tile, self.grid_hw = tri_block, tile, grid_hw
+        meshed = np.concatenate([c.ids for c in classes])
+        self.covered_prims = np.isin(np.asarray(roster.prim_inst), meshed)
+        self.n_triangles = sum(c.n_faces * len(c.ids) for c in classes)
+        # Each block's payload code: its owning instance + 2.
+        codes = np.concatenate([np.repeat(c.ids + 2, c.n_blocks * tri_block).astype(np.int32)
+                                for c in classes])
+        self.n_blocks = len(codes) // tri_block
+        self.codes = codes.reshape(self.n_blocks, tri_block)
+        self._dev = {}
+
+    def _on(self, device) -> dict:
+        """The static tables as tensors on ``device`` (cached)."""
+        key = str(device)
+        if key not in self._dev:
+            t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+            self._dev[key] = {
+                "codes": t(self.codes),
+                "classes": [(t(c.verts), t(c.faces.astype(np.int64)), t(c.ids),
+                             None if c.skin is None else {k: t(a) for k, a in c.skin.items()})
+                            for c in self.classes]}
+        return self._dev[key]
+
+    def corners(self, world) -> Tuple[Tensor, Tensor, Tensor]:
+        """Each triangle's world corners: three (B, n_blocks, tri_block, 3)."""
+        B = world["inst_pos"].shape[0]
+        cs = ([], [], [])
+        for verts, faces, ids, skin in self._on(world["inst_pos"].device)["classes"]:
+            if skin is not None:
+                # Two-bone LBS against the posed per-primitive transforms:
+                # the human's capsules are the bones.
+                R_all = world["prim_rot"][:, skin["bone_rows"]]  # (B, I, bones, 3, 3)
+                p_all = world["prim_pos"][:, skin["bone_rows"]]  # (B, I, bones, 3)
+                vw = 0.0
+                for j in range(2):
+                    bj = skin["bone_ids"][:, j]  # (V,)
+                    vj = (torch.einsum("bivkj,vj->bivk", R_all[:, :, bj], skin["v_loc"][:, j])
+                          + p_all[:, :, bj])  # (B, I, V, 3)
+                    vw = vw + skin["weights"][:, j][None, None, :, None] * vj
+            else:
+                vw = (torch.einsum("bikj,vj->bivk", world["inst_rot"][:, ids], verts)
+                      + world["inst_pos"][:, ids][:, :, None, :])  # (B, I, V, 3)
+            for k in range(3):
+                cs[k].append(vw[:, :, faces[:, k]].reshape(B, -1, 3))
+        return tuple(torch.cat(c, dim=1).reshape(B, self.n_blocks, self.tri_block, 3)
+                     for c in cs)
+
+    def _terms(self, world, ray_o: Tensor):
+        """Per triangle, W (B, n_blocks, 3, 3 tri_block): the vectors whose dots
+        with a ray give det, u_num and v_num; t_num (B, n_blocks, tri_block);
+        and each block's inflated AABB (lo, hi (B, n_blocks, 3))."""
+        c0, c1, c2 = self.corners(world)
+        e1, e2 = c1 - c0, c2 - c0
+        s = ray_o[:, None, None, :] - c0
+        cross = lambda a, b: torch.linalg.cross(a, b, dim=-1)
+        qv = cross(s, e1)
+        tn = torch.sum(e2 * qv, dim=-1)
+        W = torch.cat([cross(e2, e1), cross(e2, s), qv], dim=2).transpose(2, 3)
+        blk_lo = torch.minimum(torch.minimum(c0, c1), c2).amin(dim=2)
+        blk_hi = torch.maximum(torch.maximum(c0, c1), c2).amax(dim=2)
+        # The boxes are exact f32 bounds: inflate them, or a ray grazing a
+        # silhouette triangle could pass the triangle test yet miss the slab.
+        eps = 1e-5 * torch.amax(blk_hi - blk_lo, dim=-1, keepdim=True)
+        return W.contiguous(), tn, blk_lo - eps, blk_hi + eps
+
+    def _groups(self, ray_d: Tensor):
+        """(rays (B, G, R, 3), back): square image tiles when ``ray_d`` is the
+        ``grid_hw`` pixel grid, contiguous ranges of ``tile`` when they divide
+        the rays, else one group; ``back`` maps (B, G, R) to (B, N)."""
+        B, N = ray_d.shape[:2]
+        th = tw = math.isqrt(self.tile)
+        if self.grid_hw is not None:
+            H, W = self.grid_hw
+            if N == H * W and H % th == 0 and W % tw == 0:
+                rt = (ray_d.reshape(B, H // th, th, W // tw, tw, 3).transpose(2, 3)
+                      .reshape(B, -1, th * tw, 3))
+                return rt, lambda x: (x.reshape(B, H // th, W // tw, th, tw).transpose(2, 3)
+                                      .reshape(B, N))
+        if N > self.tile and N % self.tile == 0:
+            return ray_d.reshape(B, N // self.tile, self.tile, 3), lambda x: x.reshape(B, N)
+        return ray_d[:, None], lambda x: x.reshape(B, N)
+
+    def relevant(self, ray_o: Tensor, rays: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
+        """(B, G, n_blocks) bool: the blocks whose box a ray of the group
+        hits, the slab test run on a few frames at a time."""
+        B, G, R = rays.shape[:3]
+        step = max(1, MAX_PAIRS // (G * R * self.n_blocks))
+        return torch.cat([_aabb_hit_any(ray_o[b:b + step], rays[b:b + step], lo[b:b + step],
+                                        hi[b:b + step]) for b in range(0, B, step)])
+
+    def visited(self, world, ray_o: Tensor, ray_d: Tensor) -> Tensor:
+        """(B, G, n_blocks) bool: the (frame, ray group, block) triples the
+        sweep tests, each ``tile`` rays against ``tri_block`` triangles."""
+        _, _, lo, hi = self._terms(world, ray_o)
+        return self.relevant(ray_o, self._groups(ray_d)[0], lo, hi)
+
+    def packed(self, world, ray_o: Tensor, ray_d: Tensor) -> Tensor:
+        W, tn, lo, hi = self._terms(world, ray_o)
+        rays, back = self._groups(ray_d)
+        B, G, R = rays.shape[:3]
+        T = self.tri_block
+        codes = self._on(ray_d.device)["codes"]
+        triples = torch.nonzero(self.relevant(ray_o, rays, lo, hi))  # (V, 3): b, g, block
+        best = torch.full((B * G, R), raycast.INF, device=ray_d.device)
+        step = max(1, MAX_PAIRS // (R * T))
+        for c in range(0, triples.shape[0], step):
+            b, g, k = triples[c:c + step].unbind(1)
+            D = torch.bmm(rays[b, g], W[b, k])  # (P, R, 3T): det | u_num | v_num
+            det = D[..., :T]
+            inv = torch.where(torch.abs(det) < raycast.EPS, 0.0, torch.reciprocal(det))
+            u, v = D[..., T:].unflatten(-1, (2, T)).mul_(inv[:, :, None]).unbind(2)
+            t = tn[b, k][:, None, :] * inv
+            # inv == 0 (|det| < EPS, the padding too) leaves t = 0, which
+            # fails t > EPS.
+            ok = (torch.minimum(u, v) >= 0.0) & (u + v <= 1.0) & (t > raycast.EPS)
+            t_min = torch.where(ok, t, float(raycast.INF)).amin(dim=2)  # (P, R)
+            # A block has one code, and packing a code is monotone in t: the
+            # pack of the block's min is the min of its packed values.
+            pk = raycast._pack(t_min, codes[k, :1])
+            best.scatter_reduce_(0, (b * G + g)[:, None].expand(-1, R), pk, "amin")
+        return back(best.reshape(B, G, R))
+
+
+def make_mesh_caster(roster: world_mod.Roster, tri_block: int = 512, tile: int = 1024,
+                     grid_hw: Tuple[int, int] | None = None) -> MeshCaster | None:
+    """The culled triangle sweep over every roster instance of
+    ``DEFAULT_CLASSES`` (the worker: the skinned mesh), or None when the
+    roster has none. Every instance's faces are padded to whole blocks of
+    ``tri_block``, so a block has one owning instance (the cull's grain).
+    ``tile`` rays a group, a perfect square: with ``grid_hw=(H, W)`` the
+    pixel rays go in square image tiles."""
+    if math.isqrt(tile) ** 2 != tile:
+        raise ValueError(f"tile={tile} must be a perfect square (square image tiles: "
+                         f"th = tw = isqrt(tile))")
+    templates = load_templates()
+    prim_inst = np.asarray(roster.prim_inst)
+    meshed = []
+    for cls in DEFAULT_CLASSES:
+        ids = np.asarray([i for i, name in enumerate(roster.inst_class_names) if name == cls],
+                         np.int64)
+        if not len(ids) or (cls != "human" and cls not in templates):
+            continue
+        if cls == "human":
+            skin = load_skin()
+            # Bones are the human's own primitive rows, in template order.
+            bone_rows = np.stack([np.nonzero(prim_inst == i)[0] for i in ids])
+            v, f = skin["verts"], skin["faces"]
+            skin_t = {"v_loc": skin["v_loc"], "weights": skin["weights"],
+                      "bone_ids": skin["bone_ids"].astype(np.int64), "bone_rows": bone_rows}
+        else:
+            (v, f), skin_t = templates[cls], None
+        f = _morton_sort_faces(np.asarray(v), f)
+        nb = -(-len(f) // tri_block)
+        # Pad with degenerate [0, 0, 0] triples: zero area -> det 0 -> miss.
+        fp = np.concatenate([f, np.zeros((nb * tri_block - len(f), 3), np.int32)])
+        meshed.append(MeshClass(np.asarray(v, np.float32), fp, ids, nb, len(f), skin_t))
+    if not meshed:
+        return None
+    return MeshCaster(roster, meshed, tri_block, tile, grid_hw)
+
+
+class HifiCaster:
+    """The composite caster of the hifi tier (``make_hifi_caster`` in the JAX
+    package): baked CAD triangles for the meshable classes and the analytic
+    sweep for every other primitive, merged by packed min. A drop-in for
+    ``raycast.Raycaster`` in ``annotate.render_frame``."""
+
+    def __init__(self, roster: world_mod.Roster, grid_hw: Tuple[int, int] | None = None,
+                 tile: int = 1024, tri_block: int = 512):
+        self.mesh = make_mesh_caster(roster, tri_block, tile, grid_hw)
+        if self.mesh is None:
+            raise ValueError(f"the roster has no instance of {DEFAULT_CLASSES} to mesh")
+        self.base_mask = ~self.mesh.covered_prims
+        self.base = raycast.Raycaster(roster, prim_mask=self.base_mask)
+
+    def packed(self, world, ray_o: Tensor, ray_d: Tensor) -> Tensor:
+        return torch.minimum(self.base.packed(world, ray_o, ray_d),
+                             self.mesh.packed(world, ray_o, ray_d))
+
+    def fast(self, world, ray_o: Tensor, ray_d: Tensor) -> Dict[str, Tensor]:
+        """{t (B, N) with +inf on a miss, inst (B, N): -1 ground, -2 miss}."""
+        t, code = raycast._unpack(self.packed(world, ray_o, ray_d))
+        hit = t < raycast.INF * 0.99
+        return {"t": torch.where(hit, t, torch.full_like(t, float("inf"))),
+                "inst": torch.where(hit, code - 2, -2)}
+
+
+class HifiSweeper:
+    """The hifi pixel sweep: the pixel-sweep kernel (or its plain version) on
+    the schedule without the meshed primitives, merged by packed min with
+    the mesh sweep of ``camera.pixel_rays`` in square image tiles."""
+
+    def __init__(self, roster: world_mod.Roster, intr: cam_mod.Intrinsics, hifi: HifiCaster):
+        self.intr, self.mesh = intr, hifi.mesh
+        self.base = PixelSweeper(roster, intr, hifi.base, prim_mask=hifi.base_mask)
+
+    def __call__(self, world, cam_pos: Tensor, M: Tensor) -> Tensor:
+        dirs = cam_mod.pixel_rays(self.intr, M).reshape(M.shape[0], -1, 3)
+        return torch.minimum(self.base(world, cam_pos, M), self.mesh.packed(world, cam_pos, dirs))

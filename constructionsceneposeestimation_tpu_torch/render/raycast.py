@@ -363,13 +363,26 @@ def _sweep_packed_fast(cats, world, prim_codes: Tensor, ray_o: Tensor, ray_d: Te
     return best
 
 
+def _masked_categories(cats, prim_mask):
+    """``cats`` keeping only the primitives where ``prim_mask`` (P,) holds,
+    groups left empty dropped."""
+    keep = np.asarray(prim_mask, bool)
+    return {c: [(k, idx[keep[idx]]) for k, idx in lst if keep[idx].any()]
+            for c, lst in cats.items()}
+
+
 class Raycaster:
     """The packed fast caster for a fixed roster (``make_raycaster().fast``
-    in the JAX package). ``chunk`` bounds the rays swept at once."""
+    in the JAX package). ``chunk`` bounds the rays swept at once;
+    ``prim_mask`` (P,) bool keeps only the primitives where it holds (the
+    hifi tier leaves out the proxies its meshes replace)."""
 
-    def __init__(self, roster: world_mod.Roster, chunk: int = 65536):
+    def __init__(self, roster: world_mod.Roster, chunk: int = 65536,
+                 prim_mask: np.ndarray | None = None):
         self.roster = roster
         self.cats = _transform_categories(roster)
+        if prim_mask is not None:
+            self.cats = _masked_categories(self.cats, prim_mask)
         self.chunk = chunk
         codes = np.asarray(roster.prim_inst) + 2
         if codes.max() > _PAYLOAD_MASK:

@@ -54,9 +54,12 @@ CULL_REL = 1e-3
 CULL_ABS = 1e-6
 
 
-def build_schedule(roster: world_mod.Roster):
-    """(sched_i (S, 4) int32 [op, prim row, code, swap], sched_f (S, 4) f32)."""
+def build_schedule(roster: world_mod.Roster, prim_mask: np.ndarray | None = None):
+    """(sched_i (S, 4) int32 [op, prim row, code, swap], sched_f (S, 4) f32):
+    a row per primitive, or per primitive where ``prim_mask`` (P,) holds."""
     cats = raycast._transform_categories(roster)
+    if prim_mask is not None:
+        cats = raycast._masked_categories(cats, prim_mask)
     rows_i, rows_f = [], []
     for cat, lst in cats.items():
         for kind, idx in lst:
@@ -186,13 +189,16 @@ sweep_cuda.launches = 0
 
 class PixelSweeper:
     """``sweeper(world, cam_pos (B, 3), M (B, 3, 3)) -> (B, H*W) packed``
-    for a fixed roster and intrinsics."""
+    for a fixed roster and intrinsics; with ``prim_mask`` (P,) bool, over
+    the primitives where it holds (the plain version then needs a
+    ``caster`` built with the same mask)."""
 
     def __init__(self, roster: world_mod.Roster, intr: cam_mod.Intrinsics,
-                 caster: raycast.Raycaster | None = None):
+                 caster: raycast.Raycaster | None = None,
+                 prim_mask: np.ndarray | None = None):
         self.intr = intr
-        self.caster = caster or raycast.Raycaster(roster)
-        self.sched_i, self.sched_f = build_schedule(roster)
+        self.caster = caster or raycast.Raycaster(roster, prim_mask=prim_mask)
+        self.sched_i, self.sched_f = build_schedule(roster, prim_mask)
         self.radii = bounding_radii(self.sched_i, self.sched_f)
         self._device_sched = {}
 

@@ -11,7 +11,8 @@ back to area 0 with a widened range; the crane never yaws.
 Sampling is two steps: ``scene_draws`` takes every uniform a scene needs
 from one ``torch.Generator`` (on the host), and ``randomize_scene`` runs the
 masked rejection logic on tensors of draws stacked over groups (on any
-device).
+device). Sequence mode's endpoint B (``resample_draws``,
+``resample_animated``) re-runs only the animated samplers the same way.
 """
 
 from __future__ import annotations
@@ -218,6 +219,68 @@ def randomize_scene(d: Dict[str, Tensor], roster: world_mod.Roster,
             "cone_ok": cone_ok, "placed_xy": placed_xy, "placed_r": placed_r,
             "crane_radius": crane_radius}
     return pose, diag
+
+
+def resample_draws(gen: torch.Generator, scene_cfg: SceneConfig = SceneConfig(),
+                   cfg: RandomizationConfig = RandomizationConfig()) -> Dict[str, Tensor]:
+    """Every uniform ``resample_animated`` consumes, in [0, 1): the crane's
+    joints and the humans' placement, yaw and body pose, keyed as in
+    ``scene_draws``."""
+    A, nh = cfg.max_attempts, scene_cfg.n_humans
+    r = lambda *s: torch.rand(*s, generator=gen)
+    return {"crane_joints": r(3), "human_center": r(nh, 2), "human_cand": r(nh, A, 2),
+            "human_fb": r(nh, 2), "human_yaw": r(nh), "human_pose": r(nh, 10)}
+
+
+def resample_animated(d: Dict[str, Tensor], roster: world_mod.Roster,
+                      scene_cfg: SceneConfig, cfg: RandomizationConfig,
+                      base_pose: world_mod.ScenePose, base_diag: Dict[str, Tensor]):
+    """Endpoint B of a clip, over G groups: draws ``d`` (``resample_draws``
+    stacked) re-sample only the animated degrees of freedom (the crane's
+    articulation; the humans' placement, yaw and body pose) and keep the
+    base scene's static layout. The humans are placed against the base
+    scene's placed obstacles, so an interpolated worker never walks through
+    a dumper, cone or the crane. The crane's slot is widened to the larger
+    reach of the two articulations, since the boom sweeps between them over
+    the clip; the base humans' slots are deactivated first, and each new
+    placement takes its slot again, so B's humans avoid one another.
+    Returns (ScenePose, {"human_ok": (G, n_humans)}): False marks the
+    clamped fallback, which is not clearance-guaranteed."""
+    dev = d["crane_joints"].device
+    nh = scene_cfg.n_humans
+    low = torch.as_tensor(kinematics.CRANE_JOINT_LOW, device=dev)
+    high = torch.as_tensor(kinematics.CRANE_JOINT_HIGH, device=dev)
+    joints = low + d["crane_joints"] * (high - low)
+    positions, yaw = base_pose.positions, base_pose.yaw_deg
+    human_joints = base_pose.human_joints
+    human_ok = torch.ones(joints.shape[0], nh, dtype=torch.bool, device=dev)
+    if nh:
+        placed_xy = base_diag["placed_xy"]
+        placed_r = base_diag["placed_r"].clone()
+        placed_r[:, 0] = torch.maximum(
+            base_diag["crane_radius"],
+            torch.clamp_min(kinematics.crane_reach_xy(joints) * 0.9, cfg.crane_min_radius))
+        h_slot0 = 1 + scene_cfg.n_dumpers
+        placed_r[:, h_slot0:h_slot0 + nh] = _INACTIVE_R
+        _, _, _, human_xy, human_yaw, human_ok = _place_sequential(
+            d, "human", nh, placed_xy, placed_r, h_slot0, cfg.human_radius, cfg.human_range,
+            cfg.fence_margin, 7.0, cfg)
+        h0, h1 = roster.human_slice
+        positions, yaw = positions.clone(), yaw.clone()
+        positions[:, h0:h1, :2] = human_xy
+        yaw[:, h0:h1] = human_yaw
+        human_joints = kinematics.pose_human_joints(
+            torch.as_tensor(assets.CANONICAL_COCO, device=dev),
+            kinematics.sample_human_pose(d["human_pose"]))
+    pose = world_mod.ScenePose(
+        crane_pos=base_pose.crane_pos,
+        crane_yaw_deg=base_pose.crane_yaw_deg,
+        crane_joints=joints,
+        positions=positions,
+        yaw_deg=yaw,
+        human_joints=human_joints,
+    )
+    return pose, {"human_ok": human_ok}
 
 
 def sample_scenes(gens: List[torch.Generator], roster: world_mod.Roster,

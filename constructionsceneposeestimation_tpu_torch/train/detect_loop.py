@@ -7,9 +7,11 @@ frames as the stage-1 step does (``preprocess.augment_draws``: a frame's
 draws depend on (seed, frame id) only), builds each frame's targets from
 its boxes with the whole crane appended as one more instance
 (``crane_extended_boxes``), and takes the mean over frames of each frame's
-``detection_loss``, then one AdamW update. ``make_data_detect_train_step``
-is the same step on batches read from packed shards. The JAX step's
-``hifi_pipe`` (CAD-mesh batches mixed in) is not ported.
+``detection_loss``, then one AdamW update. With ``hifi_pipe`` and
+``hifi_every=k`` every k-th step (``state.step % k == 0``) renders its batch
+through the hifi CAD-mesh pipeline instead: mixed-geometry training for the
+sim-to-sim gap that ``--hifi-eval`` measures. ``make_data_detect_train_step``
+is the same step on batches read from packed shards.
 """
 
 from __future__ import annotations
@@ -96,31 +98,40 @@ class DetectBatchStep:
 
 class DetectTrainStep:
     """``step(state, seed, frame_ids) -> (state, metrics)``: generate the
-    frames and their augment draws, then ``train_on_batch``."""
+    frames (through ``hifi_pipe`` on every ``hifi_every``-th step) and their
+    augment draws, then ``train_on_batch``."""
 
-    def __init__(self, cfg: Config, model: nn.Module, pipe: pipeline_mod.Pipeline):
+    def __init__(self, cfg: Config, model: nn.Module, pipe: pipeline_mod.Pipeline,
+                 hifi_pipe: pipeline_mod.Pipeline | None = None, hifi_every: int = 0):
         self.cfg, self.pipe = cfg, pipe
         mix = cfg.train.camera_mix
-        self.gen = pipe.make_generate_fn(ladder=False, include_heatmaps=False,
-                                         camera_mix=mix if mix > 0 else None)
+        mix = mix if mix > 0 else None
+        self.gen = pipe.make_generate_fn(ladder=False, include_heatmaps=False, camera_mix=mix)
+        self.gen_hifi, self.hifi_every = None, hifi_every
+        if hifi_pipe is not None and hifi_every > 0:
+            self.gen_hifi = hifi_pipe.make_generate_fn(ladder=False, include_heatmaps=False,
+                                                       camera_mix=mix)
         self.train_on_batch = DetectBatchStep(cfg, model, pipe.roster)
 
     @torch.no_grad()
-    def generate(self, seed: int, frame_ids):
+    def generate(self, seed: int, frame_ids, step: int):
+        """The batch of step ``step`` and its augment draws."""
         pc = self.cfg.pipeline
         fids = [int(f) for f in frame_ids]
-        batch = self.gen(seed, fids)
+        hifi = self.gen_hifi is not None and step % self.hifi_every == 0
+        batch = (self.gen_hifi if hifi else self.gen)(seed, fids)
         return batch, preprocess.augment_draws(seed, fids, pc.render_height, pc.render_width,
                                                self.pipe.device)
 
     def __call__(self, state: base_loop.TrainState, seed: int, frame_ids):
-        batch, draws = self.generate(seed, frame_ids)
+        batch, draws = self.generate(seed, frame_ids, state.step)
         return self.train_on_batch(state, batch.rgb, batch, draws)
 
 
-def make_detect_train_step(cfg: Config, model: nn.Module,
-                           pipe: pipeline_mod.Pipeline) -> DetectTrainStep:
-    return DetectTrainStep(cfg, model, pipe)
+def make_detect_train_step(cfg: Config, model: nn.Module, pipe: pipeline_mod.Pipeline,
+                           hifi_pipe: pipeline_mod.Pipeline | None = None,
+                           hifi_every: int = 0) -> DetectTrainStep:
+    return DetectTrainStep(cfg, model, pipe, hifi_pipe, hifi_every)
 
 
 class DataDetectTrainStep:
@@ -152,9 +163,11 @@ def make_data_detect_train_step(cfg: Config, model: nn.Module, roster) -> DataDe
 
 
 def make_scanned_detect_train_fn(cfg: Config, model: nn.Module, pipe: pipeline_mod.Pipeline,
-                                 inner_steps: int = 10):
+                                 inner_steps: int = 10,
+                                 hifi_pipe: pipeline_mod.Pipeline | None = None,
+                                 hifi_every: int = 0):
     """``run(state, seed, start_frame) -> (state, last_metrics)``:
     ``inner_steps`` detector steps on contiguous frames from
     ``start_frame``."""
-    return base_loop.run_steps(make_detect_train_step(cfg, model, pipe), cfg.train.batch_size,
-                               inner_steps)
+    return base_loop.run_steps(make_detect_train_step(cfg, model, pipe, hifi_pipe, hifi_every),
+                               cfg.train.batch_size, inner_steps)

@@ -22,6 +22,11 @@ MIX_STREAM = 3
 AUGMENT_STREAM = 4
 LADDER_STREAM = 5
 CROP_STREAM = 6
+# Sequence mode: a clip's endpoint scenes, camera flight and light, each
+# from a generator of its own per (seed, clip), where the JAX package folds
+# 7771, 7772 and 7773 into fold(seed, clip).
+SEQUENCE_STREAM = 7
+CLIP_ENDPOINTS, CLIP_CAMERA, CLIP_LIGHT = 7771, 7772, 7773
 
 _MASK64 = (1 << 64) - 1
 
@@ -78,3 +83,9 @@ def crop_generators(seed: int, frame_id: int, part: int, device="cpu"):
     noise = torch.Generator(device=device)
     noise.manual_seed(mix(seed, CROP_STREAM, int(frame_id), int(part), 1))
     return generator(seed, CROP_STREAM, int(frame_id), int(part), 0), noise
+
+
+def clip_generator(seed: int, clip: int, purpose: int) -> torch.Generator:
+    """The stream of one clip's ``purpose`` (``CLIP_ENDPOINTS``,
+    ``CLIP_CAMERA`` or ``CLIP_LIGHT``)."""
+    return generator(seed, SEQUENCE_STREAM, int(clip), int(purpose))

@@ -6,7 +6,10 @@ packed shards and refuses what the JAX loop refuses. The two-stage
 commands: ``train-crop`` (the dumper, the crane per part), ``train-detect``
 (with both crop checkpoints, the miss split and the FULL rows; from shards)
 and ``infer`` print the JAX commands' lines, save and resume, write the
-JAX records, and refuse the flags whose paths are not ported."""
+JAX records, and refuse the flags whose paths are not ported. Clips and the
+hifi tier: ``generate --sequence-len`` (both formats, resume), ``generate
+--hifi``, ``infer --sequence-len --track``, ``seq-eval`` (the JAX command's
+text on the same records) and ``train-detect --hifi-mix --hifi-eval``."""
 
 import contextlib
 import io
@@ -303,9 +306,156 @@ def test_train_detect_from_data_dir(shards, tmp_path, capsys):
     (["infer", "--det-ckpt", "d", "--crop-ckpt", "c", "--hifi"], "--hifi"),
 ])
 def test_two_stage_refuses_unported_flags(argv, flag):
-    """With generate's words, before anything is built; the commands run on
-    the card unless ``--device cpu``."""
-    with pytest.raises(SystemExit, match=f"^{flag} is not ported to the PyTorch package yet$"):
-        cli.main(argv + ["--device", "cpu"])
+    """``--image-textures`` is refused with generate's words, before anything
+    is built; the flags whose paths are ported now pass the refusal (the
+    commands that take them are driven below). The commands run on the card
+    unless ``--device cpu``."""
+    if flag == "--image-textures":
+        with pytest.raises(SystemExit,
+                           match=f"^{flag} is not ported to the PyTorch package yet$"):
+            cli.main(argv + ["--device", "cpu"])
+    else:
+        args = cli.build_parser().parse_args(argv + ["--device", "cpu"])
+        assert getattr(args, flag[2:].replace("-", "_"))
+        cli._refuse(args)
     for cmd in (["train-crop"], ["train-detect"], ["infer", "--det-ckpt", "d", "--crop-ckpt", "c"]):
         assert cli.build_parser().parse_args(cmd).device == "cuda"
+
+
+# Sequence mode and the hifi tier through the commands: clips of 3 at 64^2.
+SEQ = ["--device", "cpu", "--size", "64", "--sequence-len", "3"]
+
+
+def _shards_equal(out, chunks, gen):
+    """Every shard under ``out`` holds ``gen`` on its chunk's padded ids."""
+    import numpy as np
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import HostCopy
+    for chunk in chunks:
+        with torch.no_grad():
+            want = HostCopy(gen(0, chunk)).wait()
+        with np.load(f"{out}/shard_{chunk[0]:06d}.npz") as z:
+            for k in z.files:
+                v = getattr(want, k)
+                np.testing.assert_array_equal(z[k], v.astype(np.float16) if k == "heatmaps"
+                                              else v, err_msg=k)
+
+
+def test_generate_sequence_both_formats_and_resume(tmp_path, capsys):
+    """``generate --sequence-len 3``, 5 frames in batches of 2 (chunks [0, 1],
+    [2, 3] straddling two clips, [4] padded): the shards hold
+    ``make_sequence_fn`` on the same padded ids; with chunk [2, 3] dropped
+    from the manifest only it is regenerated, bit-equal. The reference tree
+    is the JAX writer's on the same batches, byte for byte."""
+    import json as json_mod
+    from pathlib import Path
+
+    from constructionsceneposeestimation_tpu.config import Config as JConfig
+    from constructionsceneposeestimation_tpu.config import PipelineConfig as JPipelineConfig
+    from constructionsceneposeestimation_tpu.io import dataset_writer as jdw
+    from constructionsceneposeestimation_tpu.scene import world as jworld
+    from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
+    from constructionsceneposeestimation_tpu_torch.io import resume
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import HostCopy, Pipeline
+
+    chunks = [[0, 1], [2, 3], [4, 4]]
+    base = ["generate", *SEQ, "--frames", "5", "--batch", "2"]
+    pc = dict(render_width=64, render_height=64, batch_size=2, max_iterations=5, seed=0)
+    gen = Pipeline(Config(pipeline=PipelineConfig(**pc)), device="cpu").make_sequence_fn(3)
+    out = str(tmp_path / "packed")
+    argv = base + ["--format", "packed", "--heatmaps", "--out", out]
+    lines = _run(capsys, argv)
+    assert lines[0] == "generating 5/5 frames (resume skipped 0, format=packed)"
+    _shards_equal(out, chunks, gen)
+    Path(f"{out}/shard_000002.npz").unlink()
+    Path(resume.manifest_path(out)).write_text(
+        json_mod.dumps({"completed_ranges": [[0, 2], [4, 5]]}))
+    lines = _run(capsys, argv)
+    assert lines[0] == "generating 2/5 frames (resume skipped 3, format=packed)"
+    _shards_equal(out, chunks[1:2], gen)
+    assert resume.load_manifest(out) == set(range(5))
+
+    ref_out, jax_out = str(tmp_path / "a" / "ds"), str(tmp_path / "b" / "ds")
+    lines = _run(capsys, base + ["--format", "reference", "--out", ref_out])
+    jcfg = JConfig(pipeline=JPipelineConfig(**pc))
+    writer = jdw.DatasetWriter(jcfg, root=jax_out)
+    nohm = Pipeline(Config(pipeline=PipelineConfig(**pc)), device="cpu").make_sequence_fn(
+        3, include_heatmaps=False)
+    for chunk in chunks:
+        with torch.no_grad():
+            writer.write_batch(HostCopy(nohm(0, chunk)).wait(), jworld.make_roster(jcfg.scene))
+    assert "\n".join(lines[1:]) == writer.finish()
+    files = lambda r: {str(p.relative_to(r)): p.read_bytes() for p in sorted(Path(r).rglob("*"))
+                       if p.is_file()}
+    got, want = files(ref_out), files(jax_out)
+    assert list(got) == list(want) and len(want) == 6 * 5 + 3
+    assert all(got[k] == want[k] for k in want)
+
+
+def test_generate_hifi_shards_equal_direct(tmp_path, capsys):
+    from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
+
+    out = str(tmp_path / "hifi")
+    lines = _run(capsys, ["generate", "--device", "cpu", "--size", "64", "--frames", "2",
+                          "--batch", "2", "--hifi", "--format", "packed", "--out", out])
+    assert lines[0] == "generating 2/2 frames (resume skipped 0, format=packed)"
+    cfg = Config(pipeline=PipelineConfig(render_width=64, render_height=64, batch_size=2,
+                                         max_iterations=2))
+    _shards_equal(out, [[0, 1]], Pipeline(cfg, device="cpu", hifi_mesh=True).make_generate_fn(
+        include_heatmaps=False))
+
+
+def test_infer_clips_and_seq_eval(two_stage, tmp_path, monkeypatch, capsys):
+    """``infer --sequence-len 2 --track`` on 5 frames in batches of 2: the
+    tracker starts afresh at frames 0, 2 and 4 (and when it is built); the
+    records are the clips' frames. ``seq-eval`` on those records prints the
+    JAX ``cmd_seq_eval``'s lines, text for text."""
+    from constructionsceneposeestimation_tpu import cli as jcli
+    from constructionsceneposeestimation_tpu_torch.eval import tracking
+
+    ck, _, _ = two_stage
+    seen, resets = [], []
+    update, reset = tracking.Tracker.update, tracking.Tracker.reset
+    monkeypatch.setattr(tracking.Tracker, "update",
+                        lambda self, d, p: seen.append(p) or update(self, d, p))
+    monkeypatch.setattr(tracking.Tracker, "reset",
+                        lambda self: resets.append(len(seen)) or reset(self))
+    poses = str(tmp_path / "clips.jsonl")
+    lines = _run(capsys, ["infer", *SEQ[:4], "--sequence-len", "2", "--frames", "5", "--batch",
+                          "2", "--crop", "32", "--det-ckpt", ck["det"], "--det-stride", "2",
+                          "--crop-ckpt", ck["dumper"], "--crane-crop-ckpt", ck["crane"],
+                          "--crane-stride", "2", "--crane-crop", "32", "--det-threshold",
+                          "0.05", "--track", "--out", poses])
+    records = [json.loads(ln) for ln in open(poses)]
+    assert [r["frame_id"] for r in records] == list(range(5)) and len(seen) == 5
+    assert resets == [0, 0, 2, 4]
+    n_det = sum(len(r["detections"]) for r in records)
+    assert lines == [f"wrote 5 frame records ({n_det} detections) -> {poses}"] and n_det > 0
+    for argv in (["--sequence-len", "2", "--fps", "10"], ["--sequence-len", "3"]):
+        mine = _run(capsys, ["seq-eval", "--poses", poses, *argv])
+        jcli.cmd_seq_eval(cli.build_parser().parse_args(["seq-eval", "--poses", poses, *argv]))
+        assert mine == capsys.readouterr().out.splitlines()
+        assert mine[0].startswith("sequence eval (") and len(mine) >= 5
+
+
+def test_train_detect_hifi_mix_and_eval(tmp_path, monkeypatch, capsys):
+    """``train-detect --hifi-mix 2 --hifi-eval``, 3 steps of 2 frames at 64^2
+    (lite): steps 0 and 2 and the evaluation batch render through the hifi
+    sweep, step 1 through the proxies; the JAX command's lines, with its
+    hifi-eval line before the evaluation's."""
+    from constructionsceneposeestimation_tpu_torch.render import meshcast
+
+    hifi_calls = []
+    call = meshcast.HifiSweeper.__call__
+    monkeypatch.setattr(meshcast.HifiSweeper, "__call__",
+                        lambda self, w, c, M: hifi_calls.append(c.shape[0]) or call(self, w, c, M))
+    ck = str(tmp_path / "ck")
+    lines = _run(capsys, ["train-detect", *TWO, "--lite", "--steps", "3", "--inner", "1",
+                          "--hifi-mix", "2", "--hifi-eval", "--ckpt-dir", ck])
+    assert hifi_calls == [2, 2, 2]
+    assert [ln.split(":")[0] for ln in lines[:3]] == ["step 1", "step 2", "step 3"]
+    assert all(re.fullmatch(rf"step \d+: loss={D(5)} \({D(1)} img/s avg\)", ln)
+               for ln in lines[:3])
+    assert lines[3] == f"saved checkpoint at step 3 -> {ck}"
+    assert lines[4] == "eval frames: hifi CAD-mesh renders (proxy-trained models)"
+    assert re.fullmatch(DETECT_LINES[0], lines[5]) and re.fullmatch(DETECT_LINES[1], lines[6])

@@ -101,25 +101,34 @@ def test_convert_scene_pose_and_lighting():
     assert cam.shape == tgt.shape == (2, 3) and cam.dtype == torch.float32
 
 
+def _body(path):
+    """A module's text after its docstring."""
+    import ast
+    src = path.read_text()
+    doc = ast.get_docstring(ast.parse(src), clean=False)
+    return src[src.index(doc) + len(doc) + 3:]
+
+
 def test_tracking_is_a_copy():
     """``eval/tracking.py`` is the JAX module's code, text for text, under a
     docstring of its own."""
-    import ast
+    assert _body(ROOT / "constructionsceneposeestimation_tpu_torch" / "eval" / "tracking.py") \
+        == _body(ROOT / "constructionsceneposeestimation_tpu" / "eval" / "tracking.py")
 
-    def body(path):
-        src = path.read_text()
-        doc = ast.get_docstring(ast.parse(src), clean=False)
-        return src[src.index(doc) + len(doc) + 3:]
 
-    assert body(ROOT / "constructionsceneposeestimation_tpu_torch" / "eval" / "tracking.py") \
-        == body(ROOT / "constructionsceneposeestimation_tpu" / "eval" / "tracking.py")
+def test_sequence_metrics_is_a_copy():
+    """``eval/sequence_metrics.py`` likewise."""
+    name = ("eval", "sequence_metrics.py")
+    assert _body(ROOT.joinpath("constructionsceneposeestimation_tpu_torch", *name)) \
+        == _body(ROOT.joinpath("constructionsceneposeestimation_tpu", *name))
 
 
 def test_port_imports_no_jax():
     """Importing the port, running one tiny generate, one tiny evaluation
-    step, the ``generate`` command to shards, read back, and ``infer`` on
-    freshly initialized full-width checkpoints load neither jax nor the JAX
-    package."""
+    step, the ``generate`` command to shards (i.i.d., clips and the hifi
+    tier), read back, ``infer`` on freshly initialized full-width
+    checkpoints and ``seq-eval`` on its records load neither jax nor the
+    JAX package."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(2)\n"
@@ -145,6 +154,10 @@ def test_port_imports_no_jax():
         "    cli.main(['generate', '--device', 'cpu', '--size', '64', '--frames', '2',\n"
         "              '--batch', '2', '--format', 'packed', '--heatmaps', '--out', d])\n"
         "assert len(reader.ShardDataset(d)) == 2\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    for extra in (['--sequence-len', '2', '--frames', '2'], ['--hifi', '--frames', '1']):\n"
+        "        cli.main(['generate', '--device', 'cpu', '--size', '64', '--batch', '2',\n"
+        "                  '--format', 'packed', '--out', f'{d}/{extra[0]}', *extra])\n"
         "from constructionsceneposeestimation_tpu_torch.train import (checkpoint, crop_loop,\n"
         "    detect_loop, loop)\n"
         "for name, m in (('det', detect_loop.make_detect_model(device='cpu')),\n"
@@ -156,6 +169,10 @@ def test_port_imports_no_jax():
         "              '2', '--crop', '32', '--det-ckpt', f'{d}/det', '--crop-ckpt',\n"
         "              f'{d}/crop', '--out', f'{d}/poses.jsonl'])\n"
         "assert len(open(f'{d}/poses.jsonl').readlines()) == 2\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    cli.main(['seq-eval', '--poses', f'{d}/poses.jsonl', '--sequence-len', '2'])\n"
+        "assert out.getvalue().startswith('sequence eval (1 clips x 2 frames, 2 frames):')\n"
         "import shutil; shutil.rmtree(d)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "       or m.startswith('constructionsceneposeestimation_tpu.')\n"

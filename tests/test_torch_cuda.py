@@ -31,7 +31,8 @@ from constructionsceneposeestimation_tpu_torch.config import Config, PipelineCon
 from constructionsceneposeestimation_tpu_torch.core import camera
 from constructionsceneposeestimation_tpu_torch.ops import decode, heatmap, peak_kernel
 from constructionsceneposeestimation_tpu_torch.parallel.pipeline import FrameBatch, Pipeline
-from constructionsceneposeestimation_tpu_torch.render import raycast, rgb_kernel, sweep_kernel
+from constructionsceneposeestimation_tpu_torch.render import (meshcast, raycast, rgb_kernel,
+                                                              sweep_kernel)
 from constructionsceneposeestimation_tpu_torch.sample import placement
 from constructionsceneposeestimation_tpu_torch.scene import world
 from constructionsceneposeestimation_tpu_torch.utils import prng
@@ -57,8 +58,8 @@ def scene(dev):
     return roster, world.build_world(roster, pose), cam, tgt
 
 
-def _check_sweep(roster, w, cam, tgt, intr):
-    sweeper = sweep_kernel.PixelSweeper(roster, intr)
+def _check_sweep(roster, w, cam, tgt, intr, prim_mask=None):
+    sweeper = sweep_kernel.PixelSweeper(roster, intr, prim_mask=prim_mask)
     M = camera.look_at_matrix(cam, tgt)
     before = sweep_kernel.sweep_cuda.launches
     packed = sweeper(w, cam, M)
@@ -85,6 +86,15 @@ def test_sweep_kernel_matches_plain(scene, size):
     """256 x 192, and 250 x 190 where the right and bottom tiles are ragged."""
     roster, w, cam, tgt = scene
     _check_sweep(roster, w, cam, tgt, camera.intrinsics_from_apertures(12.0, 25.0, *size))
+
+
+def test_sweep_kernel_masked_schedule_matches_plain(scene):
+    """The hifi tier's schedule, without the primitives its meshes replace,
+    against the plain caster built with the same mask."""
+    roster, w, cam, tgt = scene
+    covered = meshcast.make_mesh_caster(roster).covered_prims
+    _check_sweep(roster, w, cam, tgt, camera.intrinsics_from_apertures(12.0, 25.0, 256, 192),
+                 prim_mask=~covered)
 
 
 def test_sweep_kernel_camera_inside_a_crown(scene):
@@ -281,6 +291,34 @@ def test_generate_on_cuda_matches_cpu(dev):
     assert torch.equal(g.kpt_in_image.cpu(), c.kpt_in_image)
     assert torch.allclose(g.kpt_uv.cpu(), c.kpt_uv, atol=1e-3)
     assert torch.allclose(g.heatmaps.cpu(), c.heatmaps, atol=2e-4)
+
+
+@pytest.mark.parametrize("mode", ["hifi", "clip"])
+def test_hifi_and_clip_batches_on_cuda_match_cpu(dev, mode):
+    """A hifi batch (the masked sweep kernel merged with the triangle sweep)
+    and a batch of clips of 3 straddling a clip boundary, card against CPU,
+    to the tolerances of the i.i.d. batch; hifi labels bit-equal to the
+    proxy's on the card."""
+    cfg = Config(pipeline=PipelineConfig(render_width=128, render_height=128, batch_size=4))
+    hifi = mode == "hifi"
+    fns = {where: (Pipeline(cfg, device=where, hifi_mesh=hifi).make_generate_fn() if hifi
+                   else Pipeline(cfg, device=where).make_sequence_fn(3))
+           for where in (dev, "cpu")}
+    before = sweep_kernel.sweep_cuda.launches
+    g = fns[dev](3, range(1, 5))
+    assert sweep_kernel.sweep_cuda.launches == before + 1
+    c = fns["cpu"](3, range(1, 5))
+    assert (g.instance.cpu() == c.instance).float().mean() > 0.999
+    fin = torch.isfinite(g.depth.cpu()) & torch.isfinite(c.depth)
+    assert (torch.isfinite(g.depth.cpu()) == torch.isfinite(c.depth)).float().mean() > 0.999
+    assert torch.allclose(g.depth.cpu()[fin], c.depth[fin], rtol=3e-4)
+    assert torch.allclose(g.center.cpu(), c.center, atol=1e-4)
+    assert torch.allclose(g.kpt_uv.cpu(), c.kpt_uv, atol=1e-3)
+    assert (g.kpt_visible.cpu() == c.kpt_visible).float().mean() >= 0.99
+    if hifi:
+        proxy = Pipeline(cfg, device=dev).make_generate_fn()(3, range(1, 5))
+        for f in ("center", "size", "euler_deg"):
+            assert torch.equal(getattr(g, f), getattr(proxy, f)), f
 
 
 @pytest.mark.parametrize("shape", [(2, 71, 128, 128), (3, 5, 37, 61), (7, 3, 3), (1, 192, 192),

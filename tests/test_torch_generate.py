@@ -143,10 +143,21 @@ def test_reference_tree_equals_jax_writer(tmp_path, capsys, direct):
 
 
 @pytest.mark.parametrize("flag", [["--sequence-len", "4"], ["--hifi"], ["--image-textures"]])
-def test_unported_generate_flags_are_refused(tmp_path, flag):
-    with pytest.raises(SystemExit, match=flag[0]):
-        cli.main(ARGS + ["--out", str(tmp_path / "ds"), *flag])
-    assert not (tmp_path / "ds").exists()
+def test_unported_generate_flags_are_refused(tmp_path, flag, capsys):
+    """``--image-textures`` is refused before anything is written. Clips and
+    the hifi tier are ported: the command writes their reference tree (2
+    frames here; tests/test_torch_cli.py holds them to direct generate)."""
+    argv = ARGS + ["--out", str(tmp_path / "ds"), *flag]
+    if flag[0] == "--image-textures":
+        with pytest.raises(SystemExit, match=flag[0]):
+            cli.main(argv)
+        assert not (tmp_path / "ds").exists()
+        return
+    lines = _run(capsys, argv + ["--frames", "2"])
+    assert lines[0] == "generating 2/2 frames (resume skipped 0, format=reference)"
+    summary = json.loads(Path(tmp_path, "ds", "logs", "generation_summary.json").read_text())
+    assert [f["frame_id"] for f in summary["frame_logs"]] == [0, 1]
+    assert all(Path(tmp_path, "ds", "labels", f"label_{i:06d}.json").is_file() for i in (0, 1))
 
 
 def test_generate_on_a_missing_card_raises(tmp_path):
