@@ -3,8 +3,10 @@
 evaluation, training (``train-eval``), dataset writing (``generate``,
 ``train-eval --data-dir``), the two-stage deployment path
 (``train-crop``, ``train-detect``, ``infer``), clips (``--sequence-len``,
-``seq-eval``) and the hifi CAD-mesh tier (``--hifi``, ``--hifi-mix``,
-``--hifi-eval``).
+``seq-eval``), the hifi CAD-mesh tier (``--hifi``, ``--hifi-mix``,
+``--hifi-eval``), the image-texture tier (``--image-textures``, the RGB
+kernel's textured variant) and multi-GPU data parallelism (sharded generate
+and the DDP and FSDP training steps, on this one card).
 
     python3 chip_smoke.py
 
@@ -125,7 +127,29 @@ Run from the root of a checkout. Phases, each reported on its own line:
    and segments: ms, device time and launches, visited pairs and bound
    beside the brute force), its share of a hifi batch, and the detector
    step with hifi batches beside the proxy step;
-11. timing: generate frames/s, the forward and the evaluation step with
+11. ``[textures]``, in the same directory: the RGB kernel's textured
+   variant against its plain version on 64 x 512² frames, proxy and hifi,
+   hash noise off and on (noise off: mean |d| < 0.5 u8, |d| > 1 on < 2% of
+   the values, sky exact, |d| > 1 on <= 1e-3 of the ground pixels within
+   an AO row's reach, |d| > 2 on at most 1e-3 more of the values than the
+   untextured kernel against its plain version on the same inputs: texel
+   bin flips; noise on: the [rgb] statistics); textured generate's fields
+   bit-equal to untextured generate's but the RGB; a procedural | textured
+   PNG through ``utils/viz.save_png``; textured and untextured generate in
+   turns; ``generate --image-textures --format packed --heatmaps`` (64
+   frames), ``--hifi`` (32) and ``--sequence-len 30`` (60), every shard
+   bit-equal to direct textured generate; ``train-detect`` with the
+   [hifi] arguments and ``--image-textures`` (hifi batches and the
+   evaluation textured, the proxy batches not); the textured variant
+   launched once a textured batch and on no untextured path;
+12. ``[distributed]``: ``tools/check_sharded_step.py --dryrun`` under
+   ``torch.distributed.run``, 2 ranks on cuda:0 over gloo, then 1 rank over
+   NCCL: the dry run's FSDP step and its sharded generate at 256² bit-equal
+   to the per-chunk single-device rows, and the DDP and FSDP steps (focal)
+   against the single-process step on the same global batch (each loss to
+   1e-5 relative, the parameters after 2 steps to 1e-5 on 99% of the weights
+   and all within 2 lr); a failing rank fails the phase;
+13. timing: generate frames/s, the forward and the evaluation step with
    CUDA events; the training step's ms and img/s, its split between
    datagen, forward+backward and the optimizer, its device-busy share and
    launches (torch.profiler) and its peak memory; each kernel's device time
@@ -133,11 +157,12 @@ Run from the root of a checkout. Phases, each reported on its own line:
    against its plain version and its bound (the peak kernel on the GT and
    on the model heatmaps), and the heatmap kernel's write rate.
 
-Prints the kernels' JSON line (``ms`` the device time, ``call_ms`` the
+Prints the kernels' JSON line (the RGB row with its textured variant's
+``textured_*`` numbers and launches; ``ms`` the device time, ``call_ms`` the
 wrapper's call by CUDA events, ``launches`` those of the two-stage,
 sequence and hifi paths, ``train_crop`` (both crop runs), ``train_detect``,
 ``infer``, ``generate_sequence``, ``infer_sequence``, ``generate_hifi``,
-``train_detect_hifi`` and ``infer_hifi``, and ``launches_by_path`` each
+``train_detect_hifi``, ``infer_hifi`` and the textured paths, and ``launches_by_path`` each
 path's; the heatmap kernel's entry also holds its times at the crop
 shapes), then the card line, then as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -187,6 +212,26 @@ SEQ_LEN, SEQ_FRAMES, SEQ_B = 30, 60, 32
 # The hifi slice: `generate --hifi` and `infer --hifi` on 32 frames, and the
 # detector's run of record (`train-detect ... --hifi-mix 4 --hifi-eval`).
 HIFI_FRAMES, HIFI_MIX = 32, 4
+# The image-texture slice: `generate --image-textures` of 64 frames (one
+# batch), `--hifi --image-textures` of 32 and `--sequence-len 30
+# --image-textures` of 60 (the [hifi] and [sequence] slices' sizes), and
+# train-detect with the [hifi] slice's arguments plus --image-textures.
+TEX_FRAMES = 64
+TEXTURED = "rgb_textured"
+# csrc/rgb.cu's textured variant, operations beyond the untextured pixel's:
+# on every hit pixel the mask ladder's coordinates (r_xy 3, theta 3, the
+# ground's u and v 3, class compares 6) and the renormalize (12); on a
+# pixel that samples (mix weight > 0, or the vest) the (u, v) select 3,
+# the bins and the texel's address 11, tint and clamp 6, the mix 12; on a
+# pixel with a normal map the second address 11, du and dv 6, the tangent
+# frame 12 and perturbation 12, the specular 25 and its add 3.
+RGB_TEX_HIT_OPS = 27
+RGB_TEX_SAMPLE_OPS = 32
+RGB_TEX_MAP_OPS = 69
+# [distributed]: tools/check_sharded_step.py under torch.distributed.run,
+# on this one card.
+DIST_TIMEOUT = 300
+DIST_CASES = {"gloo": "ddp-focal,fsdp-focal", "nccl": "ddp-focal,fsdp-focal"}
 # Operations of one (ray, triangle) pair of the mesh sweep's test
 # (render/meshcast.py): three 3-term dots 15, the reciprocal and its guard 3,
 # t, u and v 3, u + v 1, four compares and two ands 6, the select and the
@@ -533,14 +578,17 @@ def host_fields(batch):
 
 
 def reset(counters):
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch counts to 0."""
     for fn in counters.values():
         fn.launches = 0
+    counters["rgb_epilogue"].textured_launches = 0
 
 
 def read(counters):
-    """Every kernel wrapper's launch count."""
-    return {k: fn.launches for k, fn in counters.items()}
+    """Every kernel wrapper's launch count, and the RGB kernel's textured
+    launches (``TEXTURED``), which its ``launches`` do not include."""
+    return {**{k: fn.launches for k, fn in counters.items()},
+            TEXTURED: counters["rgb_epilogue"].textured_launches}
 
 
 def generate_phase(dev, card, counters, datagen, work):
@@ -1073,7 +1121,7 @@ def two_stage_phase(dev, card, counters, work):
         check(err < 2e-4, f"heatmap kernel disagrees at the crop shape {shape}")
     card_vs_cpu_two_stage(dev)
     two_stage_timing(dev, card)
-    total = {k: launches["dumper"][k] + launches["crane"][k] for k in counters}
+    total = {k: launches["dumper"][k] + launches["crane"][k] for k in launches["dumper"]}
     return {"train_crop": total, "train_detect": launches["detect"],
             "infer": launches["infer"]}, crop_hm
 
@@ -1480,6 +1528,325 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
     return launches
 
 
+def textured_rgb_inputs(pipe, sweeper, world, inputs, M):
+    """The RGB kernel's inputs for ``sweeper``'s pixel sweep (the far clip
+    applied, as the annotation pass builds them): t, instance, table, AO."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.core import camera as cam_mod
+    from constructionsceneposeestimation_tpu_torch.render import raycast, rgb_kernel
+    n = inputs.cam_pos.shape[0]
+    t, code = raycast._unpack(sweeper(world, inputs.cam_pos, M))
+    t = torch.where(t < raycast.INF * 0.99, t, float("inf")).reshape(n, RES, RES)
+    inst = (code - 2).reshape(n, RES, RES)
+    depth = t * torch.sum(cam_mod.pixel_rays(pipe.intr, M) * (-M[:, :, 0])[:, None, None, :], -1)
+    clipped = depth >= pipe.cfg.camera.clipping[1]
+    t = torch.where(clipped, float("inf"), t).contiguous()
+    inst = torch.where(clipped, -2, inst).to(torch.int32).contiguous()
+    return (t, inst, rgb_kernel.instance_table(pipe.roster, world["inst_rot"], world["inst_pos"]),
+            rgb_kernel.ao_table(pipe.roster, world["inst_pos"]))
+
+
+def textures_phase(dev, card, counters, datagen, work, ck):
+    """The image-texture tier at 512^2: the RGB kernel's textured variant
+    against its plain version on 64 frames, proxy and hifi, hash noise off
+    and on (noise off: mean |d| < 0.5 u8, |d| > 1 on < 2% of the values, sky
+    exact, |d| > 1 on <= 1e-3 of the ground pixels within an AO row's reach,
+    and |d| > 2 on at most 1e-3 more of the values than the untextured
+    kernel against its plain version on the same inputs: bin flips; noise
+    on: means within 1.0, standard deviations within 2.0); labels bit-equal
+    to the untextured generate; textured and untextured generate in turns;
+    the kernel's device time against its bound; `generate --image-textures`
+    (packed with heatmaps, `--hifi`, `--sequence-len 30`) bit-equal to
+    direct generate; `train-detect` with the [hifi] phase's arguments and
+    `--image-textures`; a procedural | textured PNG through `utils/viz`.
+    Returns (launches per path, the textured variant's numbers)."""
+    import struct
+
+    import numpy as np
+    import torch
+    from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
+    from constructionsceneposeestimation_tpu_torch.core import camera as cam_mod
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
+    from constructionsceneposeestimation_tpu_torch.render import meshcast, rgb_kernel, textures
+    from constructionsceneposeestimation_tpu_torch.scene import world as world_mod
+    from constructionsceneposeestimation_tpu_torch.train import detect_loop
+    from constructionsceneposeestimation_tpu_torch.utils import viz
+
+    launches = {}
+    cfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES, batch_size=B))
+    pipe = Pipeline(cfg, device=dev)
+    tpipe = Pipeline(cfg, device=dev, image_textures=True)
+    texels = tpipe.texels()
+    inputs = pipe.sample_inputs(SEED, range(B))
+    world = world_mod.build_world(pipe.roster, inputs.pose)
+    M = cam_mod.look_at_matrix(inputs.cam_pos, inputs.target)
+    lit_off = inputs.lighting._replace(tex_strength=torch.zeros_like(inputs.lighting.tex_strength))
+    par_off = rgb_kernel.rgb_params(M, inputs.cam_pos, pipe.intr, lit_off)
+    par_on = rgb_kernel.rgb_params(M, inputs.cam_pos, pipe.intr, inputs.lighting)
+    sweepers = {"proxy": pipe.sweeper,
+                "hifi": Pipeline(cfg, device=dev, hifi_mesh=True).sweeper}
+    err = 0.0
+    for geometry, sweeper in sweepers.items():
+        t, inst, table, ao = textured_rgb_inputs(pipe, sweeper, world, inputs, M)
+        reach = rgb_kernel.ao_rows_needed(t, inst, ao, par_off) > 0
+        for noise, par in ((False, par_off), (True, par_on)):
+            rk = rgb_kernel.rgb_cuda(t, inst, table, ao, par, texels).float()
+            rp = rgb_kernel.plain_rgb(t, inst, table, ao, par, texels).float()
+            torch.cuda.synchronize()
+            if noise:
+                dm = abs(rk.mean().item() - rp.mean().item())
+                ds = abs(rk.std().item() - rp.std().item())
+                phase("textures", f"{geometry}, noise on: |mean diff| {dm:.4f} (< 1.0), |std "
+                      f"diff| {ds:.4f} (< 2.0)")
+                check(dm < 1.0 and ds < 2.0,
+                      f"textured rgb kernel statistics disagree ({geometry}, noise on)")
+                continue
+            d = torch.abs(rk - rp)
+            base = torch.abs(rgb_kernel.rgb_cuda(t, inst, table, ao, par).float()
+                             - rgb_kernel.plain_rgb(t, inst, table, ao, par).float())
+            sky = (inst == -2)[..., None].expand_as(d)
+            far, far0 = (d > 2).float().mean().item(), (base > 2).float().mean().item()
+            d_reach = d.amax(-1)[reach]
+            stats = {"mean |d|": d.mean().item(), "|d| > 1": (d > 1).float().mean().item(),
+                     "|d| > 2": far, "untextured |d| > 2": far0,
+                     "|d| > 1 within AO reach": (d_reach > 1).float().mean().item()}
+            sky_exact = bool(torch.equal(rk[sky], rp[sky]))
+            phase("textures", f"{geometry}, noise off, {B} x {RES}^2: " + ", ".join(
+                f"{k} {v:.5f}" for k, v in stats.items()) + f", max |d| {d.max().item():.0f}; sky "
+                  f"exact {sky_exact} (< 0.5, < 0.02, <= untextured + 1e-3, <= 1e-3)")
+            check(stats["mean |d|"] < 0.5 and stats["|d| > 1"] < 0.02 and sky_exact
+                  and far <= far0 + 1e-3 and stats["|d| > 1 within AO reach"] <= 1e-3,
+                  f"textured rgb kernel disagrees with its plain version ({geometry}, noise off)")
+            err = max(err, d.max().item())
+            del base, d, d_reach
+    # The proxy inputs again, for the timing and the bound.
+    t, inst, table, ao = textured_rgb_inputs(pipe, pipe.sweeper, world, inputs, M)
+    k_fn = lambda: rgb_kernel.rgb_cuda(t, inst, table, ao, par_on, texels)
+    p_fn = lambda: rgb_kernel.plain_rgb(t, inst, table, ao, par_on, texels)
+    # The bound charges the untextured pixel's work (as [rgb] does) plus the
+    # texture stage's, on the pixels this run's data sends through it: the
+    # mask ladder's inputs and the map weights, read from the plain version.
+    seen = {}
+    apply = textures.apply_image_textures
+
+    def capture(albedo, lx, ly, lz, pwx, pwy, cls, tex, phase_):
+        out = apply(albedo, lx, ly, lz, pwx, pwy, cls, tex, phase_)
+        seen.update(lz=lz, cls=cls, w_nr=out[1][3])
+        return out
+
+    textures.apply_image_textures = capture
+    try:
+        p_fn()
+    finally:
+        textures.apply_image_textures = apply
+    hit = torch.isfinite(t)
+    cls, lz = seen["cls"], seen["lz"]
+    sampled = hit & ((cls == -1) | (cls == 1) | ((cls == 4) & (lz < 0.55))
+                     | ((cls == 5) & (lz < 1.58)))
+    mapped = hit & (seen["w_nr"] > 0)
+    n_px = B * RES * RES
+    needed = rgb_kernel.ao_rows_needed(t, inst, ao, par_on)
+    tex_ops = (n_px * (RGB_PIXEL_OPS - 2 * RGB_RAY_OPS) + int(needed.sum()) * RGB_AO_ROW_OPS
+               + int(hit.sum()) * RGB_TEX_HIT_OPS + int(sampled.sum()) * RGB_TEX_SAMPLE_OPS
+               + int(mapped.sum()) * RGB_TEX_MAP_OPS)
+    tex_bytes = (n_px * (4 + 4 + 3) + 4 * (table.numel() + ao.numel() + par_on.numel())
+                 + 4 * texels.numel())
+    del seen, needed
+    tex_bound = bound(tex_bytes, tex_ops)
+    result = {"max_abs_err": err, "ms": device_ms(k_fn, "rgb_kernel<true>"),
+              "call_ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, iters=2, warmup=1),
+              "bound_ms": tex_bound[0], "bound_by": tex_bound[1]}
+    untex_ms = device_ms(lambda: rgb_kernel.rgb_cuda(t, inst, table, ao, par_on), "rgb_kernel<false>")
+    phase("textures", f"textured RGB kernel, {B} x {RES}^2: {result['ms']:.4f} ms device time "
+          f"(call {result['call_ms']:.4f} ms; untextured {untex_ms:.4f} ms in the same window), "
+          f"plain {result['plain_ms']:.4f} ms; pixels hit {int(hit.sum()) / n_px:.4f}, sampling "
+          f"{int(sampled.sum()) / n_px:.4f}, normal-mapped {int(mapped.sum()) / n_px:.4f}; bound "
+          f"{tex_bound[0]:.4f} ms ({tex_bound[1]}: {tex_ops:.4e} operations, {tex_bytes / 1e6:.1f} "
+          f"MB); roofline share {100 * tex_bound[0] / result['ms']:.1f}% on {card}")
+    del t, inst, table, ao, hit, sampled, mapped, cls, lz
+
+    # Labels bit-equal to the untextured render of the same frames; the
+    # textured variant launches once, the untextured RGB kernel not at all.
+    gen, tgen = pipe.make_generate_fn(), tpipe.make_generate_fn()
+    with torch.no_grad():
+        plain_b = gen(SEED, range(B))
+        reset(counters)
+        tex_b = tgen(SEED, range(B))
+        torch.cuda.synchronize()
+    launches["generate_textured"] = read(counters)
+    same = [f for f in tex_b._fields if f != "rgb"
+            and torch.equal(getattr(tex_b, f), getattr(plain_b, f))]
+    changed = (torch.abs(tex_b.rgb.float() - plain_b.rgb.float()).amax(-1) > 2).float().mean()
+    phase("textures", f"textured generate, {B} x {RES}^2: fields bit-equal to the untextured "
+          f"generate: {len(same)} of {len(tex_b._fields) - 1} (all but rgb); rgb changed by > 2 "
+          f"u8 on {changed.item():.4f} of the pixels; launches {launches['generate_textured']}")
+    check(len(same) == len(tex_b._fields) - 1 and changed.item() > 0.1,
+          "textured generate: a label differs from the untextured generate, or the rgb did not "
+          "change")
+    check(launches["generate_textured"][TEXTURED] == 1
+          and launches["generate_textured"]["rgb_epilogue"] == 0
+          and all(launches["generate_textured"][k] == 1 for k in ("pixel_sweep",
+                                                                   "heatmap_targets")),
+          f"textured generate: launches {launches['generate_textured']}")
+    frame = np.concatenate([plain_b.rgb[0].cpu().numpy(), tex_b.rgb[0].cpu().numpy()], axis=1)
+    png = work / "procedural_textured.png"
+    viz.save_png(str(png), frame)
+    data = png.read_bytes()
+    size = struct.unpack(">II", data[16:24])
+    phase("textures", f"procedural | textured frame 0 through utils/viz.save_png: {len(data)} "
+          f"bytes, {size[0]} x {size[1]} ({viz.__name__})")
+    check(data[:8] == b"\x89PNG\r\n\x1a\n" and size == (2 * RES, RES) and len(data) > 10000,
+          "the comparison PNG")
+    del plain_b, tex_b
+
+    # Textured and untextured generate in turns.
+    region_ms(tgen, 0)
+    region_ms(gen, 0)
+    turns = {"textured": [], "untextured": []}
+    for r, k in enumerate(("textured", "untextured", "untextured", "textured")):
+        turns[k].append(region_ms(tgen if k == "textured" else gen, B * (r + 1)))
+    best = {k: min(v) for k, v in turns.items()}
+    phase("time", f"generate {B} x {RES}^2 with heatmaps, in turns: textured {turns['textured']} "
+          f"ms, untextured {turns['untextured']} ms; min {best['textured']:.3f} ms = "
+          f"{B * 1000.0 / best['textured']:.1f} frames/s textured, {best['untextured']:.3f} ms = "
+          f"{B * 1000.0 / best['untextured']:.1f} frames/s untextured on {card}")
+
+    # generate --image-textures: packed with heatmaps, --hifi, --sequence-len.
+    runs = {
+        "generate_textured_cli": (["--batch", str(TEX_FRAMES), "--frames", str(TEX_FRAMES),
+                                   "--heatmaps"], TEX_FRAMES, dict()),
+        "generate_hifi_textured": (["--batch", str(HIFI_FRAMES), "--frames", str(HIFI_FRAMES),
+                                    "--hifi", "--heatmaps"], HIFI_FRAMES, dict(hifi_mesh=True)),
+        "generate_sequence_textured": (["--batch", str(SEQ_B), "--frames", str(SEQ_FRAMES),
+                                        "--sequence-len", str(SEQ_LEN), "--heatmaps"], SEQ_B,
+                                       dict()),
+    }
+    for path, (argv, batch, kw) in runs.items():
+        out = work / path
+        frames = int(argv[argv.index("--frames") + 1])
+        reset(counters)
+        lines = drive_cli(["generate", "--device", dev.type, "--size", str(RES), "--image-textures",
+                           "--format", "packed", "--seed", str(SEED), "--out", str(out), *argv])
+        launches[path] = read(counters)
+        gcfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES,
+                                              batch_size=batch, max_iterations=frames, seed=SEED))
+        gp = Pipeline(gcfg, device=dev, image_textures=True, **kw)
+        g = gp.make_sequence_fn(SEQ_LEN) if "--sequence-len" in argv else gp.make_generate_fn()
+        chunks = [list(range(lo, min(lo + batch, frames))) for lo in range(0, frames, batch)]
+        for c in chunks:
+            ids = c + [c[-1]] * (batch - len(c))
+            with torch.no_grad():
+                want = host_fields(g(SEED, ids))
+            got = shard_arrays(out / f"shard_{c[0]:06d}.npz")
+            check(got.keys() == want.keys() and all(np.array_equal(got[k], v)
+                                                    for k, v in want.items()),
+                  f"{path}: shard {c[0]} is not bit-equal to direct textured generate")
+        want_l = {TEXTURED: len(chunks), "rgb_epilogue": 0, "pixel_sweep": len(chunks),
+                  "heatmap_targets": len(chunks), "peak_decode": 0}
+        check(lines[-1].startswith(f"done: {frames} frames in ") and launches[path] == want_l,
+              f"{path}: {lines[-1:]}, launches {launches[path]}, want {want_l}")
+        phase("textures", f"generate --image-textures {' '.join(argv)} --format packed: {frames} "
+              f"frames, {len(chunks)} shard(s) bit-equal to direct textured generate; launches "
+              f"{launches[path]}")
+
+    # train-detect with the [hifi] phase's arguments and --image-textures:
+    # the hifi batches (steps 0, 4, 8, 12, 16) and the evaluation frames
+    # textured, the proxy batches not, as in the JAX command.
+    sweeper_call = meshcast.HifiSweeper.__call__
+    hifi_calls = [0]
+
+    def counting(self, *a):
+        hifi_calls[0] += 1
+        return sweeper_call(self, *a)
+
+    meshcast.HifiSweeper.__call__ = counting
+    reset(counters)
+    try:
+        lines = drive_cli(["train-detect", "--device", dev.type, "--size", str(RES), "--batch",
+                           str(TRAIN_B), "--steps", str(TRAIN_STEPS), "--inner", "1", "--seed",
+                           str(SEED), *DETECT_ARGS, "--crop-ckpt", ck["dumper"],
+                           "--crane-crop-ckpt", ck["crane"], "--eval-frames", "64",
+                           "--hifi-mix", str(HIFI_MIX), "--hifi-eval", "--image-textures"])
+    finally:
+        meshcast.HifiSweeper.__call__ = sweeper_call
+    torch.cuda.synchronize()
+    launches["train_detect_textured"] = read(counters)
+    losses = finite_step_losses(lines, TRAIN_STEPS, "train-detect --image-textures")
+    n_hifi = len(range(0, TRAIN_STEPS, HIFI_MIX))
+    heads = ["eval frames: hifi CAD-mesh renders (proxy-trained models)", "detector P/R @IoU0.5: ",
+             "  crane parts P/R: [", "FULL two-stage dumper 6DoF (detector boxes): ",
+             "FULL two-stage crane 6DoF (detector part boxes): "]
+    missing = [h for h in heads if not any(ln.startswith(h) for ln in lines)]
+    got_l = launches["train_detect_textured"]
+    check(not missing and hifi_calls[0] == n_hifi + 1 and got_l[TEXTURED] == n_hifi + 1
+          and got_l["rgb_epilogue"] == TRAIN_STEPS - n_hifi
+          and got_l["pixel_sweep"] == TRAIN_STEPS + 1,
+          f"train-detect --image-textures: missing lines {missing}, hifi batches "
+          f"{hifi_calls[0]}, launches {got_l}")
+    phase("textures", f"train-detect {' '.join(DETECT_ARGS)} --hifi-mix {HIFI_MIX} --hifi-eval "
+          f"--image-textures: {TRAIN_STEPS} steps of {TRAIN_B} x {RES}^2, {n_hifi} hifi textured "
+          f"batches and the textured evaluation; launches {got_l}; losses "
+          f"{[round(v, 4) for v in losses]}")
+    return launches, result
+
+
+def distributed_phase(card):
+    """``tools/check_sharded_step.py`` under ``torch.distributed.run`` on this
+    card: 2 ranks on cuda:0 over gloo (the dry run: its FSDP step and the
+    sharded generate bit-equal to the per-chunk single-device rows; DDP and
+    FSDP steps, focal, against the single-process step), then 1 rank over
+    NCCL (the same). Each step: its loss to 1e-5 relative, the parameters
+    after 2 steps to 1e-5 on 99% of the weights and all within 2 lr. A rank
+    that fails fails the phase. Returns the per-case records."""
+    import os
+    import signal
+    import socket
+
+    import torch
+    torch.cuda.empty_cache()
+    records = []
+    for n, backend in ((2, "gloo"), (1, "nccl")):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(n),
+               "--master_addr", "localhost", "--master_port", str(port),
+               str(ROOT / "tools" / "check_sharded_step.py"), "--device", "cuda:0", "--backend",
+               backend, "--dryrun", "--cases", DIST_CASES[backend]]
+        t0 = time.time()
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True, start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=DIST_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise SmokeFailure(f"[distributed] {n} rank(s) over {backend}: no end in "
+                               f"{DIST_TIMEOUT} s")
+        lines = out.splitlines()
+        recs = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        cases = [r for r in recs if "case" in r]
+        dry = [ln for ln in lines if ln.startswith("dryrun_multigpu(")]
+        for ln in dry:
+            phase("distributed", f"{n} rank(s) over {backend} on cuda:0: {ln}")
+        for r in cases:
+            phase("distributed", f"{n} rank(s) over {backend}: {r['case']} rank {r['rank']}: "
+                  f"loss rel {r['loss_rel']}, params max |d| {r['param_max_abs']:.3e}, > 1e-5 on "
+                  f"{r['param_share_over_1e-5']:.5f} of {r['n_params']} (<= 1e-5 rel, <= 0.01, "
+                  f"<= 2e-3): ok {r['ok']}")
+        want = len(DIST_CASES[backend].split(",")) * n
+        ok = (proc.returncode == 0 and len(cases) == want and all(r["ok"] for r in cases)
+              and len(dry) == 2 and "bit-identical" in dry[1])
+        if not ok:
+            print("\n".join(lines[-60:]), file=sys.stderr, flush=True)
+        check(ok, f"[distributed] {n} rank(s) over {backend}: exit {proc.returncode}, "
+              f"{len(cases)} of {want} case records")
+        phase("distributed", f"{n} rank(s) over {backend}: passed in {time.time() - t0:.1f} s "
+              f"(torch.distributed.run, workers' start included) on {card}")
+        records += cases
+    return records
+
+
 def main() -> int:
     if not (ROOT / "constructionsceneposeestimation_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout; the port's package is missing", file=sys.stderr)
@@ -1691,6 +2058,7 @@ def main() -> int:
         check(all(v > 0 for v in rose.values()), f"batch {i}: a kernel did not launch: {rose}")
     launches = {k: counters[k].launches for k in datagen}
     phase("main", f"3 batches of {B} frames at {RES}^2; launches {launches}")
+    check(read(counters)[TEXTURED] == 0, "untextured generate launched the textured variant")
 
     O = pipe.roster.num_instances
     K = pipe.roster.inst_kpts.shape[1]
@@ -2041,14 +2409,31 @@ def main() -> int:
         two_stage_launches.update(sequence_phase(dev, card, counters, datagen, work, ck))
         two_stage_launches.update(hifi_phase(dev, card, counters, datagen, work, ck,
                                              (world, inputs.cam_pos, M, intr)))
+        # 11. [textures]: the image-texture tier, on the same checkpoints.
+        tex_launches, results["rgb_epilogue"]["textured"] = textures_phase(
+            dev, card, counters, datagen, work, ck)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # The textured variant launches on the textured paths only.
+    untextured = {"eval": eval_launches, "train_eval": train_launches,
+                  "generate_cli": gen_cli_launches, "train_data_dir": data_dir_launches,
+                  **two_stage_launches}
+    stray = {p: c[TEXTURED] for p, c in untextured.items() if c[TEXTURED]}
+    phase("textures", f"textured launches on the {len(untextured)} untextured paths: "
+          f"{stray or 'none'}")
+    check(not stray, f"the textured variant launched on an untextured path: {stray}")
+    two_stage_launches.update(tex_launches)
     for k in counters:
         for path, counts in two_stage_launches.items():
             launches[k][path] = counts[k]
+    textured_by_path = {p: c[TEXTURED] for p, c in tex_launches.items()}
     results["heatmap_targets"]["crop_shapes"] = crop_hm
 
-    # 11. Timing: generate frames/s (every field consumed), min of 4 regions.
+    # 12. [distributed]: the sharded generate and training steps, 2 ranks on
+    # this card over gloo, then 1 over NCCL.
+    distributed_phase(card)
+
+    # 13. Timing: generate frames/s (every field consumed), min of 4 regions.
     region_ms(gen, B * 10)  # the warm-up
     regions = [region_ms(gen, B * (11 + r)) for r in range(4)]
     best = min(regions)
@@ -2096,17 +2481,26 @@ def main() -> int:
               f"{r['call_ms']:.4f} ms by CUDA events), plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}; roofline share "
               f"{100 * r['bound_ms'] / r['ms']:.1f}%) at the main path's shapes on {card}")
+    tex = results["rgb_epilogue"].pop("textured")
+    phase("time", f"rgb_epilogue, textured variant: kernel {tex['ms']:.4f} ms (call "
+          f"{tex['call_ms']:.4f} ms), plain {tex['plain_ms']:.4f} ms, bound {tex['bound_ms']:.4f} "
+          f"ms ({tex['bound_by']}; roofline share {100 * tex['bound_ms'] / tex['ms']:.1f}%), "
+          f"launches {textured_by_path} on {card}")
+    results["rgb_epilogue"].update({f"textured_{k}": v for k, v in tex.items()},
+                                   textured_launches=sum(textured_by_path.values()),
+                                   textured_launches_by_path=textured_by_path)
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": sum(launches[name][p] for p in ("train_crop", "train_detect", "infer",
                                                      "generate_sequence", "infer_sequence",
                                                      "generate_hifi", "train_detect_hifi",
-                                                     "infer_hifi")),
+                                                     "infer_hifi", *textured_by_path)),
          "launches_by_path": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "call_ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": None, **({"crop_shapes": r["crop_shapes"]} if "crop_shapes" in r else {})}
+         "library_ms": None, **{k: v for k, v in r.items() if k == "crop_shapes"
+                                 or k.startswith("textured_")}}
         for name, r in results.items()]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)

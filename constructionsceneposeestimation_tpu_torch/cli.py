@@ -5,7 +5,8 @@ commands of the JAX ``cli.py``).
   python -m constructionsceneposeestimation_tpu_torch.cli generate --out DIR --frames N
       Batched dataset generation, to the reference's file tree or
       (``--format packed``) to npz shards, resuming where a run stopped;
-      ``--sequence-len N`` writes clips, ``--hifi`` the CAD-mesh tier.
+      ``--sequence-len N`` writes clips, ``--hifi`` the CAD-mesh tier,
+      ``--image-textures`` the image-texture tier.
   python -m constructionsceneposeestimation_tpu_torch.cli train --steps N [--batch B]
       Datagen in the loop (or ``--data-dir`` shards) -> heatmap-regression
       training.
@@ -25,8 +26,7 @@ commands of the JAX ``cli.py``).
       Temporal metrics of ``infer --sequence-len N`` records.
 
 All run on the card unless ``--device cpu``. The printed lines read as
-the JAX package's do. Not yet accepted: ``--image-textures``
-(``generate``, ``train-detect``).
+the JAX package's do.
 """
 
 from __future__ import annotations
@@ -39,18 +39,6 @@ import time
 
 import torch
 
-# The flags whose paths are not ported yet.
-NOT_PORTED = ("image_textures",)
-
-
-def _refuse(args) -> None:
-    """Exit with the port's message if a flag of ``NOT_PORTED`` is set."""
-    for flag in NOT_PORTED:
-        if getattr(args, flag, None):
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported to the PyTorch "
-                             "package yet")
-
-
 def cmd_generate(args) -> None:
     """Generate ``--frames`` frames in contiguous batches and write them,
     skipping the frames a resume manifest records as done. The host copy
@@ -60,7 +48,6 @@ def cmd_generate(args) -> None:
     from .io import dataset_writer, packed, resume
     from .parallel import pipeline as pipeline_mod
 
-    _refuse(args)
     cfg = Config(
         scene=SceneConfig(n_dumpers=args.n_dumpers, n_humans=args.n_humans),
         pipeline=PipelineConfig(
@@ -68,7 +55,8 @@ def cmd_generate(args) -> None:
             render_height=args.height or args.size,
             batch_size=args.batch, max_iterations=args.frames, seed=args.seed,
         ))
-    pipe = pipeline_mod.Pipeline(cfg, device=args.device, hifi_mesh=args.hifi)
+    pipe = pipeline_mod.Pipeline(cfg, device=args.device, hifi_mesh=args.hifi,
+                                 image_textures=args.image_textures)
     want_hms = args.format == "packed" and args.heatmaps
     if args.sequence_len:
         gen = pipe.make_sequence_fn(args.sequence_len, include_heatmaps=want_hms)
@@ -420,7 +408,6 @@ def cmd_train_detect(args) -> None:
     from .train import crop_loop, detect_loop
     from .train import loop as train_loop
 
-    _refuse(args)
     cfg = Config(scene=SceneConfig(n_dumpers=args.n_dumpers, n_humans=args.n_humans),
                  pipeline=PipelineConfig(render_width=args.size, render_height=args.size),
                  train=TrainConfig(batch_size=args.batch, steps=max(args.steps, 1),
@@ -440,8 +427,10 @@ def cmd_train_detect(args) -> None:
             roster=pipe.roster)
     elif done < args.steps:
         # Mixed-geometry stream: every --hifi-mix-th batch renders the baked
-        # CAD meshes.
-        hifi_pipe = (pipeline_mod.Pipeline(cfg, device=args.device, hifi_mesh=True)
+        # CAD meshes (image-textured with --image-textures; the proxy
+        # batches stay untextured, as in the JAX command).
+        hifi_pipe = (pipeline_mod.Pipeline(cfg, device=args.device, hifi_mesh=True,
+                                           image_textures=args.image_textures)
                      if args.hifi_mix else None)
         run = detect_loop.make_scanned_detect_train_fn(
             cfg, model, pipe, max(1, min(args.inner, args.steps)), hifi_pipe=hifi_pipe,
@@ -455,7 +444,8 @@ def cmd_train_detect(args) -> None:
     if args.hifi_eval:
         # Sim-to-sim transfer: the model trained on the analytic proxies is
         # evaluated on frames rendered from the CAD meshes.
-        eval_pipe = pipeline_mod.Pipeline(cfg, device=args.device, hifi_mesh=True)
+        eval_pipe = pipeline_mod.Pipeline(cfg, device=args.device, hifi_mesh=True,
+                                          image_textures=args.image_textures)
         print("eval frames: hifi CAD-mesh renders (proxy-trained models)")
     with torch.no_grad():
         batch = eval_pipe.make_generate_fn(ladder=args.eval_ladder, include_heatmaps=False)(
@@ -745,7 +735,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="render cones, fences, trees and the worker from baked CAD "
                         "triangle meshes (render/meshcast.py) instead of the analytic "
                         "proxies: mesh-faithful silhouettes, slower")
-    g.add_argument("--image-textures", action="store_true", help="not ported yet")
+    g.add_argument("--image-textures", action="store_true",
+                   help="sample the reference's real texture images (bark, leaf, garment "
+                        "fabrics; render/textures.py) on top of the procedural patterns")
     g.add_argument("--n-dumpers", type=int, default=1,
                    help="dumpers per scene (match the trainer's scene when writing "
                         "--format packed training data)")
@@ -827,7 +819,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="render every k-th training batch with the hifi CAD-mesh sweep "
                          "(0 = proxies only): mixed-geometry training for sim-to-sim "
                          "transfer")
-    td.add_argument("--image-textures", action="store_true", help="not ported yet")
+    td.add_argument("--image-textures", action="store_true",
+                    help="with --hifi-mix/--hifi-eval: texture those hifi frames with the "
+                         "reference's real texture images (render/textures.py)")
     td.add_argument("--hifi-eval", action="store_true",
                     help="evaluate on hifi CAD-mesh renders (the sim-to-sim transfer gap of "
                          "proxy-trained models)")

@@ -143,6 +143,23 @@ def pixel_rays(intr: Intrinsics, R_cam2world: Tensor) -> Tensor:
     return dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
 
 
+def backproject_depth_reference_quirk(depth: Tensor, intr: Intrinsics,
+                                      camera_pose7_xyzw_: Tensor) -> Tensor:
+    """The reference's fallback back-projection: depth (B, H, W) -> world
+    points (B, H, W, 3), pinhole coordinates rotated by the camera pose's
+    rotation without the pinhole-to-camera axis change first (kept for
+    on-disk parity of the point-cloud fallback)."""
+    position = camera_pose7_xyzw_[..., :3]
+    R = rotation.matrix_from_quat_xyzw(camera_pose7_xyzw_[..., 3:])
+    u = torch.arange(intr.width, dtype=torch.float32, device=depth.device)
+    v = torch.arange(intr.height, dtype=torch.float32, device=depth.device)
+    x = (u[None, :] - intr.cx) * depth / intr.fx
+    y = (v[:, None] - intr.cy) * depth / intr.fy
+    pin = torch.stack([x, y, depth], dim=-1)
+    world = torch.einsum("bij,bhwj->bhwi", R, pin)
+    return world + position[:, None, None, :]
+
+
 def depth_valid_mask(depth: Tensor, far: float = CLIPPING_RANGE[1]) -> Tensor:
     """Finite, > 0 and < the far clip (the reference's validity rule)."""
     return torch.isfinite(depth) & (depth > 0) & (depth < far)

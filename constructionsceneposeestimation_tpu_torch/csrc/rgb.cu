@@ -85,6 +85,35 @@
 // 0.038 ms, the hash noise 0.024 ms; the rest, ~0.25 ms, is the rays,
 // normals, table gather, patterns, shading and stores.
 //
+// The textured variant (the image-texture tier) is this kernel compiled
+// with TEX = true; the JAX package shades textured frames in jnp, outside
+// its Pallas kernel (annotate.py:276-280), so the variant replaces that
+// tier's textures.apply_image_textures, shading.perturb_normal and the
+// rough/spec_w term of shading.shade. Plain version: plain_rgb with its
+// `texels`. After the procedural patterns a hit pixel takes, by class and
+// local coordinates, a texture slot, (u, v) and a weight (the mask ladder
+// of render/textures.py), samples the dense (13, 128, 128, 4) texel table
+// (textures.dense_table: each texel the clipped rank-12 sum, computed once)
+// with one 16-byte load, tints, mixes or weaves, and on the leaf crown and
+// the three garments samples the *_nr slot (normal offsets and roughness)
+// with a second load. Every hit pixel's normal is then renormalized, and
+// where the map applies perturbed in the chart-free tangent frame first;
+// the shade adds the Blinn-Phong term (accurate powf) on those pixels.
+// Bins are the floor modulo of floor(u * 128) (((i % B) + B) % B), as
+// jnp's `%` and torch.remainder: world u is often negative. A pixel of
+// mix weight 0 keeps its albedo exactly, so it skips the first load unless
+// it is the vest's (weight 0, but its weave needs the sample); a pixel of
+// map weight 0 adds an exact 0 and skips the second. Its bound: the same
+// device-memory bytes as the untextured kernel (t and instance in, u8
+// out) plus the 3.4 MB table once, which then stays in the 50 MB L2; the
+// operations of the untextured pixel plus the texture work of the mapped
+// pixels. The variant takes its own register cap: __launch_bounds__(256,
+// 4), 64 registers, for the extra live values of the texture stage (ptxas:
+// 62, no spills). Measured by chip_smoke.py on an H100 SXM (NVIDIA H100
+// 80GB HBM3, 700 W), device time a launch at 64 x 512^2 on the datagen
+// path's inputs: 0.593 ms, beside the untextured 0.407 to 0.410 ms in the
+// same window; its operations bound is 0.059 ms.
+//
 // The formulas are those of render/shading.py. `_hash_noise` takes sinf of
 // arguments near 1500, where the last ulps of each backend's sin
 // decorrelate the noise: the kernel is held to the plain version with the
@@ -104,6 +133,15 @@ constexpr int kTileH = 8;
 constexpr int kTiles = 4;                       // tiles a block walks, top to bottom
 constexpr int kRows = kTileH * kTiles;          // rows a block covers
 constexpr int kMinBlocks = 8;                   // blocks an SM: at most 32 registers
+constexpr int kMinBlocksTex = 4;                // the textured variant: at most 64
+// The texel table's bins a side (render/rgb_kernel.TEX_BINS) and its slots
+// (render/textures.TEX).
+constexpr int kTexBins = 128;
+constexpr double kPi = 3.14159265358979323846;
+enum TexSlot {
+  kBark = 0, kLeaf = 2, kTwill = 4, kDenim = 5, kGround = 6, kDirt = 7, kCotOx = 8,
+  kDenimNr = 9, kCotOxNr = 10, kTwillNr = 11, kLeafNr = 12
+};
 // The AO cull widens each row's reach r + 0.6 to (r + 0.6) kAoScale +
 // kAoAbs (render/rgb_kernel.AO_SCALE, AO_ABS): far above the few ulps by
 // which a pixel's computed distance can fall below the box's.
@@ -181,6 +219,125 @@ __device__ void procedural_albedo(float* alb, float x, float y, float z, float c
   }
 }
 
+// The texel of slot `tex` at (u, v): floor(u * B) and floor(v * B) taken
+// modulo B as a floor modulo (u * B is exact, B being a power of two).
+__device__ __forceinline__ float4 texel(const float4* __restrict__ texels, int tex, float u,
+                                        float v) {
+  int ub = (int)floorf(u * (float)kTexBins);
+  int vb = (int)floorf(v * (float)kTexBins);
+  ub = ((ub % kTexBins) + kTexBins) % kTexBins;
+  vb = ((vb % kTexBins) + kTexBins) % kTexBins;
+  return __ldg(texels + (tex * kTexBins + ub) * kTexBins + vb);
+}
+
+// textures.apply_image_textures on one hit pixel: the procedural albedo
+// `alb` becomes the textured one; (du, dv, rough, w_nr) are the normal-map
+// offsets, roughness and map weight (all 0 where no map applies). The
+// (u, v) arithmetic is uncontracted, in PyTorch's order, so a bin edge
+// moves only with the ulps of the local coordinates.
+__device__ void image_textures(float* alb, float lx, float ly, float lz, float pwx, float pwy,
+                               float cls, float phase, const float4* __restrict__ texels,
+                               float& du, float& dv, float& rough, float& w_nr) {
+  const float r_xy = sqrtf(lx * lx + ly * ly);
+  const float theta = __fadd_rn(__fmul_rn(atan2f(ly, lx), (float)(0.5 / kPi)), 0.5f);
+  float u = __fadd_rn(__fmul_rn(pwx, (float)(1.0 / 6.0)), phase);
+  float v = __fmul_rn(pwy, (float)(1.0 / 6.0));
+  int tex = kGround, nr_tex = -1;
+  float w = cls == -1.0f ? 0.45f : 0.0f;
+  float tint[3] = {1.0f, 1.0f, 1.0f};
+  bool vest = false;
+  w_nr = 0.0f;
+  if (cls == 1.0f) {
+    if (r_xy < 0.45f && lz < 3.2f) {  // trunk
+      u = __fadd_rn(theta, phase);
+      v = __fmul_rn(lz, (float)(1.0 / 2.5));
+      tex = kBark;
+      w = 0.85f;
+    } else {  // crown
+      u = __fadd_rn(__fmul_rn(lx, (float)(1.0 / 1.5)), phase);
+      v = __fmul_rn(lz, (float)(1.0 / 1.5));
+      tex = kLeaf;
+      w = 0.5f;
+      nr_tex = kLeafNr;
+      w_nr = 0.8f;
+    }
+  } else if (cls == 4.0f && lz < 0.55f) {
+    u = __fadd_rn(__fmul_rn(lx, 0.35f), phase);
+    v = __fmul_rn(ly, 0.35f);
+    tex = kDirt;
+    w = 0.5f;
+  } else if (cls == 5.0f) {
+    if (lz > 1.02f && lz < 1.48f) {
+      u = __fadd_rn(__fmul_rn(theta, 4.0f), phase);
+      v = __fmul_rn(lz, 2.0f);
+      tex = kTwill;
+      nr_tex = kTwillNr;
+      w_nr = 1.0f;
+      vest = true;
+    } else if (lz <= 1.02f) {
+      u = __fadd_rn(__fmul_rn(theta, 2.0f), phase);
+      v = __fmul_rn(lz, 1.2f);
+      tex = kDenim;
+      w = 1.0f;
+      nr_tex = kDenimNr;
+      w_nr = 1.0f;
+      set3(tint, 0.83f, 1.15f, 2.90f);
+    } else if (lz >= 1.48f && lz < 1.58f) {
+      u = __fadd_rn(__fmul_rn(theta, 3.0f), phase);
+      v = __fmul_rn(lz, 1.6f);
+      tex = kCotOx;
+      w = 1.0f;
+      nr_tex = kCotOxNr;
+      w_nr = 1.0f;
+      set3(tint, 0.95f, 1.08f, 1.33f);
+    }
+  }
+  if (w != 0.0f || vest) {
+    const float4 s = texel(texels, tex, u, v);
+    const float c[3] = {clampf(__fmul_rn(tint[0], s.x), 0.0f, 1.0f),
+                        clampf(__fmul_rn(tint[1], s.y), 0.0f, 1.0f),
+                        clampf(__fmul_rn(tint[2], s.z), 0.0f, 1.0f)};
+    if (vest) {
+      const float weave = __fadd_rn(0.6f, __fmul_rn(0.8f, c[0]));
+      for (int i = 0; i < 3; ++i) alb[i] = __fmul_rn(alb[i], weave);
+    } else {
+      for (int i = 0; i < 3; ++i)
+        alb[i] = __fadd_rn(__fmul_rn(alb[i], __fsub_rn(1.0f, w)), __fmul_rn(c[i], w));
+    }
+  }
+  du = dv = rough = 0.0f;
+  if (nr_tex >= 0) {
+    const float4 s = texel(texels, nr_tex, u, v);
+    du = __fmul_rn(__fsub_rn(__fmul_rn(2.0f, s.x), 1.0f), w_nr);
+    dv = __fmul_rn(__fsub_rn(__fmul_rn(2.0f, s.y), 1.0f), w_nr);
+    rough = s.z;
+  }
+}
+
+// shading.perturb_normal with strength 0.6: the chart-free tangent frame
+// t1 = normalize(n x up) (+x where n is vertical), t2 = n x t1, then the
+// renormalize. Where no map applies (du = dv = 0) the offsets would add
+// exact zeros, so only the renormalize runs.
+__device__ __forceinline__ void perturb_normal(float& nx, float& ny, float& nz, float du,
+                                               float dv, bool mapped) {
+  float px = nx, py = ny, pz = nz;
+  if (mapped) {
+    const float mag = sqrtf(nx * nx + ny * ny);
+    const bool deg = mag < 1e-4f;
+    const float inv = 1.0f / (deg ? 1.0f : mag);
+    const float t1x = deg ? 1.0f : ny * inv;
+    const float t1y = deg ? 0.0f : -nx * inv;
+    const float t2x = -nz * t1y, t2y = nz * t1x, t2z = nx * t1y - ny * t1x;
+    px = nx + 0.6f * (du * t1x + dv * t2x);
+    py = ny + 0.6f * (du * t1y + dv * t2y);
+    pz = nz + 0.6f * (dv * t2z);
+  }
+  const float rn = 1.0f / sqrtf(fmaxf(px * px + py * py + pz * pz, 1e-12f));
+  nx = px * rn;
+  ny = py * rn;
+  nz = pz * rn;
+}
+
 // Whether AO row q = (x, y, r, 0) can reach a point of the box [x0, x1] x
 // [y0, y1] (empty when x0 > x1): the distance from its centre to the box
 // against the widened reach, in uncontracted operations, as
@@ -204,11 +361,12 @@ __device__ __forceinline__ float unordered(int i) {
   return __int_as_float(i ^ ((i >> 31) & 0x7fffffff));
 }
 
-__global__ void __launch_bounds__(kTileW * kTileH, kMinBlocks)
+template <bool TEX>
+__global__ void __launch_bounds__(kTileW * kTileH, TEX ? kMinBlocksTex : kMinBlocks)
 rgb_kernel(const float* __restrict__ t, const int* __restrict__ inst,
            const float* __restrict__ table, int n_rows, const float* __restrict__ ao,
-           int n_ao, const float* __restrict__ par, int height, int width,
-           uint8_t* __restrict__ out) {
+           int n_ao, const float* __restrict__ par, const float4* __restrict__ texels,
+           int height, int width, uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   float* s_tab = smem;                                           // (n_rows, 16)
   float4* s_ao = reinterpret_cast<float4*>(s_tab + n_rows * 16);  // (n_ao,)
@@ -356,6 +514,13 @@ rgb_kernel(const float* __restrict__ t, const int* __restrict__ inst,
       const float ly = tab[4] * dxw + tab[7] * dyw + tab[10] * dzw;
       const float lz = tab[5] * dxw + tab[8] * dyw + tab[11] * dzw;
       procedural_albedo(alb, lx, ly, lz, cls, p[24], p[26]);
+      float w_nr = 0.0f, rough = 0.0f;
+      if constexpr (TEX) {
+        float du = 0.0f, dv = 0.0f;
+        if (is_hit) image_textures(alb, lx, ly, lz, pwx, pwy, cls, p[24], texels, du, dv, rough,
+                                   w_nr);
+        perturb_normal(nx, ny, nz, du, dv, w_nr != 0.0f);
+      }
       const float ao_f = cls == -1.0f ? 0.45f + 0.55f * clampf(m_ao / 0.6f, 0.0f, 1.0f) : 1.0f;
 
       // Lambert sun + hemispheric dome ambient; sky gradient on misses.
@@ -366,11 +531,21 @@ rgb_kernel(const float* __restrict__ t, const int* __restrict__ inst,
       const float ambient = dome_i * (0.25f + 0.35f * (0.5f * (1.0f + nz))) * ao_f;
       const float sky_base = __fmul_rn(__fadd_rn(0.85f, __fmul_rn(0.15f, clampf(rdz, 0.0f, 1.0f))),
                                        fmaxf(dome_i, 0.3f));
+      // The roughness specular of the mapped pixels (textured variant).
+      float spec = 0.0f;
+      if (TEX && w_nr != 0.0f) {
+        const float hx = -rdx - p[16], hy = -rdy - p[17], hz = -rdz - p[18];
+        const float hn = 1.0f / sqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-12f));
+        const float ndoth = fmaxf((nx * hx + ny * hy + nz * hz) * hn, 0.0f);
+        const float shin = 2.0f / fmaxf(rough * rough, 0.02f);
+        const float gloss = (1.0f - rough) * (1.0f - rough);
+        spec = w_nr * gloss * sun_i * powf(ndoth, shin);
+      }
       uint8_t rgb[3];
       for (int ch = 0; ch < 3; ++ch) {
         const float dc = p[21 + ch];
-        const float color =
-            is_hit ? (alb[ch] * tex) * (direct + ambient * dc) : __fmul_rn(dc, sky_base);
+        const float color = is_hit ? (alb[ch] * tex) * (direct + ambient * dc) + spec
+                                   : __fmul_rn(dc, sky_base);
         const float c = clampf(color, 0.0f, 1.0f);
         rgb[ch] = (uint8_t)rintf(__fmul_rn(gamma22(c), 255.0f));
       }
@@ -397,21 +572,35 @@ rgb_kernel(const float* __restrict__ t, const int* __restrict__ inst,
 }  // namespace cspe
 
 // t (B, H, W) f32 (+inf on miss/clip), inst (B, H, W) int32, table
-// (B, n_rows, 16) f32, ao (B, n_ao, 4) f32, par (B, 32) f32;
+// (B, n_rows, 16) f32, ao (B, n_ao, 4) f32, par (B, 32) f32; texels null
+// (untextured) or the (13, kTexBins, kTexBins, 4) f32 table (textured);
 // out (B, H, W, 3) u8. Returns kErrSharedMemory, launching nothing, if the
 // table, the AO rows and the kernel's static arrays exceed kSmemLimit.
-CSPE_API int cspe_rgb(const float* t, const int* inst, const float* table, int n_rows,
-                      const float* ao, int n_ao, const float* par, int batch, int height,
-                      int width, uint8_t* out, void* stream) {
+template <bool TEX>
+static int launch_rgb(const float* t, const int* inst, const float* table, int n_rows,
+                      const float* ao, int n_ao, const float* par, const float* texels,
+                      int batch, int height, int width, uint8_t* out, cudaStream_t stream) {
   using namespace cspe;
   const dim3 block(kTileW, kTileH);
   const dim3 grid((width + kTileW - 1) / kTileW, (height + kRows - 1) / kRows, batch);
   const size_t smem = (size_t)(n_rows * 16 + n_ao * 4) * sizeof(float);
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, rgb_kernel);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, rgb_kernel<TEX>);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem + attr.sharedSizeBytes > kSmemLimit) return kErrSharedMemory;
-  rgb_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      t, inst, table, n_rows, ao, n_ao, par, height, width, out);
+  rgb_kernel<TEX><<<grid, block, smem, stream>>>(t, inst, table, n_rows, ao, n_ao, par,
+                                                 reinterpret_cast<const float4*>(texels),
+                                                 height, width, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+CSPE_API int cspe_rgb(const float* t, const int* inst, const float* table, int n_rows,
+                      const float* ao, int n_ao, const float* par, const float* texels, int batch,
+                      int height, int width, uint8_t* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (texels != nullptr)
+    return launch_rgb<true>(t, inst, table, n_rows, ao, n_ao, par, texels, batch, height, width,
+                            out, s);
+  return launch_rgb<false>(t, inst, table, n_rows, ao, n_ao, par, texels, batch, height, width,
+                           out, s);
 }

@@ -22,6 +22,18 @@ proxies of the cones, fences, trees and the worker (``render/meshcast.py``)
 in the pixel sweep, as the pixel-sweep kernel on the schedule without them
 merged with the triangle sweep, and in the keypoint segments.
 
+The image-texture tier (``image_textures=True``): the RGB of every frame
+goes through the RGB kernel's textured variant with the texel table of
+``render/textures.py`` (built on the host at construction, moved to the
+device with the first batch); the labels are the untextured render's. It
+composes with the hifi tier and with clips.
+
+Multi-GPU (``make_sharded_generate``): each rank of a ``torch.distributed``
+group generates its contiguous rows of the frame ids; a frame depends
+only on (seed, frame id) and its scene group, so this adds no
+communication. ``gather_rows`` brings every rank's rows to every rank in
+frame order, for checks.
+
 Random numbers: each scene group and each frame has its own CPU
 ``torch.Generator`` (utils/prng.py), so a frame's scene, camera and light
 do not depend on the batch it falls in; in sequence mode each clip has
@@ -41,12 +53,13 @@ import torch
 from ..config import Config
 from ..core import camera as cam_mod
 from ..ops import heatmap as heatmap_ops
-from ..render import annotate, meshcast, raycast, shading
+from ..render import annotate, meshcast, raycast, shading, textures
 from ..render.sweep_kernel import PixelSweeper
 from ..sample import camera_sampler, lighting as lighting_mod, placement
 from ..sample import sequence as seq_mod
 from ..scene import assets, world as world_mod
 from ..utils import prng
+from . import mesh as mesh_mod
 
 Tensor = torch.Tensor
 
@@ -87,11 +100,13 @@ class Pipeline:
     unless the caller passes ``device="cpu"``. Nothing touches the device
     until the first batch, which raises where there is no card.
     ``hifi_mesh=True`` renders the baked CAD meshes of the hifi tier; the
-    labels stay the templates'."""
+    labels stay the templates'. ``image_textures=True`` shades the RGB with
+    the image-texture tier."""
 
     cfg: Config
     device: str | torch.device = "cuda"
     hifi_mesh: bool = False
+    image_textures: bool = False
 
     def __post_init__(self):
         # Geometry is f32: no TF32 in matmuls or convolutions.
@@ -113,6 +128,15 @@ class Pipeline:
         self.hm_w = pc.render_width // pc.heatmap_stride
         self.hm_h = pc.render_height // pc.heatmap_stride
         self.num_channels = assets.NUM_KEYPOINT_CHANNELS
+        self._texels = (textures.dense_table(textures.load_factors())
+                        if self.image_textures else None)
+
+    def texels(self) -> Tensor | None:
+        """The texel table on the pipeline's device (moved there at the
+        first call), or None without the image-texture tier."""
+        if self._texels is not None and self._texels.device != self.device:
+            self._texels = self._texels.to(self.device)
+        return self._texels
 
     def ladder(self):
         """The systematic ladder: (cam_pos (N, 3), target (N, 3)) on the
@@ -209,7 +233,8 @@ class Pipeline:
         ann = annotate.render_frame(
             self.roster, self.caster, self.sweeper, world, inputs.cam_pos, inputs.target,
             self.intr, inputs.lighting, shade_rgb=pc.write_rgb,
-            bug_compatible=pc.bug_compatible_schema, far_clip=cfg.camera.clipping[1])
+            bug_compatible=pc.bug_compatible_schema, far_clip=cfg.camera.clipping[1],
+            texels=self.texels())
         B = frame_ids.shape[0]
         if include_heatmaps:
             hms = heatmap_ops.frame_heatmaps(
@@ -255,6 +280,21 @@ class Pipeline:
             return self.render(fids.to(self.device), inputs, include_heatmaps)
 
         return generate
+
+
+    def make_sharded_generate(self, mesh=None, ladder: bool = False):
+        """``(generate, mesh)``: ``generate(seed, frame_ids)`` returns this
+        rank's contiguous rows of the batch (``mesh.batch_sharding``), on the
+        ``data`` mesh (``mesh.make_mesh()`` by default); ``mesh.gather_rows``
+        assembles the whole batch where a caller needs it."""
+        mesh = mesh or mesh_mod.make_mesh(device_type=self.device.type)
+        gen = self.make_generate_fn(ladder=ladder)
+
+        def generate(seed: int, frame_ids: Sequence[int]) -> FrameBatch:
+            ids = [int(f) for f in frame_ids]
+            return gen(seed, [ids[i] for i in mesh_mod.batch_sharding(mesh, len(ids))])
+
+        return generate, mesh
 
 
 class HostCopy:

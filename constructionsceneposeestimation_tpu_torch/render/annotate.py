@@ -3,7 +3,9 @@ the JAX ``render/annotate.py`` on its default path).
 
 One packed pixel sweep gives depth and instance; the keypoint-occlusion
 segments ride the packed caster from the same camera origin; the RGB
-epilogue shades from depth and instance; labels (visible set, pixel
+epilogue shades from depth and instance (with ``texels``, the
+image-texture tier's table, the RGB kernel's textured variant); labels
+(visible set, pixel
 counts, 2D boxes, 6DoF boxes, keypoints and their visibility, point-cloud
 count) derive from poses and the two sweeps. Every tensor leads with the
 batch dimension B.
@@ -76,9 +78,10 @@ def render_frame(roster: world_mod.Roster, caster: raycast.Raycaster,
                  sweeper: PixelSweeper, world, cam_pos: Tensor, target: Tensor,
                  intr: cam_mod.Intrinsics, lighting: sh.Lighting, shade_rgb: bool = True,
                  kpt_occlusion_tol: float = 0.02, bug_compatible: bool = False,
-                 far_clip: float = 250.0) -> FrameAnnotations:
+                 far_clip: float = 250.0, texels: Tensor | None = None) -> FrameAnnotations:
     """Annotate B frames: world (``build_world``), cam_pos/target (B, 3),
-    batched ``lighting``."""
+    batched ``lighting``; ``texels`` (``textures.dense_table``) textures the
+    RGB and nothing else."""
     B = cam_pos.shape[0]
     H, W = intr.height, intr.width
     dev = cam_pos.device
@@ -108,7 +111,7 @@ def render_frame(roster: world_mod.Roster, caster: raycast.Raycaster,
             t.contiguous(), instance.contiguous(),
             rgb_kernel.instance_table(roster, inst_rot, inst_pos),
             rgb_kernel.ao_table(roster, inst_pos),
-            rgb_kernel.rgb_params(M, cam_pos, intr, lighting))
+            rgb_kernel.rgb_params(M, cam_pos, intr, lighting), texels)
     else:
         rgb = torch.zeros(B, H, W, 3, dtype=torch.uint8, device=dev)
 
@@ -163,3 +166,14 @@ def render_frame(roster: world_mod.Roster, caster: raycast.Raycaster,
         kpt_visible=kpt_visible,
         pointcloud_count=cam_mod.depth_valid_mask(depth).sum(dim=(1, 2)).to(torch.int32),
     )
+
+
+def pointcloud_xyzrgb(depth: Tensor, rgb: Tensor, intr: cam_mod.Intrinsics,
+                      camera_pose7: Tensor):
+    """Depth (B, H, W) and RGB (B, H, W, 3) -> {xyzrgb (B, H*W, 6) f32,
+    valid (B, H*W) bool}, through the reference's camera-pose fallback
+    back-projection."""
+    B = depth.shape[0]
+    pts = cam_mod.backproject_depth_reference_quirk(depth, intr, camera_pose7)
+    xyzrgb = torch.cat([pts.reshape(B, -1, 3), rgb.reshape(B, -1, 3).float()], dim=-1)
+    return {"xyzrgb": xyzrgb, "valid": cam_mod.depth_valid_mask(depth).reshape(B, -1)}

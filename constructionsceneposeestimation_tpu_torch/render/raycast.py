@@ -14,6 +14,10 @@ All formulas stay valid for unnormalized directions: the keypoint-occlusion
 segments cast raw cam -> keypoint vectors. This caster is the plain version
 of the pixel-sweep kernel (render/sweep_kernel.py) and the caster of the
 occlusion segments.
+
+``occlusion_ts`` is the JAX module's generic t sweep (every primitive in
+its own frame, grouped by kind) with a per-ray excluded instance: the
+nearest hit of any other instance.
 """
 
 from __future__ import annotations
@@ -404,3 +408,29 @@ class Raycaster:
         hit = t < INF * 0.99
         return {"t": torch.where(hit, t, torch.full_like(t, float("inf"))),
                 "inst": torch.where(hit, code, torch.zeros_like(code)) - 2}
+
+
+def occlusion_ts(world: Dict[str, Tensor], roster: world_mod.Roster, ray_o: Tensor,
+                 ray_d: Tensor, exclude_inst: Tensor) -> Tensor:
+    """Nearest hit distance (B, N) of rays from ray_o (B, 3) along ray_d
+    (B, N, 3), ignoring the primitives of instance ``exclude_inst`` (B, N)
+    of each ray; ``INF`` where nothing else is hit. ``ray_d`` need not be
+    unit: pass keypoint - camera, and t is in units of it (a keypoint is
+    occluded iff t < 1)."""
+    kinds = np.asarray(roster.prim_kind)
+    prim_inst = torch.as_tensor(np.asarray(roster.prim_inst), device=ray_d.device)
+    rot, pos, params = world["prim_rot"], world["prim_pos"], world["prim_params"]
+    d0, d1, d2 = (ray_d[..., i][:, None, :] for i in range(3))  # (B, 1, N)
+    best = torch.full(ray_d.shape[:2], INF, device=ray_d.device)
+    for kind in np.unique(kinds):
+        idx = np.nonzero(kinds == kind)[0]
+        r = rot[:, idx]  # (B, g, 3, 3)
+        rel = ray_o[:, None, :] - pos[:, idx]
+        o = tuple((r[..., 0, i] * rel[..., 0] + r[..., 1, i] * rel[..., 1]
+                   + r[..., 2, i] * rel[..., 2])[..., None] for i in range(3))
+        d = tuple(r[..., 0, i, None] * d0 + r[..., 1, i, None] * d1 + r[..., 2, i, None] * d2
+                  for i in range(3))
+        t = _KIND_FNS[int(kind)](o, d, params[idx])  # (B, g, N)
+        same = prim_inst[idx][None, :, None] == exclude_inst[:, None, :]
+        best = torch.minimum(best, torch.where(same, float(INF), t).amin(dim=1))
+    return best

@@ -7,6 +7,14 @@ Plain version: ``plain_rgb``, the shading tier of ``render/shading.py``
 procedural patterns, contact AO, shade, gamma). ``fused_rgb`` dispatches on
 the device of its inputs.
 
+The textured variant (``texels``, the (T, B, B, 4) table of
+``render/textures.dense_table``) is the same kernel compiled with its
+``TEX`` flag: after the procedural patterns it applies the image textures
+(``textures.apply_image_textures``), perturbs the normal with the normal
+map (``shading.perturb_normal``) and adds the roughness specular to the
+shade, in JAX's textured order. ``rgb_cuda.launches`` counts untextured
+launches, ``rgb_cuda.textured_launches`` textured ones.
+
 The kernel culls the contact-AO rows per 32 x 1 row of a tile (a warp):
 it keeps the rows whose widened reach meets the xy box of the row's ground
 hit points, and every culled row's term is exactly 1 there.
@@ -34,6 +42,7 @@ from ..core import camera as cam_mod
 from ..scene import world as world_mod
 from ..utils import kernels
 from . import shading as sh
+from . import textures
 
 Tensor = torch.Tensor
 
@@ -43,6 +52,7 @@ TILE = (32, 8)  # csrc/rgb.cu kTileW, kTileH: a block's pixel tile
 # (csrc/rgb.cu kAoScale, kAoAbs).
 AO_SCALE = 1.0001
 AO_ABS = 1e-4
+TEX_BINS = 128  # csrc/rgb.cu kTexBins: the texel table's bins a side
 
 
 def ao_rows(roster: world_mod.Roster):
@@ -110,8 +120,10 @@ def hit_points(t: Tensor, params: Tensor):
     return rd, tuple(p(13 + i) + ts * rd[i] for i in range(3))
 
 
-def plain_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor) -> Tensor:
-    """Plain version of the kernel: (B, H, W, 3) uint8."""
+def plain_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor,
+              texels: Tensor | None = None) -> Tensor:
+    """Plain version of the kernel: (B, H, W, 3) uint8; with ``texels``
+    the textured variant's."""
     B = t.shape[0]
     dev = t.device
     p = lambda k: params[:, k].reshape(B, 1, 1)
@@ -128,6 +140,11 @@ def plain_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor
     lz = tab[..., 5] * dw[0] + tab[..., 8] * dw[1] + tab[..., 11] * dw[2]
     cls = tab[..., 15]
     albedo = sh.procedural_albedo(albedo, lx, ly, lz, cls, p(24), p(26))
+    rough = spec_w = None
+    if texels is not None:
+        albedo, (du, dv, rough, spec_w) = textures.apply_image_textures(
+            albedo, lx, ly, lz, pw[0], pw[1], cls, texels, p(24))
+        normal = sh.perturb_normal(normal, du, dv)
 
     prox = torch.ones_like(t)
     for a in range(ao.shape[1]):
@@ -141,7 +158,7 @@ def plain_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor
                            dome_intensity=params[:, 20], dome_color=params[:, 21:24],
                            tex_phase=params[:, 24], tex_strength=params[:, 25],
                            dirt=params[:, 26])
-    planes = sh.shade(t, normal, pw, rd, albedo, lighting, ao=ao_f)
+    planes = sh.shade(t, normal, pw, rd, albedo, lighting, ao=ao_f, rough=rough, spec_w=spec_w)
     return sh.linear_to_srgb_u8(planes)
 
 
@@ -183,9 +200,11 @@ def ao_rows_needed(t: Tensor, inst: Tensor, ao: Tensor, params: Tensor) -> Tenso
     return torch.where(inst == -1, n, 0)
 
 
-def rgb_cuda(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor) -> Tensor:
-    """Launch csrc/rgb.cu: (B, H, W, 3) uint8. The kernel refuses a table
-    and AO rows that do not fit a block's shared memory."""
+def rgb_cuda(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor,
+             texels: Tensor | None = None) -> Tensor:
+    """Launch csrc/rgb.cu, textured where ``texels`` (T, 128, 128, 4) is
+    given: (B, H, W, 3) uint8. The kernel refuses a table and AO rows that
+    do not fit a block's shared memory."""
     B, H, W = t.shape
     R, A = table.shape[1], ao.shape[1]
     kernels.check_cuda("rgb t", t, torch.float32)
@@ -193,16 +212,28 @@ def rgb_cuda(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor)
     kernels.check_cuda("rgb table", table, torch.float32, (B, R, 16))
     kernels.check_cuda("rgb ao", ao, torch.float32, (B, A, 4))
     kernels.check_cuda("rgb params", params, torch.float32, (B, N_PAR))
+    if texels is not None:
+        kernels.check_cuda("rgb texels", texels, torch.float32,
+                           (len(textures.TEX), TEX_BINS, TEX_BINS, 4))
     out = torch.empty(B, H, W, 3, dtype=torch.uint8, device=t.device)
-    kernels.launch("cspe_rgb", t, inst, table, R, ao, A, params, B, H, W, out)
-    rgb_cuda.launches += 1
+    kernels.launch("cspe_rgb", t, inst, table, R, ao, A, params, texels, B, H, W, out)
+    if texels is None:
+        rgb_cuda.launches += 1
+    else:
+        rgb_cuda.textured_launches += 1
     return out
 
 
 rgb_cuda.launches = 0
+rgb_cuda.textured_launches = 0
 
 
-def fused_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor) -> Tensor:
-    """(B, H, W, 3) uint8: the kernel for CUDA tensors, else the plain version."""
-    fn = rgb_cuda if t.is_cuda else plain_rgb
-    return fn(t, inst, table, ao, params)
+def fused_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor,
+              texels: Tensor | None = None) -> Tensor:
+    """(B, H, W, 3) uint8: the kernel for CUDA tensors, the plain version for
+    CPU tensors; any other device raises."""
+    if t.is_cuda:
+        return rgb_cuda(t, inst, table, ao, params, texels)
+    if t.device.type == "cpu":
+        return plain_rgb(t, inst, table, ao, params, texels)
+    raise ValueError(f"fused_rgb: no RGB path for a tensor on {t.device}")

@@ -127,12 +127,39 @@ def screen_space_normals(pos: Planes3, ray_d: Planes3) -> Planes3:
     return nx * sgn, ny * sgn, nz * sgn
 
 
+def perturb_normal(normal: Planes3, du: Tensor, dv: Tensor, strength: float = 0.6) -> Planes3:
+    """Tangent-space normal perturbation from normal-map offsets ``du``,
+    ``dv`` (already weighted by the map's weight). The proxies carry no UV
+    charts, so the frame is the chart-free one: t1 = normalize(n x up)
+    (+x where the normal is vertical), t2 = n x t1. The result is
+    renormalized, so where du = dv = 0 the normal moves by at most an ulp."""
+    nx, ny, nz = normal
+    mag = torch.sqrt(nx * nx + ny * ny)
+    deg = mag < 1e-4
+    inv = 1.0 / torch.where(deg, 1.0, mag)
+    t1x = torch.where(deg, 1.0, ny * inv)
+    t1y = torch.where(deg, 0.0, -nx * inv)
+    t1z = torch.zeros_like(nx)
+    t2x = ny * t1z - nz * t1y
+    t2y = nz * t1x - nx * t1z
+    t2z = nx * t1y - ny * t1x
+    px = nx + strength * (du * t1x + dv * t2x)
+    py = ny + strength * (du * t1y + dv * t2y)
+    pz = nz + strength * (du * t1z + dv * t2z)
+    rn = 1.0 / torch.sqrt(torch.clamp_min(px * px + py * py + pz * pz, 1e-12))
+    return px * rn, py * rn, pz * rn
+
+
 def shade(t: Tensor, normal: Planes3, hit_pos: Planes3, ray_d: Planes3,
           albedo: Planes3, lighting: Lighting, ao: Tensor | None = None,
-          texture_strength: float = 0.15) -> Planes3:
+          texture_strength: float = 0.15, rough: Tensor | None = None,
+          spec_w: Tensor | None = None) -> Planes3:
     """Shade (B, H, W) planes -> linear RGB planes in [0, 1]: hash-noise
     texture, Lambert sun, hemispheric dome ambient (times ``ao``), and the
-    dome-coloured sky gradient where ``t`` is not finite."""
+    dome-coloured sky gradient where ``t`` is not finite. With ``rough`` and
+    ``spec_w`` (the image-texture tier), a Blinn-Phong term of the sun is
+    added to hit pixels: exponent 2 / max(r^2, 0.02), gloss (1 - r)^2,
+    weighted by ``spec_w``, so a pixel of weight 0 adds an exact 0."""
     nx, ny, nz = normal
     is_hit = torch.isfinite(t)
     pf = lambda v: _per_frame(v, t)
@@ -146,10 +173,22 @@ def shade(t: Tensor, normal: Planes3, hit_pos: Planes3, ray_d: Planes3,
     if ao is not None:
         ambient = ambient * ao
     sky_base = (0.85 + 0.15 * torch.clamp(ray_d[2], 0.0, 1.0)) * torch.clamp_min(dome_i, 0.3)
+    spec = None
+    if rough is not None and spec_w is not None:
+        hx = -ray_d[0] - pf(sd[:, 0])
+        hy = -ray_d[1] - pf(sd[:, 1])
+        hz = -ray_d[2] - pf(sd[:, 2])
+        hn = 1.0 / torch.sqrt(torch.clamp_min(hx * hx + hy * hy + hz * hz, 1e-12))
+        ndoth = torch.clamp_min((nx * hx + ny * hy + nz * hz) * hn, 0.0)
+        shin = 2.0 / torch.clamp_min(rough * rough, 0.02)
+        gloss = torch.square(1.0 - rough)
+        spec = spec_w * gloss * pf(lighting.sun_intensity) * torch.pow(ndoth, shin)
     out = []
     for ch, alb in enumerate(albedo):
         dc = pf(lighting.dome_color[:, ch])
         color = (alb * tex) * (direct + ambient * dc)
+        if spec is not None:
+            color = color + spec
         color = torch.where(is_hit, color, dc * sky_base)
         out.append(torch.clamp(color, 0.0, 1.0))
     return tuple(out)

@@ -17,6 +17,19 @@ moments advance. ``make_scanned_train_fn`` is a host loop of ``inner``
 steps; a step's randomness depends only on (seed, frame id).
 ``make_data_train_step`` is the same step on batches read from packed
 shards (``io/reader.ShardDataset``) instead of generated.
+
+``make_sharded_train_step`` is the step over the ranks of a
+``torch.distributed`` group (``parallel/mesh.py``): each rank generates and
+augments its contiguous rows of the global batch, and the model is wrapped
+in DDP, or sharded by FSDP2 when ``cfg.train.fsdp``. Its numbers are the
+single-device step's on the global batch, as the JAX sharded ``jit``'s
+are: the focal loss divides by the global count of positives (reduced
+across the ranks, outside the gradient) and each rank's loss is scaled by
+the world size, so the ranks' gradient mean is the global gradient; MSE's
+per-rank means average to the global mean as they are, the shards being
+equal. The ``loss`` metric is reduced, so every rank reports the global
+loss. The backbone normalizes with GroupNorm, per sample: there are no
+batch statistics to synchronise.
 """
 
 from __future__ import annotations
@@ -27,11 +40,14 @@ from typing import Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..config import Config, TrainConfig
 from ..models import pose_net
 from ..ops import preprocess
+from ..parallel import mesh as mesh_mod
 from ..parallel import pipeline as pipeline_mod
 from ..scene import world as world_mod
 from . import losses
@@ -68,10 +84,14 @@ def lr_schedule(tc: TrainConfig) -> Callable[[int], float]:
 def make_optimizer(cfg: Config, params):
     """(AdamW, LambdaLR) over ``params``: optax ``adamw(schedule,
     weight_decay=cfg.train.weight_decay)``. The group's base lr is 1, so
-    the scheduler's factor is the learning rate itself."""
+    the scheduler's factor is the learning rate itself. Plain parameters on
+    the card take the fused implementation; FSDP2's sharded parameters
+    (DTensors) take the foreach one."""
     params = list(params)
+    sharded = isinstance(params[0], DTensor)
     opt = torch.optim.AdamW(params, lr=1.0, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=cfg.train.weight_decay, fused=params[0].is_cuda)
+                            weight_decay=cfg.train.weight_decay,
+                            fused=params[0].is_cuda and not sharded, foreach=sharded or None)
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_schedule(cfg.train))
 
 
@@ -176,6 +196,91 @@ class TrainStep:
 
 def make_train_step(cfg: Config, model: nn.Module, pipe: pipeline_mod.Pipeline) -> TrainStep:
     return TrainStep(cfg, model, pipe)
+
+
+class ShardedBatchStep(BatchStep):
+    """``BatchStep`` on one rank's rows of a data-parallel batch: the loss is
+    the rank's share of the global loss (focal: its terms over the global
+    positives; MSE: its mean over the ranks), backpropagated times the
+    world size, since DDP and FSDP2 average the ranks' gradients; the
+    returned loss and ``visible_objects`` are reduced over the ranks."""
+
+    def __init__(self, cfg: Config, roster, mesh):
+        super().__init__(cfg, roster)
+        self.group = mesh.get_group(mesh_mod.DATA_AXIS)
+        self.world = mesh.size()
+
+    def _sum(self, x: Tensor) -> Tensor:
+        x = x.detach().clone()
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def loss(self, model: nn.Module, images: Tensor, targets: Tensor) -> Tensor:
+        pred = pose_net.forward(model, images)
+        if self.cfg.train.loss == "focal":
+            n_pos = self._sum(torch.sum(targets > 0.9, dtype=pred.dtype))
+            return losses.focal_heatmap_loss(pred, targets, n_pos=n_pos)
+        w = None if self.ch_w is None else self.ch_w.to(pred.device)
+        return losses.heatmap_mse(pred, targets, w) / self.world
+
+    def forward_backward(self, state: TrainState, batch, draws) -> Tensor:
+        pc = self.cfg.pipeline
+        images = preprocess.preprocess_frame(batch.rgb, pc.render_height, pc.render_width,
+                                             augment=True, draws=draws)
+        state.optimizer.zero_grad(set_to_none=True)
+        part = self.loss(state.model, images, batch.heatmaps)
+        (part * self.world).backward()
+        return self._sum(part)
+
+    def __call__(self, state: TrainState, batch: pipeline_mod.FrameBatch,
+                 draws: preprocess.AugmentDraws):
+        loss = self.forward_backward(state, batch, draws)
+        vis = self._sum(torch.sum(batch.inst_visible, -1).float().mean()) / self.world
+        metrics = {"loss": loss, "step": state.step, "visible_objects": vis}
+        return self.update(state), metrics
+
+
+class ShardedTrainStep(TrainStep):
+    """``step(state, seed, frame_ids) -> (state, metrics)`` on the ranks of
+    ``mesh``: ``frame_ids`` is the global batch, of which each rank
+    generates and trains on its contiguous rows."""
+
+    def __init__(self, cfg: Config, model: nn.Module, pipe: pipeline_mod.Pipeline, mesh):
+        super().__init__(cfg, model, pipe)
+        self.mesh = mesh
+        self.train_on_batch = ShardedBatchStep(cfg, pipe.roster, mesh)
+
+    def __call__(self, state: TrainState, seed: int, frame_ids):
+        ids = [int(f) for f in frame_ids]
+        rows = [ids[i] for i in mesh_mod.batch_sharding(self.mesh, len(ids))]
+        return self.train_on_batch(state, *self.generate(seed, rows))
+
+
+def make_sharded_train_step(cfg: Config, model: nn.Module, pipe: pipeline_mod.Pipeline,
+                            mesh=None):
+    """``(step, mesh, place_state)`` over the ``data`` mesh (``make_mesh()``
+    by default). ``place_state(state)`` puts a state's model on the mesh:
+    wrapped in DDP (the optimizer keeps its parameters), or, with
+    ``cfg.train.fsdp``, sharded in place by FSDP2 with a new optimizer over
+    the sharded parameters, so it takes a state with no update made yet."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    mesh = mesh or mesh_mod.make_mesh(device_type=pipe.device.type)
+    step = ShardedTrainStep(cfg, model, pipe, mesh)
+
+    def place_state(state: TrainState) -> TrainState:
+        if cfg.train.fsdp:
+            if state.step:
+                raise ValueError("place_state: FSDP shards the parameters the optimizer holds; "
+                                 "place the state before its first update")
+            mesh_mod.shard_params_fsdp(mesh, state.model)
+            return TrainState(state.model, *make_optimizer(cfg, state.model.parameters()), 0)
+        dev = next(state.model.parameters()).device
+        ddp = DistributedDataParallel(state.model, device_ids=[dev] if dev.type == "cuda" else None,
+                                      process_group=mesh.get_group(mesh_mod.DATA_AXIS))
+        return TrainState(ddp, state.optimizer, state.scheduler, state.step)
+
+    return step, mesh, place_state
 
 
 class ShardBatch(NamedTuple):

@@ -40,12 +40,14 @@ def _focal_terms(pred: Tensor, target: Tensor, alpha: float, beta: float, eps: f
 
 
 def focal_heatmap_loss(pred: Tensor, target: Tensor, alpha: float = 2.0, beta: float = 4.0,
-                       eps: float = 1e-6, channel_weights: Tensor | None = None) -> Tensor:
+                       eps: float = 1e-6, channel_weights: Tensor | None = None,
+                       n_pos: Tensor | None = None) -> Tensor:
     """CenterNet-style penalty-reduced focal loss on logits ``pred``;
     ``channel_weights`` (C,) scales each leading-axis channel's positive and
-    negative terms."""
+    negative terms. ``n_pos``, the positives the sum is divided by, defaults
+    to those of ``target``; a data-parallel rank passes the global count."""
     pos_loss, neg_loss, pos = _focal_terms(pred, target, alpha, beta, eps, channel_weights, 0)
-    n_pos = torch.clamp_min(torch.sum(pos), 1.0)
+    n_pos = torch.clamp_min(torch.sum(pos) if n_pos is None else n_pos, 1.0)
     return (torch.sum(pos_loss) + torch.sum(neg_loss)) / n_pos
 
 

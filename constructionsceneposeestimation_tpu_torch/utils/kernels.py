@@ -36,7 +36,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
     "cspe_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "cspe_rgb": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P],
+    "cspe_rgb": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P],
     "cspe_heatmap": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P],
     "cspe_peaks": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
 }

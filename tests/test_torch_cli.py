@@ -6,10 +6,12 @@ packed shards and refuses what the JAX loop refuses. The two-stage
 commands: ``train-crop`` (the dumper, the crane per part), ``train-detect``
 (with both crop checkpoints, the miss split and the FULL rows; from shards)
 and ``infer`` print the JAX commands' lines, save and resume, write the
-JAX records, and refuse the flags whose paths are not ported. Clips and the
-hifi tier: ``generate --sequence-len`` (both formats, resume), ``generate
---hifi``, ``infer --sequence-len --track``, ``seq-eval`` (the JAX command's
-text on the same records) and ``train-detect --hifi-mix --hifi-eval``."""
+JAX records, and refuse no flag. Clips, the hifi tier and the image-texture
+tier: ``generate --sequence-len`` (both formats, resume; with
+``--image-textures``), ``generate --hifi`` (with ``--image-textures``),
+``infer --sequence-len --track``, ``seq-eval`` (the JAX command's text on
+the same records), ``train-detect --hifi-mix --hifi-eval`` and with
+``--image-textures``."""
 
 import contextlib
 import io
@@ -305,21 +307,34 @@ def test_train_detect_from_data_dir(shards, tmp_path, capsys):
     (["infer", "--det-ckpt", "d", "--crop-ckpt", "c", "--sequence-len", "30"], "--sequence-len"),
     (["infer", "--det-ckpt", "d", "--crop-ckpt", "c", "--hifi"], "--hifi"),
 ])
-def test_two_stage_refuses_unported_flags(argv, flag):
-    """``--image-textures`` is refused with generate's words, before anything
-    is built; the flags whose paths are ported now pass the refusal (the
-    commands that take them are driven below). The commands run on the card
-    unless ``--device cpu``."""
-    if flag == "--image-textures":
-        with pytest.raises(SystemExit,
-                           match=f"^{flag} is not ported to the PyTorch package yet$"):
-            cli.main(argv + ["--device", "cpu"])
-    else:
-        args = cli.build_parser().parse_args(argv + ["--device", "cpu"])
-        assert getattr(args, flag[2:].replace("-", "_"))
-        cli._refuse(args)
+def test_two_stage_refuses_unported_flags(argv, flag, tmp_path, monkeypatch, capsys):
+    """No flag is refused any more: each parses, and the commands run on
+    the card unless ``--device cpu`` (the commands that take the hifi and
+    clip flags are driven below). ``train-detect --image-textures`` runs
+    with ``--hifi-mix 2 --hifi-eval``, 2 steps of 2 frames at 64^2: the
+    image textures apply to the hifi batch (step 0) and the evaluation
+    frames only, the proxy batch (step 1) stays untextured, as in the JAX
+    command, and it prints the JAX command's lines."""
+    from constructionsceneposeestimation_tpu_torch.render import textures
+
+    args = cli.build_parser().parse_args(argv + ["--device", "cpu"])
+    assert getattr(args, flag[2:].replace("-", "_"))
     for cmd in (["train-crop"], ["train-detect"], ["infer", "--det-ckpt", "d", "--crop-ckpt", "c"]):
         assert cli.build_parser().parse_args(cmd).device == "cuda"
+    if flag != "--image-textures":
+        return
+    textured = []
+    apply = textures.apply_image_textures
+    monkeypatch.setattr(textures, "apply_image_textures",
+                        lambda alb, *a: textured.append(alb[0].shape[0]) or apply(alb, *a))
+    ck = str(tmp_path / "ck")
+    lines = _run(capsys, argv + TWO + ["--lite", "--steps", "2", "--inner", "1", "--hifi-mix",
+                                       "2", "--hifi-eval", "--ckpt-dir", ck])
+    assert textured == [2, 2]
+    assert all(re.fullmatch(STEP, ln) for ln in lines[:2])
+    assert lines[2] == f"saved checkpoint at step 2 -> {ck}"
+    assert lines[3] == "eval frames: hifi CAD-mesh renders (proxy-trained models)"
+    assert re.fullmatch(DETECT_LINES[0], lines[4]) and re.fullmatch(DETECT_LINES[1], lines[5])
 
 
 # Sequence mode and the hifi tier through the commands: clips of 3 at 64^2.
@@ -391,18 +406,39 @@ def test_generate_sequence_both_formats_and_resume(tmp_path, capsys):
     assert all(got[k] == want[k] for k in want)
 
 
-def test_generate_hifi_shards_equal_direct(tmp_path, capsys):
+@pytest.mark.parametrize("textured", [False, True])
+def test_generate_hifi_shards_equal_direct(tmp_path, capsys, textured):
+    """``generate --hifi`` (and ``--hifi --image-textures``): the shard holds
+    direct hifi generate on the same ids."""
     from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
     from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
 
     out = str(tmp_path / "hifi")
     lines = _run(capsys, ["generate", "--device", "cpu", "--size", "64", "--frames", "2",
-                          "--batch", "2", "--hifi", "--format", "packed", "--out", out])
+                          "--batch", "2", "--hifi", "--format", "packed", "--out", out]
+                 + ["--image-textures"] * textured)
     assert lines[0] == "generating 2/2 frames (resume skipped 0, format=packed)"
     cfg = Config(pipeline=PipelineConfig(render_width=64, render_height=64, batch_size=2,
                                          max_iterations=2))
-    _shards_equal(out, [[0, 1]], Pipeline(cfg, device="cpu", hifi_mesh=True).make_generate_fn(
+    _shards_equal(out, [[0, 1]], Pipeline(cfg, device="cpu", hifi_mesh=True,
+                                          image_textures=textured).make_generate_fn(
         include_heatmaps=False))
+
+
+def test_generate_sequence_image_textures_shards_equal_direct(tmp_path, capsys):
+    """``generate --sequence-len 3 --image-textures``, 4 frames in batches
+    of 2: the shards hold textured ``make_sequence_fn`` on the same ids."""
+    from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
+
+    out = str(tmp_path / "clips")
+    lines = _run(capsys, ["generate", *SEQ, "--frames", "4", "--batch", "2", "--image-textures",
+                          "--format", "packed", "--heatmaps", "--out", out])
+    assert lines[0] == "generating 4/4 frames (resume skipped 0, format=packed)"
+    cfg = Config(pipeline=PipelineConfig(render_width=64, render_height=64, batch_size=2,
+                                         max_iterations=4))
+    _shards_equal(out, [[0, 1], [2, 3]], Pipeline(cfg, device="cpu", image_textures=True)
+                  .make_sequence_fn(3))
 
 
 def test_infer_clips_and_seq_eval(two_stage, tmp_path, monkeypatch, capsys):

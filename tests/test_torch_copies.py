@@ -124,11 +124,12 @@ def test_sequence_metrics_is_a_copy():
 
 
 def test_port_imports_no_jax():
-    """Importing the port, running one tiny generate, one tiny evaluation
-    step, the ``generate`` command to shards (i.i.d., clips and the hifi
-    tier), read back, ``infer`` on freshly initialized full-width
-    checkpoints and ``seq-eval`` on its records load neither jax nor the
-    JAX package."""
+    """Importing the port, running one tiny generate, its point cloud, one
+    tiny evaluation step, the ``generate`` command to shards (i.i.d., clips,
+    the hifi and the image-texture tiers), read back, ``infer`` on freshly
+    initialized full-width checkpoints and ``seq-eval`` on its records,
+    with the multi-GPU and visualization modules imported, load neither
+    jax nor the JAX package."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(2)\n"
@@ -142,6 +143,11 @@ def test_port_imports_no_jax():
         "pipe = Pipeline(cfg, device='cpu')\n"
         "b = pipe.make_generate_fn()(0, range(2))\n"
         "assert b.rgb.shape == (2, 64, 64, 3)\n"
+        "from constructionsceneposeestimation_tpu_torch.render import annotate\n"
+        "pc = annotate.pointcloud_xyzrgb(b.depth, b.rgb, pipe.intr, b.camera_pose7)\n"
+        "assert pc['xyzrgb'].shape == (2, 64 * 64, 6)\n"
+        "import constructionsceneposeestimation_tpu_torch.parallel.mesh\n"
+        "import constructionsceneposeestimation_tpu_torch.utils.viz\n"
         "model = pose_net.make_model(lite=True, device='cpu', dtype=torch.float32)\n"
         "out, hm = ev.evaluate_model(model, b, pipe.roster, pipe.intr, 4.0)\n"
         "assert hm.shape == b.heatmaps.shape and bool(torch.isfinite(hm).all())\n"
@@ -155,7 +161,8 @@ def test_port_imports_no_jax():
         "              '--batch', '2', '--format', 'packed', '--heatmaps', '--out', d])\n"
         "assert len(reader.ShardDataset(d)) == 2\n"
         "with contextlib.redirect_stdout(io.StringIO()):\n"
-        "    for extra in (['--sequence-len', '2', '--frames', '2'], ['--hifi', '--frames', '1']):\n"
+        "    for extra in (['--sequence-len', '2', '--frames', '2'], ['--hifi', '--frames', '1'],\n"
+        "                  ['--image-textures', '--frames', '2']):\n"
         "        cli.main(['generate', '--device', 'cpu', '--size', '64', '--batch', '2',\n"
         "                  '--format', 'packed', '--out', f'{d}/{extra[0]}', *extra])\n"
         "from constructionsceneposeestimation_tpu_torch.train import (checkpoint, crop_loop,\n"

@@ -121,9 +121,10 @@ def test_sweep_kernel_refuses_oversize_schedule(scene):
     assert sweep_kernel.sweep_cuda.launches == before
 
 
-def _rgb_pair(roster, w, cam, tgt, width, height, noise):
+def _rgb_pair(roster, w, cam, tgt, width, height, noise, texels=None):
     """The kernel's and the plain version's images of the frames seen from
-    cam, the instance map, and the ground pixels within an AO row's reach."""
+    cam (textured with ``texels``), the instance map, and the ground pixels
+    within an AO row's reach."""
     intr = camera.intrinsics_from_apertures(12.0, 25.0, width, height)
     M = camera.look_at_matrix(cam, tgt)
     B = cam.shape[0]
@@ -139,10 +140,12 @@ def _rgb_pair(roster, w, cam, tgt, width, height, noise):
         lit = lit._replace(tex_strength=torch.zeros(B, device=cam.device))
     args = (t, inst, rgb_kernel.instance_table(roster, w["inst_rot"], w["inst_pos"]),
             rgb_kernel.ao_table(roster, w["inst_pos"]), rgb_kernel.rgb_params(M, cam, intr, lit))
-    before = rgb_kernel.rgb_cuda.launches
-    a = rgb_kernel.fused_rgb(*args).float()
-    assert rgb_kernel.rgb_cuda.launches == before + 1
-    b = rgb_kernel.plain_rgb(*args).float()
+    before = (rgb_kernel.rgb_cuda.launches, rgb_kernel.rgb_cuda.textured_launches)
+    a = rgb_kernel.fused_rgb(*args, texels).float()
+    textured = texels is not None
+    assert (rgb_kernel.rgb_cuda.launches, rgb_kernel.rgb_cuda.textured_launches) == (
+        before[0] + (not textured), before[1] + textured)
+    b = rgb_kernel.plain_rgb(*args, texels).float()
     reach = rgb_kernel.ao_rows_needed(t, inst, args[3], args[4]) > 0
     torch.cuda.synchronize()
     return a, b, inst, reach
@@ -185,6 +188,42 @@ def test_rgb_kernel_ragged_tiles(scene, view, noise):
     cam, tgt = (torch.tensor(c, device=w["inst_pos"].device) for c in cams)
     a, b, inst, reach = _rgb_pair(roster, w, cam, tgt, 250, 190, noise)
     _check_rgb(a, b, inst, reach, noise, with_sky=view == "horizon")
+
+
+@pytest.mark.parametrize("noise", [False, True])
+@pytest.mark.parametrize("view", ["worker", "horizon"])
+def test_rgb_textured_variant_matches_plain(scene, view, noise):
+    """The textured variant against the plain textured version: close
+    views of the worker and the dumper (every garment band, the crown, the
+    grime) at 128 x 96, and the horizon views at 250 x 190 (ragged tiles,
+    far ground). With the noise off, the tolerances of ``_check_rgb``, and
+    |d| > 2 u8 on at most 1e-3 more of the values than the untextured
+    kernel against its plain version on the same inputs (which shows such
+    pixels at silhouettes and pattern edges): a texel lookup whose u or v
+    sits on a bin edge may take the neighbouring texel when the kernel's
+    local coordinates differ from the plain version's by an ulp."""
+    roster, w, _, _ = scene
+    from constructionsceneposeestimation_tpu_torch.render import textures
+    texels = textures.dense_table(textures.load_factors()).to(w["inst_pos"].device)
+    human, dumper = (w["inst_pos"][:, s[0]] for s in (roster.human_slice, roster.dumper_slice))
+    if view == "worker":
+        tgt = torch.stack([human[0], dumper[1], human[2]]) + torch.tensor(
+            [0.0, 0.0, 1.0], device=human.device)
+        cam = tgt + torch.tensor([[3.0, -2.0, 0.6], [5.0, 3.0, 1.5], [-2.5, 0.5, 0.2]],
+                                 device=human.device)
+        size = (128, 96)
+    else:
+        cam = torch.tensor([[0.0, -30.0, 1.6], [25.0, 5.0, 1.2], [-20.0, -20.0, 2.0]],
+                           device=human.device)
+        tgt = torch.tensor([[0.0, 60.0, 1.6], [-60.0, 0.0, 1.2], [40.0, 40.0, 1.8]],
+                           device=human.device)
+        size = (250, 190)
+    a, b, inst, reach = _rgb_pair(roster, w, cam, tgt, *size, noise, texels)
+    _check_rgb(a, b, inst, reach, noise)
+    if not noise:
+        a0, b0, _, _ = _rgb_pair(roster, w, cam, tgt, *size, noise)
+        far = lambda x, y: (torch.abs(x - y) > 2).float().mean().item()
+        assert far(a, b) <= far(a0, b0) + 1e-3, (far(a, b), far(a0, b0))
 
 
 def test_rgb_kernel_refuses_oversize_table(scene):

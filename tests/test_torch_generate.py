@@ -144,20 +144,39 @@ def test_reference_tree_equals_jax_writer(tmp_path, capsys, direct):
 
 @pytest.mark.parametrize("flag", [["--sequence-len", "4"], ["--hifi"], ["--image-textures"]])
 def test_unported_generate_flags_are_refused(tmp_path, flag, capsys):
-    """``--image-textures`` is refused before anything is written. Clips and
-    the hifi tier are ported: the command writes their reference tree (2
-    frames here; tests/test_torch_cli.py holds them to direct generate)."""
+    """No flag is refused any more: clips, the hifi tier and the
+    image-texture tier each write their reference tree (2 frames here;
+    tests/test_torch_cli.py and the test below hold them to direct
+    generate)."""
     argv = ARGS + ["--out", str(tmp_path / "ds"), *flag]
-    if flag[0] == "--image-textures":
-        with pytest.raises(SystemExit, match=flag[0]):
-            cli.main(argv)
-        assert not (tmp_path / "ds").exists()
-        return
     lines = _run(capsys, argv + ["--frames", "2"])
     assert lines[0] == "generating 2/2 frames (resume skipped 0, format=reference)"
     summary = json.loads(Path(tmp_path, "ds", "logs", "generation_summary.json").read_text())
     assert [f["frame_id"] for f in summary["frame_logs"]] == [0, 1]
     assert all(Path(tmp_path, "ds", "labels", f"label_{i:06d}.json").is_file() for i in (0, 1))
+
+
+def test_image_textures_packed_equals_direct_textured_generate(tmp_path, capsys):
+    """``generate --image-textures --format packed --heatmaps``: every shard
+    holds textured ``make_generate_fn`` on its padded ids; the labels are
+    the untextured generate's, the RGB is not."""
+    out = str(tmp_path / "ds")
+    lines = _run(capsys, ARGS + ["--format", "packed", "--heatmaps", "--image-textures",
+                                 "--out", out])
+    assert lines[0] == f"generating {FRAMES}/{FRAMES} frames (resume skipped 0, format=packed)"
+    assert lines[1].startswith(f"done: {FRAMES} frames in ")
+    cfg = Config(pipeline=PipelineConfig(**PC))
+    tex = Pipeline(cfg, device="cpu", image_textures=True).make_generate_fn()
+    plain = Pipeline(cfg, device="cpu").make_generate_fn()
+    for ids in CHUNKS:
+        with torch.no_grad():
+            want = HostCopy(tex(3, ids)).wait()
+        _shard_equals(os.path.join(out, f"shard_{ids[0]:06d}.npz"), want)
+    with torch.no_grad():
+        base = HostCopy(plain(3, CHUNKS[-1])).wait()
+    for f in ("depth", "instance", "bbox2d", "kpt_uv", "kpt_visible", "heatmaps"):
+        np.testing.assert_array_equal(getattr(want, f), getattr(base, f), err_msg=f)
+    assert not np.array_equal(want.rgb, base.rgb)
 
 
 def test_generate_on_a_missing_card_raises(tmp_path):

@@ -44,13 +44,13 @@ from constructionsceneposeestimation_tpu_torch.utils import kernels  # noqa: E40
 
 B, RES, SEED = 64, 512, 0
 TEX = ("const float tex = 1.0f + 0.15f * p[25] * (hash_noise(pwx, pwy, pwz) - 0.5f) * 2.0f;")
+BOUNDS = "__launch_bounds__(kTileW * kTileH, TEX ? kMinBlocksTex : kMinBlocks)"
 # name: [(source, text, replacement)]; every text must occur once.
 VARIANTS = {
     **{f"rgb_tiles{n}": [("rgb.cu", "constexpr int kTiles = 4;", f"constexpr int kTiles = {n};")]
        for n in (1, 2, 8)},
-    "rgb_bounds_none": [("rgb.cu", "__launch_bounds__(kTileW * kTileH, kMinBlocks)", "")],
-    "rgb_bounds_threads": [("rgb.cu", "__launch_bounds__(kTileW * kTileH, kMinBlocks)",
-                            "__launch_bounds__(kTileW * kTileH)")],
+    "rgb_bounds_none": [("rgb.cu", BOUNDS, "")],
+    "rgb_bounds_threads": [("rgb.cu", BOUNDS, "__launch_bounds__(kTileW * kTileH)")],
     **{f"rgb_blocks{n}": [("rgb.cu", "constexpr int kMinBlocks = 8;",
                            f"constexpr int kMinBlocks = {n};")] for n in (1, 5, 6)},
     "rgb_no_gamma": [("rgb.cu", "rintf(__fmul_rn(gamma22(c), 255.0f))",
@@ -107,7 +107,8 @@ def registers(ptxas: str) -> dict:
     regs, name = {}, None
     for line in ptxas.splitlines():
         if "Function properties for" in line or "Compiling entry function" in line:
-            name = next((k for k in ("rgb_kernel", "heatmap_kernel") if k in line), None)
+            name = ("rgb_kernel_textured" if "rgb_kernelILb1" in line else
+                    next((k for k in ("rgb_kernel", "heatmap_kernel") if k in line), None))
         elif name and "spill stores" in line:
             regs.setdefault(name, {})["spill_bytes"] = int(line.split("bytes spill stores")[0]
                                                            .split(",")[-1])
@@ -199,8 +200,8 @@ def main() -> int:
 
     def rgb(lib, par):
         out = torch.empty(B, RES, RES, 3, dtype=torch.uint8, device=dev)
-        call(lib, "cspe_rgb", t, inst, table, table.shape[1], ao, ao.shape[1], par, B, RES, RES,
-             out)
+        call(lib, "cspe_rgb", t, inst, table, table.shape[1], ao, ao.shape[1], par, None, B, RES,
+             RES, out)
         return out
 
     def heat(lib):
