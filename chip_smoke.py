@@ -5,8 +5,10 @@ evaluation, training (``train-eval``), dataset writing (``generate``,
 (``train-crop``, ``train-detect``, ``infer``), clips (``--sequence-len``,
 ``seq-eval``), the hifi CAD-mesh tier (``--hifi``, ``--hifi-mix``,
 ``--hifi-eval``), the image-texture tier (``--image-textures``, the RGB
-kernel's textured variant) and multi-GPU data parallelism (sharded generate
-and the DDP and FSDP training steps, on this one card).
+kernel's textured variant), ``render_frame``'s analytic-normal, sun-shadow
+and flat-albedo tiers (the RGB kernel's tier variants) and multi-GPU data
+parallelism (sharded generate and the DDP and FSDP training steps, on this
+one card).
 
     python3 chip_smoke.py
 
@@ -142,14 +144,34 @@ Run from the root of a checkout. Phases, each reported on its own line:
    [hifi] arguments and ``--image-textures`` (hifi batches and the
    evaluation textured, the proxy batches not); the textured variant
    launched once a textured batch and on no untextured path;
-12. ``[distributed]``: ``tools/check_sharded_step.py --dryrun`` under
+12. ``[analytic]``: the exact caster (``Raycaster.cast``) on 64 x 512^2
+   pixel rays and the shadow sweep (``fast_multi_origin``) from its hit
+   points (ms a batch, peak memory, the lit share of the hit pixels); each
+   tier variant of the RGB kernel (normal, shadow, flat, their
+   combinations, textured where not flat) against its plain version on
+   those inputs, noise off (the [textures] bars against the default
+   kernel's |d| > 2 share; a shadow variant changes only pixels both
+   versions see shadowed) and on; a flat variant given the texel table
+   equals it without; ``render_frame`` in each of the ten tier
+   combinations at 64 x 512^2 (one launch of its variant, no pixel sweep
+   under analytic normals; labels
+   bit-equal to the default render where the tier is RGB-only, instance
+   on >= 0.9995 of the pixels and depth to the sweep's tolerances under
+   analytic normals), each combination card against CPU at 4 x 128^2,
+   ``Pipeline(procedural_textures=False)``'s generate (sweep, flat variant
+   and heatmaps once; labels bit-equal to the default), the hifi caster
+   equal to the proxy caster under analytic normals and shadows; each
+   variant's device time beside the default kernel's in one window, plain
+   time, bound and registers; the default instantiation at 32 registers
+   and no spills; no tier variant launched on an earlier path;
+13. ``[distributed]``: ``tools/check_sharded_step.py --dryrun`` under
    ``torch.distributed.run``, 2 ranks on cuda:0 over gloo, then 1 rank over
    NCCL: the dry run's FSDP step and its sharded generate at 256² bit-equal
    to the per-chunk single-device rows, and the DDP and FSDP steps (focal)
    against the single-process step on the same global batch (each loss to
    1e-5 relative, the parameters after 2 steps to 1e-5 on 99% of the weights
    and all within 2 lr); a failing rank fails the phase;
-13. timing: generate frames/s, the forward and the evaluation step with
+14. timing: generate frames/s, the forward and the evaluation step with
    CUDA events; the training step's ms and img/s, its split between
    datagen, forward+backward and the optimizer, its device-busy share and
    launches (torch.profiler) and its peak memory; each kernel's device time
@@ -162,9 +184,11 @@ Prints the kernels' JSON line (the RGB row with its textured variant's
 wrapper's call by CUDA events, ``launches`` those of the two-stage,
 sequence and hifi paths, ``train_crop`` (both crop runs), ``train_detect``,
 ``infer``, ``generate_sequence``, ``infer_sequence``, ``generate_hifi``,
-``train_detect_hifi``, ``infer_hifi`` and the textured paths, and ``launches_by_path`` each
-path's; the heatmap kernel's entry also holds its times at the crop
-shapes), then the card line, then as the
+``train_detect_hifi``, ``infer_hifi``, the textured and the analytic paths, and
+``launches_by_path`` each path's; the heatmap kernel's entry also holds its
+times at the crop shapes; one entry for each RGB tier variant, named
+``rgb_epilogue/<variant>``, with its launches on the [analytic] paths), then
+the card line, then as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
 line, on any failure or when no GPU is present. Imports nothing of JAX.
 """
@@ -243,6 +267,14 @@ TRAIN_EVAL_LINES = (
     "human PCK@0.5 (DARK):", "  weakest joints:", "human PCK@0.5 (soft-argmax):",
     "dumper channel scores:", "dumper ADD (GT kpts):", "dumper ADD (model kpts):",
     "crane ADD (GT kpts):", "crane ADD (model kpts):")
+# The JAX tiers each RGB variant shades on the card (jnp, outside the Pallas
+# kernel, annotate.py:276-280), by the variant's first part.
+JNP_TIERS = {
+    "normal": "constructionsceneposeestimation_tpu/render/annotate.py:217-219",
+    "shadow": "constructionsceneposeestimation_tpu/render/annotate.py:374-385",
+    "flat": "constructionsceneposeestimation_tpu/render/annotate.py:251-252",
+    "textured": "constructionsceneposeestimation_tpu/render/annotate.py:326-337",
+}
 REPLACES = {
     "pixel_sweep": "constructionsceneposeestimation_tpu/render/sweep_kernel.py:107",
     "rgb_epilogue": "constructionsceneposeestimation_tpu/render/rgb_kernel.py:51",
@@ -280,6 +312,19 @@ SWEEP_KIND_OPS = {0: 12, 1: 27, 2: 44, 3: 97, 4: 37, 5: 57, 6: 97, 7: 79, 8: 83}
 RGB_PIXEL_OPS = 259
 RGB_RAY_OPS = 33
 RGB_AO_ROW_OPS = 11
+# csrc/rgb.cu's tier variants against the default pixel: a given normal
+# skips the screen-space normal (6 differences, the cross product 9, its
+# normalise 8 and scale 3, the camera test 6 and flip 3); a flat albedo
+# skips the local frame (18), procedural_albedo's tests, selects and
+# overrides (62) and the AO factor (5); the shadow gate adds a compare and
+# a select.
+RGB_SCREEN_NORMAL_OPS = 35
+RGB_PROCEDURAL_OPS = 85
+RGB_SHADOW_OPS = 2
+# [analytic]: the hifi check's frames, and the card against the CPU on 4
+# frames of 128^2.
+ANALYTIC_HIFI_FRAMES = 4
+SMALL_RES = 128
 # csrc/heatmap.cu: per (pixel, visible keypoint of the map's channel).
 HEATMAP_KPT_OPS = 9
 # csrc/peaks.cu, per pixel: relu 1, separable blur 10, separable 3x3 max 4,
@@ -317,39 +362,59 @@ def cuda_ms(fn, iters=5, warmup=2):
 
 def device_ms(fn, key, iters=10):
     """Mean device milliseconds per launch of the kernels whose name holds
-    ``key``, from torch.profiler over ``iters`` calls after a warm-up: the
-    kernel's own time, without its wrapper's host work, which exceeds a
-    0.2 ms kernel and would hide it from CUDA events around the calls.
-    The profiler has dropped records of a short kernel on the H100 (9 of
-    20 peak-kernel launches seen once, none of 10 heatmap launches once),
-    so the mean is over the launches it recorded, and a shortfall is
-    printed; a window in which it recorded none is profiled again, up to 3
-    times, and then the kernel is timed by CUDA events around its calls
-    instead, which is printed."""
+    ``key``, from torch.profiler over ``iters`` calls after a warm-up
+    (``device_ms_window``)."""
+    return device_ms_window([(fn, key)], iters)[0]
+
+
+def device_ms_window(calls, iters=10):
+    """Mean device milliseconds per launch of each ``(fn, key)`` of
+    ``calls``, the kernels whose name holds ``key``, from torch.profiler
+    over ``iters`` calls of each, taken in turns in one window after a
+    warm-up: the kernel's own time, without its wrapper's host work, which
+    exceeds a 0.2 ms kernel and would hide it from CUDA events around the
+    calls. The profiler has dropped records of a short kernel on the H100
+    (9 of 20 peak-kernel launches seen once, none of 10 heatmap launches
+    once), so each mean is over the launches it recorded, and a shortfall
+    is printed; a window in which it recorded none of a key is profiled
+    again, up to 3 times, and then that kernel is timed by CUDA events
+    around its calls instead, which is printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    out = [None] * len(calls)
     for attempt in range(3):
-        fn()
+        for fn, _ in calls:
+            fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
-                fn()
+                for fn, _ in calls:
+                    fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key]
-        seen = sum(e.count for e in evs)
-        check(seen <= iters, f"profiler saw {key} launched {seen} times in {iters} calls")
-        if seen:
-            if seen < iters:
-                phase("time", f"profiler recorded {seen} of {iters} {key} launches; mean over "
-                      "those")
-            return sum(e.self_device_time_total for e in evs) / 1000.0 / seen
-        phase("time", f"profiler recorded no {key} launch in {iters} calls (window "
-              f"{attempt + 1} of 3)")
-    ms = cuda_ms(fn, iters=iters)
-    phase("time", f"{key}: timed by CUDA events around {iters} calls instead: {ms:.4f} ms, the "
-          "wrapper's host work included")
-    return ms
+        averages = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+        for i, (_, key) in enumerate(calls):
+            if out[i] is not None:
+                continue
+            evs = [e for e in averages if key in e.key]
+            seen = sum(e.count for e in evs)
+            check(seen <= iters, f"profiler saw {key} launched {seen} times in {iters} calls")
+            if seen:
+                if seen < iters:
+                    phase("time", f"profiler recorded {seen} of {iters} {key} launches; mean "
+                          "over those")
+                out[i] = sum(e.self_device_time_total for e in evs) / 1000.0 / seen
+            else:
+                phase("time", f"profiler recorded no {key} launch in {iters} calls (window "
+                      f"{attempt + 1} of 3)")
+        if all(v is not None for v in out):
+            return out
+    for i, (fn, key) in enumerate(calls):
+        if out[i] is None:
+            out[i] = cuda_ms(fn, iters=iters)
+            phase("time", f"{key}: timed by CUDA events around {iters} calls instead: "
+                  f"{out[i]:.4f} ms, the wrapper's host work included")
+    return out
 
 
 def sweep_agreement(tag, packed_k, packed_p):
@@ -581,14 +646,24 @@ def reset(counters):
     """Set every kernel wrapper's launch counts to 0."""
     for fn in counters.values():
         fn.launches = 0
-    counters["rgb_epilogue"].textured_launches = 0
+    rgb = counters["rgb_epilogue"]
+    rgb.textured_launches = 0
+    rgb.tier_launches = dict.fromkeys(rgb.tier_launches, 0)
 
 
 def read(counters):
     """Every kernel wrapper's launch count, and the RGB kernel's textured
-    launches (``TEXTURED``), which its ``launches`` do not include."""
+    launches (``TEXTURED``) and those of each tier variant
+    (``tier_key``), which its ``launches`` do not include."""
+    rgb = counters["rgb_epilogue"]
     return {**{k: fn.launches for k, fn in counters.items()},
-            TEXTURED: counters["rgb_epilogue"].textured_launches}
+            TEXTURED: rgb.textured_launches,
+            **{tier_key(v): n for v, n in rgb.tier_launches.items()}}
+
+
+def tier_key(variant):
+    """The launch-count key of an RGB tier variant (``rgb_kernel.VARIANTS``)."""
+    return f"rgb_epilogue/{variant}"
 
 
 def generate_phase(dev, card, counters, datagen, work):
@@ -1546,6 +1621,69 @@ def textured_rgb_inputs(pipe, sweeper, world, inputs, M):
             rgb_kernel.ao_table(pipe.roster, world["inst_pos"]))
 
 
+def texture_stage_pixels(p_fn, t):
+    """(hit, sampled, mapped) (B, H, W) masks of the texture stage on the
+    plain textured call ``p_fn``'s inputs: hit pixels, those that sample
+    the texel table (mix weight > 0, or the vest) and those with a normal
+    map, read from the mask ladder's inputs and the map weights."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.render import textures
+    seen = {}
+    apply = textures.apply_image_textures
+
+    def capture(albedo, lx, ly, lz, pwx, pwy, cls, tex, phase_):
+        out = apply(albedo, lx, ly, lz, pwx, pwy, cls, tex, phase_)
+        seen.update(lz=lz, cls=cls, w_nr=out[1][3])
+        return out
+
+    textures.apply_image_textures = capture
+    try:
+        p_fn()
+    finally:
+        textures.apply_image_textures = apply
+    hit = torch.isfinite(t)
+    cls, lz = seen["cls"], seen["lz"]
+    sampled = hit & ((cls == -1) | (cls == 1) | ((cls == 4) & (lz < 0.55))
+                     | ((cls == 5) & (lz < 1.58)))
+    return hit, sampled, hit & (seen["w_nr"] > 0)
+
+
+def rgb_variant_bound(variant, t, inst, table, ao, par, texels=None, normal=None,
+                      shadow_t=None):
+    """(bound_ms, bound_by, operations, bytes) of a variant of csrc/rgb.cu
+    ("textured" or one of ``rgb_kernel.VARIANTS``) on these inputs: the
+    default pixel's work as [rgb] charges it (one ray a pixel, the AO rows
+    within reach of each ground pixel) less the screen-space normal where a
+    normal is given and the local frame, patterns and AO where the albedo is
+    flat, plus the shadow gate and the texture stage on the pixels that
+    take it; the bytes of t, the instance id and the u8 out, the tables, 12
+    bytes a pixel of normals and 4 of shadow_t where read, and the texel
+    table once."""
+    from constructionsceneposeestimation_tpu_torch.render import rgb_kernel
+    parts = variant.split("+")
+    n_px = t.numel()
+    ops = n_px * (RGB_PIXEL_OPS - 2 * RGB_RAY_OPS)
+    nbytes = n_px * (4 + 4 + 3) + 4 * (table.numel() + ao.numel() + par.numel())
+    if "normal" in parts:
+        ops -= n_px * RGB_SCREEN_NORMAL_OPS
+        nbytes += 12 * n_px
+    if "shadow" in parts:
+        ops += n_px * RGB_SHADOW_OPS
+        nbytes += 4 * n_px
+    if "flat" in parts:
+        ops -= n_px * RGB_PROCEDURAL_OPS
+    else:
+        ops += int(rgb_kernel.ao_rows_needed(t, inst, ao, par).sum()) * RGB_AO_ROW_OPS
+    if "textured" in parts:
+        kw = {"normal": normal, "shadow_t": shadow_t}
+        hit, sampled, mapped = texture_stage_pixels(
+            lambda: rgb_kernel.plain_rgb(t, inst, table, ao, par, texels, **kw), t)
+        ops += (int(hit.sum()) * RGB_TEX_HIT_OPS + int(sampled.sum()) * RGB_TEX_SAMPLE_OPS
+                + int(mapped.sum()) * RGB_TEX_MAP_OPS)
+        nbytes += 4 * texels.numel()
+    return (*bound(nbytes, ops), ops, nbytes)
+
+
 def textures_phase(dev, card, counters, datagen, work, ck):
     """The image-texture tier at 512^2: the RGB kernel's textured variant
     against its plain version on 64 frames, proxy and hifi, hash noise off
@@ -1624,46 +1762,23 @@ def textures_phase(dev, card, counters, datagen, work, ck):
     k_fn = lambda: rgb_kernel.rgb_cuda(t, inst, table, ao, par_on, texels)
     p_fn = lambda: rgb_kernel.plain_rgb(t, inst, table, ao, par_on, texels)
     # The bound charges the untextured pixel's work (as [rgb] does) plus the
-    # texture stage's, on the pixels this run's data sends through it: the
-    # mask ladder's inputs and the map weights, read from the plain version.
-    seen = {}
-    apply = textures.apply_image_textures
-
-    def capture(albedo, lx, ly, lz, pwx, pwy, cls, tex, phase_):
-        out = apply(albedo, lx, ly, lz, pwx, pwy, cls, tex, phase_)
-        seen.update(lz=lz, cls=cls, w_nr=out[1][3])
-        return out
-
-    textures.apply_image_textures = capture
-    try:
-        p_fn()
-    finally:
-        textures.apply_image_textures = apply
-    hit = torch.isfinite(t)
-    cls, lz = seen["cls"], seen["lz"]
-    sampled = hit & ((cls == -1) | (cls == 1) | ((cls == 4) & (lz < 0.55))
-                     | ((cls == 5) & (lz < 1.58)))
-    mapped = hit & (seen["w_nr"] > 0)
+    # texture stage's, on the pixels this run's data sends through it.
+    hit, sampled, mapped = texture_stage_pixels(p_fn, t)
     n_px = B * RES * RES
-    needed = rgb_kernel.ao_rows_needed(t, inst, ao, par_on)
-    tex_ops = (n_px * (RGB_PIXEL_OPS - 2 * RGB_RAY_OPS) + int(needed.sum()) * RGB_AO_ROW_OPS
-               + int(hit.sum()) * RGB_TEX_HIT_OPS + int(sampled.sum()) * RGB_TEX_SAMPLE_OPS
-               + int(mapped.sum()) * RGB_TEX_MAP_OPS)
-    tex_bytes = (n_px * (4 + 4 + 3) + 4 * (table.numel() + ao.numel() + par_on.numel())
-                 + 4 * texels.numel())
-    del seen, needed
-    tex_bound = bound(tex_bytes, tex_ops)
-    result = {"max_abs_err": err, "ms": device_ms(k_fn, "rgb_kernel<true>"),
+    tex_bound = rgb_variant_bound("textured", t, inst, table, ao, par_on, texels)
+    result = {"max_abs_err": err, "ms": device_ms(k_fn, "rgb_kernel<true, 0>"),
               "call_ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, iters=2, warmup=1),
               "bound_ms": tex_bound[0], "bound_by": tex_bound[1]}
-    untex_ms = device_ms(lambda: rgb_kernel.rgb_cuda(t, inst, table, ao, par_on), "rgb_kernel<false>")
+    untex_ms = device_ms(lambda: rgb_kernel.rgb_cuda(t, inst, table, ao, par_on),
+                         "rgb_kernel<false, 0>")
     phase("textures", f"textured RGB kernel, {B} x {RES}^2: {result['ms']:.4f} ms device time "
           f"(call {result['call_ms']:.4f} ms; untextured {untex_ms:.4f} ms in the same window), "
           f"plain {result['plain_ms']:.4f} ms; pixels hit {int(hit.sum()) / n_px:.4f}, sampling "
           f"{int(sampled.sum()) / n_px:.4f}, normal-mapped {int(mapped.sum()) / n_px:.4f}; bound "
-          f"{tex_bound[0]:.4f} ms ({tex_bound[1]}: {tex_ops:.4e} operations, {tex_bytes / 1e6:.1f} "
-          f"MB); roofline share {100 * tex_bound[0] / result['ms']:.1f}% on {card}")
-    del t, inst, table, ao, hit, sampled, mapped, cls, lz
+          f"{tex_bound[0]:.4f} ms ({tex_bound[1]}: {tex_bound[2]:.4e} operations, "
+          f"{tex_bound[3] / 1e6:.1f} MB); roofline share {100 * tex_bound[0] / result['ms']:.1f}% "
+          f"on {card}")
+    del t, inst, table, ao, hit, sampled, mapped
 
     # Labels bit-equal to the untextured render of the same frames; the
     # textured variant launches once, the untextured RGB kernel not at all.
@@ -1741,8 +1856,8 @@ def textures_phase(dev, card, counters, datagen, work, ck):
             check(got.keys() == want.keys() and all(np.array_equal(got[k], v)
                                                     for k, v in want.items()),
                   f"{path}: shard {c[0]} is not bit-equal to direct textured generate")
-        want_l = {TEXTURED: len(chunks), "rgb_epilogue": 0, "pixel_sweep": len(chunks),
-                  "heatmap_targets": len(chunks), "peak_decode": 0}
+        want_l = {**dict.fromkeys(read(counters), 0), TEXTURED: len(chunks),
+                  "pixel_sweep": len(chunks), "heatmap_targets": len(chunks)}
         check(lines[-1].startswith(f"done: {frames} frames in ") and launches[path] == want_l,
               f"{path}: {lines[-1:]}, launches {launches[path]}, want {want_l}")
         phase("textures", f"generate --image-textures {' '.join(argv)} --format packed: {frames} "
@@ -1788,6 +1903,343 @@ def textures_phase(dev, card, counters, datagen, work, ck):
           f"batches and the textured evaluation; launches {got_l}; losses "
           f"{[round(v, 4) for v in losses]}")
     return launches, result
+
+
+def rgb_tier_args(variant, texels, normal, shadow_t):
+    """The keyword arguments of ``rgb_cuda`` / ``plain_rgb`` for an RGB
+    variant (``rgb_kernel.VARIANTS``)."""
+    parts = variant.split("+")
+    return dict(texels=texels if "textured" in parts else None,
+                normal=normal if "normal" in parts else None,
+                shadow_t=shadow_t if "shadow" in parts else None,
+                procedural="flat" not in parts)
+
+
+def render_tier_args(variant, texels):
+    """The keyword arguments of ``render_frame`` whose RGB is the variant
+    ``variant`` (``rgb_kernel.VARIANTS``)."""
+    parts = variant.split("+")
+    return dict(analytic_normals="normal" in parts, sun_shadows="shadow" in parts,
+                procedural_textures="flat" not in parts,
+                texels=texels if "textured" in parts else None)
+
+
+def kernel_key(variant):
+    """The profiler's name of an RGB variant's instantiation."""
+    from constructionsceneposeestimation_tpu_torch.render import rgb_kernel
+    parts = variant.split("+")
+    tier = rgb_kernel.tier_mask("normal" in parts or None, "shadow" in parts or None,
+                                "flat" not in parts)
+    return f"rgb_kernel<{'true' if 'textured' in parts else 'false'}, {tier}>"
+
+
+def to_device(x, dev):
+    """A NamedTuple of tensors (or None) moved to ``dev``."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if x is None:
+        return None
+    return type(x)(*(to_device(v, dev) for v in x))
+
+
+def labels_agree(a, b):
+    """Card against CPU labels of one render (tests/test_torch_pipeline.py's
+    tolerances): the finite masks and instance maps on > 0.999 of the
+    pixels, depth to 3e-4 where both are finite, boxes and keypoints to
+    1e-4 m and 1e-3 px (1e-5 relative), visibility on >= 0.99."""
+    import torch
+    da, db = a.depth.cpu(), b.depth
+    fin = torch.isfinite(da) & torch.isfinite(db)
+    stats = {
+        "finite": (torch.isfinite(da) == torch.isfinite(db)).float().mean().item(),
+        "instance": (a.instance.cpu() == b.instance).float().mean().item(),
+        "depth_rel": (torch.abs(da - db) / db)[fin].max().item(),
+        "center": torch.abs(a.center.cpu() - b.center).max().item(),
+        "kpt_uv": (torch.abs(a.kpt_uv.cpu() - b.kpt_uv)
+                   / (1e-3 + 1e-5 * torch.abs(b.kpt_uv))).max().item(),
+        "kpt_visible": (a.kpt_visible.cpu() == b.kpt_visible).float().mean().item()}
+    ok = (stats["finite"] > 0.999 and stats["instance"] > 0.999 and stats["depth_rel"] < 3e-4
+          and stats["center"] < 1e-4 and stats["kpt_uv"] <= 1.0 and stats["kpt_visible"] >= 0.99)
+    return ok, stats
+
+
+def analytic_phase(dev, card, counters):
+    """The last RGB tiers of ``render_frame`` at 512^2: the exact caster on
+    the pixel rays and the shadow sweep from its hit points (ms a batch,
+    peak memory); each tier variant of the RGB kernel against its plain
+    version on those inputs, hash noise off (mean |d| < 0.5 u8, |d| > 1 on
+    < 2% of the values, sky exact, |d| > 1 on <= 1e-3 of the ground pixels
+    within an AO row's reach where there is AO, |d| > 2 on at most 1e-3
+    more of the values than the default kernel against its plain version on
+    the same inputs; a shadow variant changes only pixels both versions see
+    shadowed) and on (means within 1.0, standard deviations within 2.0);
+    ``render_frame`` in each tier combination, textured where not flat,
+    each through its variant (labels bit-equal to the default render
+    where the tier is RGB-only; under analytic_normals instance on >=
+    0.9995 of the pixels and depth to the packed sweep's tolerances), the
+    card against the CPU at 4 x 128^2, ``Pipeline(procedural_textures=
+    False)``'s generate, the hifi caster equal to the proxy caster under
+    analytic_normals and sun_shadows, and each variant's device time
+    beside the default kernel's in one window. Returns (launches per path,
+    the variants' numbers)."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
+    from constructionsceneposeestimation_tpu_torch.core import camera as cam_mod
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
+    from constructionsceneposeestimation_tpu_torch.render import (annotate, meshcast,
+                                                                  rgb_kernel, textures)
+    from constructionsceneposeestimation_tpu_torch.scene import world as world_mod
+    from constructionsceneposeestimation_tpu_torch.utils import kernels
+
+    launches = {}
+    cfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES, batch_size=B))
+    pipe = Pipeline(cfg, device=dev)
+    roster, caster, far = pipe.roster, pipe.caster, cfg.camera.clipping[1]
+    inputs = pipe.sample_inputs(SEED, range(B))
+    world = world_mod.build_world(roster, inputs.pose)
+    M = cam_mod.look_at_matrix(inputs.cam_pos, inputs.target)
+    rd = cam_mod.pixel_rays(pipe.intr, M)
+
+    # The exact caster on the pixel rays, then the shadow sweep from its hit
+    # points, as render_frame calls them: ms a batch (CUDA events, 3 calls
+    # after one), peak memory above what the phase held before.
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - held
+
+    exact = lambda: caster.cast(world, inputs.cam_pos, rd.reshape(B, -1, 3))
+    hit, cast_peak = peak_of(exact)
+    cast_ms = cuda_ms(exact, iters=3, warmup=1)
+    t = hit["t"].reshape(B, RES, RES)
+    clipped = t * torch.sum(rd * (-M[:, :, 0])[:, None, None, :], -1) >= far
+    t = torch.where(clipped, float("inf"), t).contiguous()
+    inst = torch.where(clipped, -2, hit["inst"].reshape(B, RES, RES)).to(torch.int32).contiguous()
+    normal = hit["normal"].reshape(B, RES, RES, 3).contiguous()
+    del hit, clipped
+    sun = -inputs.lighting.sun_dir
+    origins = (inputs.cam_pos[:, None, None] + torch.where(torch.isfinite(t), t, 0.0)[..., None]
+               * rd + (sun * 1e-3)[:, None, None]).reshape(B, -1, 3)
+    dirs = sun[:, None].expand(B, RES * RES, 3)
+    shadow_fn = lambda: caster.fast_multi_origin(world, origins, dirs)
+    sh, shadow_peak = peak_of(shadow_fn)
+    shadow_ms = cuda_ms(shadow_fn, iters=3, warmup=1)
+    shadow_t = sh["t"].reshape(B, RES, RES).contiguous()
+    del sh, origins
+    is_hit = torch.isfinite(t)
+    unlit = (shadow_t < 1e9) & is_hit
+    lit_share = 1.0 - int(unlit.sum()) / int(is_hit.sum())
+    casters = {"cast_ms": cast_ms, "cast_peak_gib": cast_peak / 2 ** 30,
+               "shadow_ms": shadow_ms, "shadow_peak_gib": shadow_peak / 2 ** 30,
+               "rays": B * RES * RES, "lit_share": lit_share}
+    phase("analytic", f"exact caster (Raycaster.cast), {B} x {RES}^2 pixel rays in blocks of "
+          f"{2 ** 20} rays: {cast_ms:.3f} ms a batch (CUDA events), peak "
+          f"{casters['cast_peak_gib']:.2f} GiB above the inputs; shadow sweep "
+          f"(fast_multi_origin) from its hit points: {shadow_ms:.3f} ms, peak "
+          f"{casters['shadow_peak_gib']:.2f} GiB; hit pixels {int(is_hit.sum()) / t.numel():.4f}, "
+          f"lit share of the hit pixels {lit_share:.4f}; on {card}")
+    check(0.02 < lit_share < 0.98, f"lit share {lit_share}: the shadow rays see all or nothing")
+
+    # Each tier variant of the RGB kernel against its plain version.
+    table = rgb_kernel.instance_table(roster, world["inst_rot"], world["inst_pos"])
+    ao = rgb_kernel.ao_table(roster, world["inst_pos"])
+    lit_off = inputs.lighting._replace(tex_strength=torch.zeros_like(inputs.lighting.tex_strength))
+    par_off = rgb_kernel.rgb_params(M, inputs.cam_pos, pipe.intr, lit_off)
+    par_on = rgb_kernel.rgb_params(M, inputs.cam_pos, pipe.intr, inputs.lighting)
+    texels = textures.dense_table(textures.load_factors()).to(dev)
+    reach = rgb_kernel.ao_rows_needed(t, inst, ao, par_off) > 0
+    sky = (inst == -2)[..., None].expand(B, RES, RES, 3)
+    base_far = (torch.abs(rgb_kernel.rgb_cuda(t, inst, table, ao, par_off).float()
+                          - rgb_kernel.plain_rgb(t, inst, table, ao, par_off).float())
+                > 2).float().mean().item()
+    variants = {}
+    for v in rgb_kernel.VARIANTS:
+        kw = rgb_tier_args(v, texels, normal, shadow_t)
+        rk = rgb_kernel.rgb_cuda(t, inst, table, ao, par_off, **kw).float()
+        rp = rgb_kernel.plain_rgb(t, inst, table, ao, par_off, **kw).float()
+        d = torch.abs(rk - rp)
+        stats = {"mean |d|": d.mean().item(), "|d| > 1": (d > 1).float().mean().item(),
+                 "|d| > 2": (d > 2).float().mean().item()}
+        ok = (stats["mean |d|"] < 0.5 and stats["|d| > 1"] < 0.02
+              and stats["|d| > 2"] <= base_far + 1e-3 and bool(torch.equal(rk[sky], rp[sky])))
+        if "flat" not in v:
+            stats["|d| > 1 within AO reach"] = (d.amax(-1)[reach] > 1).float().mean().item()
+            ok = ok and stats["|d| > 1 within AO reach"] <= 1e-3
+        gate = ""
+        if "shadow" in v:
+            # The gate: both versions read the same shadow_t, so each changes
+            # only the pixels it shadows against its own unshadowed image.
+            kw0 = dict(kw, shadow_t=None)
+            moved = [((x != y).any(-1) & ~unlit).sum().item()
+                     for x, y in ((rk, rgb_kernel.rgb_cuda(t, inst, table, ao, par_off, **kw0)),
+                                  (rp, rgb_kernel.plain_rgb(t, inst, table, ao, par_off, **kw0)))]
+            gate = f"; lit pixels changed by the gate: kernel {moved[0]}, plain {moved[1]} (0)"
+            ok = ok and moved == [0, 0]
+        phase("analytic", f"rgb {v}, noise off, {B} x {RES}^2: " + ", ".join(
+            f"{k} {x:.5f}" for k, x in stats.items()) + f" (default kernel |d| > 2 {base_far:.5f})"
+              f", max |d| {d.max().item():.0f}{gate} (< 0.5, < 0.02, <= default + 1e-3, "
+              f"<= 1e-3, sky exact)")
+        check(ok, f"rgb variant {v} disagrees with its plain version (noise off)")
+        variants[v] = {"max_abs_err": d.max().item()}
+        del rk, rp, d
+        rk = rgb_kernel.rgb_cuda(t, inst, table, ao, par_on, **kw).float()
+        rp = rgb_kernel.plain_rgb(t, inst, table, ao, par_on, **kw).float()
+        dm, ds = abs(rk.mean().item() - rp.mean().item()), abs(rk.std().item() - rp.std().item())
+        phase("analytic", f"rgb {v}, noise on: |mean diff| {dm:.4f} (< 1.0), |std diff| "
+              f"{ds:.4f} (< 2.0)")
+        check(dm < 1.0 and ds < 2.0, f"rgb variant {v} statistics disagree (noise on)")
+        del rk, rp
+    # The flat variants ignore the texel table, as JAX's flat tier does.
+    kw = rgb_tier_args("flat+shadow", texels, normal, shadow_t)
+    same = torch.equal(rgb_kernel.rgb_cuda(t, inst, table, ao, par_off, **kw),
+                       rgb_kernel.rgb_cuda(t, inst, table, ao, par_off, **dict(kw, texels=texels)))
+    phase("analytic", f"rgb flat+shadow with the texel table given equals it without: {same}")
+    check(same, "a flat variant read the texel table")
+
+    # render_frame in each tier combination, each through its variant:
+    # launches, labels, RGB.
+    rf = lambda **kw: annotate.render_frame(
+        roster, caster, pipe.sweeper, world, inputs.cam_pos, inputs.target, pipe.intr,
+        inputs.lighting, far_clip=far, **kw)
+    tiers = {v: render_tier_args(v, texels) for v in rgb_kernel.VARIANTS}
+    default = rf()
+    times = {"default": cuda_ms(lambda: rf(), iters=2, warmup=0)}
+    zero = dict.fromkeys(read(counters), 0)
+    for name, kw in tiers.items():
+        reset(counters)
+        out = rf(**kw)
+        torch.cuda.synchronize()
+        launches[f"render_{name}"] = got = read(counters)
+        want = dict(zero, **{tier_key(name): 1,
+                             "pixel_sweep": 0 if kw["analytic_normals"] else 1})
+        check(got == want, f"render_frame {name}: launches {got}, want {want}")
+        times[name] = cuda_ms(lambda: rf(**kw), iters=1, warmup=0)
+        changed = (torch.abs(out.rgb.float() - default.rgb.float()).amax(-1) > 2).float().mean()
+        if kw["analytic_normals"]:
+            inst_agree = (out.instance == default.instance).float().mean().item()
+            both = torch.isfinite(out.depth) & torch.isfinite(default.depth)
+            rel = (torch.abs(out.depth - default.depth) / out.depth)[both]
+            finite = (torch.isfinite(out.depth) == torch.isfinite(default.depth)).float().mean()
+            stats = {"instance": inst_agree, "finite": finite.item(),
+                     "rel > 2^-18": (rel > 2.0 ** -18).float().mean().item(),
+                     "rel > 1e-5": (rel > 1e-5).float().mean().item(),
+                     "rel > 2e-4": (rel > 2e-4).float().mean().item(),
+                     "max rel": rel.max().item()}
+            msg = ("against the packed sweep: " + ", ".join(f"{k} {x:.3g}" for k, x in
+                                                           stats.items())
+                   + " (instance >= 0.9995, finite > 0.9995, rel > 1e-5 < 0.005, rel > 2e-4 "
+                     "< 1e-5)")
+            ok = (inst_agree >= 0.9995 and stats["finite"] > 0.9995 and stats["rel > 1e-5"] < 0.005
+                  and stats["rel > 2e-4"] < 1e-5)
+        else:
+            same = [f for f in out._fields if f != "rgb"
+                    and torch.equal(getattr(out, f), getattr(default, f))]
+            msg = f"labels bit-equal to the default render: {len(same)} of {len(out._fields) - 1}"
+            ok = len(same) == len(out._fields) - 1
+        phase("analytic", f"render_frame {name}, {B} x {RES}^2: {msg}; rgb changed by > 2 u8 on "
+              f"{changed.item():.4f} of the pixels; launches "
+              f"{ {k: n for k, n in got.items() if n} }; {times[name]:.1f} ms (default "
+              f"{times['default']:.1f} ms, CUDA events)")
+        check(ok and changed.item() > 1e-3, f"render_frame {name}: {msg}, changed {changed}")
+        del out
+    del default
+
+    # The card against the plain CPU path, 4 x 128^2, each tier, noise off.
+    small = Config(pipeline=PipelineConfig(render_width=SMALL_RES, render_height=SMALL_RES,
+                                           batch_size=4))
+    sp = {where: Pipeline(small, device=where) for where in ("cpu", dev)}
+    inp_c = sp["cpu"].sample_inputs(SEED, range(10, 14))
+    lit_c = inp_c.lighting._replace(tex_strength=torch.zeros(4))
+    rows = []
+    for name in tiers:
+        outs = {}
+        for where, p in sp.items():
+            inp = to_device(inp_c, p.device)
+            outs[where] = annotate.render_frame(
+                roster, p.caster, p.sweeper, world_mod.build_world(roster, inp.pose),
+                inp.cam_pos, inp.target, p.intr, to_device(lit_c, p.device), far_clip=far,
+                **render_tier_args(name, texels.to(p.device)))
+        a, b = outs[dev], outs["cpu"]
+        ok, stats = labels_agree(a, b)
+        d = torch.abs(a.rgb.cpu().float() - b.rgb.float())
+        same_inst = (a.instance.cpu() == b.instance)[..., None].expand_as(d)
+        stats.update({"rgb mean |d|": d.mean().item(),
+                      "rgb |d| > 1": (d > 1).float().mean().item()})
+        ok = ok and stats["rgb mean |d|"] < 0.5 and stats["rgb |d| > 1"] < 0.02
+        rows.append(f"{name}: " + ", ".join(f"{k} {x:.3g}" for k, x in stats.items()))
+        check(ok, f"render_frame {name}: card vs CPU {stats}; where the instance agrees, rgb "
+                  f"max |d| {d[same_inst].max().item()}")
+    phase("analytic", f"card vs plain CPU path, {4} x {SMALL_RES}^2, noise off: " + "; ".join(rows)
+          + " (finite, instance > 0.999, depth_rel < 3e-4, center < 1e-4, kpt_uv <= 1 of its "
+            "tolerance, kpt_visible >= 0.99, rgb mean |d| < 0.5, |d| > 1 < 0.02)")
+
+    # Pipeline(procedural_textures=False): one generate batch with heatmaps.
+    fpipe = Pipeline(cfg, device=dev, procedural_textures=False)
+    with torch.no_grad():
+        plain_b = pipe.make_generate_fn()(SEED, range(B))
+        reset(counters)
+        flat_b = fpipe.make_generate_fn()(SEED, range(B))
+        torch.cuda.synchronize()
+    launches["generate_flat"] = got = read(counters)
+    want = dict(zero, **{tier_key("flat"): 1, "pixel_sweep": 1, "heatmap_targets": 1})
+    same = [f for f in flat_b._fields if f != "rgb"
+            and torch.equal(getattr(flat_b, f), getattr(plain_b, f))]
+    phase("analytic", f"Pipeline(procedural_textures=False) generate, {B} x {RES}^2 with "
+          f"heatmaps: fields bit-equal to the default generate: {len(same)} of "
+          f"{len(flat_b._fields) - 1} (all but rgb); launches {got}")
+    check(got == want and len(same) == len(flat_b._fields) - 1,
+          f"flat generate: launches {got}, want {want}; equal fields {same}")
+    del plain_b, flat_b
+
+    # The hifi caster under analytic_normals and sun_shadows is the proxy
+    # roster's, as in JAX: RGB and labels equal the proxy caster's.
+    n = ANALYTIC_HIFI_FRAMES
+    hifi = meshcast.HifiCaster(roster, grid_hw=(RES, RES))
+    inp = pipe.sample_inputs(SEED, range(n))
+    w4 = world_mod.build_world(roster, inp.pose)
+    outs = [annotate.render_frame(roster, c, pipe.sweeper, w4, inp.cam_pos, inp.target,
+                                  pipe.intr, inp.lighting, far_clip=far, analytic_normals=True,
+                                  sun_shadows=True) for c in (hifi, caster)]
+    same = [f for f in outs[0]._fields if torch.equal(getattr(outs[0], f), getattr(outs[1], f))]
+    phase("analytic", f"hifi caster, {n} x {RES}^2, analytic_normals and sun_shadows: fields "
+          f"equal to the proxy caster's {len(same)} of {len(outs[0]._fields)} (rgb and labels)")
+    check(len(same) == len(outs[0]._fields), f"hifi analytic render differs from the proxy's: "
+          f"equal {same}")
+    del outs
+
+    # Device times: each variant beside the default kernel in one window,
+    # its plain version, its bound; the registers of every instantiation.
+    regs = kernels.ptxas_report("rgb.cu")
+    default_fn = lambda: rgb_kernel.rgb_cuda(t, inst, table, ao, par_on)
+    for v in rgb_kernel.VARIANTS:
+        kw = rgb_tier_args(v, texels, normal, shadow_t)
+        k_fn = lambda: rgb_kernel.rgb_cuda(t, inst, table, ao, par_on, **kw)
+        ms, default_ms = device_ms_window([(k_fn, kernel_key(v)),
+                                           (default_fn, "rgb_kernel<false, 0>")])
+        b_ms, b_by, ops, nbytes = rgb_variant_bound(v, t, inst, table, ao, par_on, texels,
+                                                    kw["normal"], kw["shadow_t"])
+        r = regs[kernel_key(v)]
+        variants[v].update(ms=ms, default_ms=default_ms, call_ms=cuda_ms(k_fn),
+                           plain_ms=cuda_ms(lambda: rgb_kernel.plain_rgb(
+                               t, inst, table, ao, par_on, **kw), iters=2, warmup=1),
+                           bound_ms=b_ms, bound_by=b_by, registers=r["registers"],
+                           spill_bytes=r["spill_bytes"])
+        phase("time", f"rgb {v}: kernel {ms:.4f} ms device time (default kernel {default_ms:.4f} "
+              f"ms in the same window; call {variants[v]['call_ms']:.4f} ms), plain "
+              f"{variants[v]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {ops:.4e} "
+              f"operations, {nbytes / 1e6:.1f} MB; roofline share {100 * b_ms / ms:.1f}%), "
+              f"{r['registers']} registers, {r['spill_bytes']} bytes of spill stores; "
+              f"{B} x {RES}^2 on {card}")
+    d0 = regs["rgb_kernel<false, 0>"]
+    phase("analytic", f"registers a thread (spill stores): " + ", ".join(
+        f"{k} {x['registers']} ({x['spill_bytes']} B)" for k, x in sorted(regs.items())))
+    check(d0 == {"registers": 32, "spill_bytes": 0},
+          f"the default RGB kernel left 32 registers and no spills: {d0}")
+    return launches, variants, casters
 
 
 def distributed_phase(card):
@@ -1988,7 +2440,8 @@ def main() -> int:
                   f"({rgb_ops:.4e} operations), of every row on every ground pixel with three "
                   f"rays {bound(rgb_bytes, old_ops)[0]:.4f} ms ({old_ops:.4e} operations)")
             del needed, reach, kept
-            results["rgb_epilogue"] = {"max_abs_err": rgb_err, "ms": device_ms(k_fn, "rgb_kernel"),
+            results["rgb_epilogue"] = {"max_abs_err": rgb_err,
+                                       "ms": device_ms(k_fn, "rgb_kernel<false, 0>"),
                                        "call_ms": cuda_ms(k_fn),
                                        "plain_ms": cuda_ms(p_fn, iters=2, warmup=1),
                                        "bound": bound(rgb_bytes, rgb_ops),
@@ -2423,17 +2876,31 @@ def main() -> int:
           f"{stray or 'none'}")
     check(not stray, f"the textured variant launched on an untextured path: {stray}")
     two_stage_launches.update(tex_launches)
+
+    # 12. [analytic]: render_frame's analytic-normal, sun-shadow and flat
+    # tiers, the casters they need and the RGB kernel's tier variants.
+    an_launches, tier_results, casters = analytic_phase(dev, card, counters)
+    earlier = {"eval": eval_launches, "train_eval": train_launches,
+               "generate_cli": gen_cli_launches, "train_data_dir": data_dir_launches,
+               **two_stage_launches}
+    stray = {p: {k: n for k, n in c.items() if k.startswith("rgb_epilogue/") and n}
+             for p, c in earlier.items()}
+    stray = {p: c for p, c in stray.items() if c}
+    phase("analytic", f"tier-variant launches on the {len(earlier)} earlier paths: "
+          f"{stray or 'none'}")
+    check(not stray, f"an RGB tier variant launched on an earlier path: {stray}")
+    two_stage_launches.update(an_launches)
     for k in counters:
         for path, counts in two_stage_launches.items():
             launches[k][path] = counts[k]
     textured_by_path = {p: c[TEXTURED] for p, c in tex_launches.items()}
     results["heatmap_targets"]["crop_shapes"] = crop_hm
 
-    # 12. [distributed]: the sharded generate and training steps, 2 ranks on
+    # 13. [distributed]: the sharded generate and training steps, 2 ranks on
     # this card over gloo, then 1 over NCCL.
     distributed_phase(card)
 
-    # 13. Timing: generate frames/s (every field consumed), min of 4 regions.
+    # 14. Timing: generate frames/s (every field consumed), min of 4 regions.
     region_ms(gen, B * 10)  # the warm-up
     regions = [region_ms(gen, B * (11 + r)) for r in range(4)]
     best = min(regions)
@@ -2490,18 +2957,32 @@ def main() -> int:
                                    textured_launches=sum(textured_by_path.values()),
                                    textured_launches_by_path=textured_by_path)
 
+    phase("time", f"exact caster {casters['cast_ms']:.3f} ms a batch of {B} x {RES}^2 pixel rays "
+          f"(peak {casters['cast_peak_gib']:.2f} GiB), shadow sweep {casters['shadow_ms']:.3f} ms "
+          f"(peak {casters['shadow_peak_gib']:.2f} GiB), PyTorch, on {card}")
+    for v, r in tier_results.items():
+        phase("time", f"rgb_epilogue, {v} variant: kernel {r['ms']:.4f} ms beside the default "
+              f"{r['default_ms']:.4f} ms in one window, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; roofline share "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}%), launches "
+              f"{ {p: c[tier_key(v)] for p, c in an_launches.items()} } on {card}")
+    paths = ("train_crop", "train_detect", "infer", "generate_sequence", "infer_sequence",
+             "generate_hifi", "train_detect_hifi", "infer_hifi", *textured_by_path, *an_launches)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": sum(launches[name][p] for p in ("train_crop", "train_detect", "infer",
-                                                     "generate_sequence", "infer_sequence",
-                                                     "generate_hifi", "train_detect_hifi",
-                                                     "infer_hifi", *textured_by_path)),
+         "launches": sum(launches[name][p] for p in paths),
          "launches_by_path": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "call_ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": None, **{k: v for k, v in r.items() if k == "crop_shapes"
                                  or k.startswith("textured_")}}
-        for name, r in results.items()]}
+        for name, r in results.items()] + [
+        {"name": tier_key(v), "route": "cuda", "source": SOURCES["rgb_epilogue"],
+         "replaces": REPLACES["rgb_epilogue"], "jnp_tier": JNP_TIERS[v.split("+")[0]],
+         "launches": sum(c[tier_key(v)] for c in an_launches.values()),
+         "launches_by_path": {p: c[tier_key(v)] for p, c in an_launches.items()},
+         "library_ms": None, **r}
+        for v, r in tier_results.items()]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

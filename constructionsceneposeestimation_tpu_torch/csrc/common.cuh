@@ -26,6 +26,9 @@ constexpr int kPayloadMask = (1 << 6) - 1;
 constexpr size_t kSmemLimit = 48 * 1024;
 // An entry point's own refusal, beside the cudaError_t codes (all >= 0).
 constexpr int kErrSharedMemory = -1;
+// An entry point's arguments that do not fit together (a tier without its
+// input plane, or with a plane it does not read).
+constexpr int kErrArgument = -2;
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);

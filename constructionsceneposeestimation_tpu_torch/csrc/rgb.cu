@@ -114,6 +114,32 @@
 // path's inputs: 0.593 ms, beside the untextured 0.407 to 0.410 ms in the
 // same window; its operations bound is 0.059 ms.
 //
+// The tier variants (annotate.render_frame's analytic_normals, sun_shadows
+// and procedural_textures=False, which the JAX package shades in jnp,
+// annotate.py:276-280) are this kernel compiled with a tier mask TIER
+// (render/rgb_kernel.TIERS): kTierNormal reads the pixel's world normal
+// from a (B, H, W, 3) plane in place of the screen-space normal, so the
+// variant builds no hit points for its neighbours (no s_p, no halo rays);
+// kTierShadow reads the pixel's hit distance toward the sun and zeroes the
+// direct and specular terms unless it is >= 1e9 (shading.shade's `lit`);
+// kTierFlat shades the table's flat albedo: no local coordinates,
+// patterns, image textures or contact AO (no ground box, no AO walk), the
+// hash noise kept. TEX composes with the first two; a flat variant is
+// never textured. Each (TEX, TIER) is its own instantiation, so the default
+// one (TIER 0) is the code above, instruction for instruction, at 32
+// registers and no spills; TIER = kRuntimeTier reads the mask at run time
+// instead (one kernel with uniform branches), which tools/kernel_variants.py
+// builds to weigh the two. Measured by it on an H100 SXM (NVIDIA H100 80GB
+// HBM3, 700 W), device time a launch at 64 x 512^2, two turns each, the
+// images bit-equal: the instantiations took 0.408 and 0.413 ms (default),
+// 0.361 (normal), 0.418 (shadow), 0.322 (flat), 0.275 (flat+normal+shadow);
+// the runtime-mask kernel (32 registers, no spills) 0.433, 0.371, 0.440,
+// 0.360 and 0.311 ms: 3 to 13% slower, so each mask is its own kernel. The
+// untextured tier variants keep the default's cap (kMinBlocksTier = 8: 32
+// registers, 8 or 16 bytes of spill stores where a normal is read or the
+// albedo is flat); a cap of 6 blocks (40 registers, no spills) was no
+// faster (0.365 to 0.437 ms).
+//
 // The formulas are those of render/shading.py. `_hash_noise` takes sinf of
 // arguments near 1500, where the last ulps of each backend's sin
 // decorrelate the noise: the kernel is held to the plain version with the
@@ -134,6 +160,7 @@ constexpr int kTiles = 4;                       // tiles a block walks, top to b
 constexpr int kRows = kTileH * kTiles;          // rows a block covers
 constexpr int kMinBlocks = 8;                   // blocks an SM: at most 32 registers
 constexpr int kMinBlocksTex = 4;                // the textured variant: at most 64
+constexpr int kMinBlocksTier = 8;               // the untextured tier variants
 // The texel table's bins a side (render/rgb_kernel.TEX_BINS) and its slots
 // (render/textures.TEX).
 constexpr int kTexBins = 128;
@@ -147,6 +174,13 @@ enum TexSlot {
 // which a pixel's computed distance can fall below the box's.
 constexpr float kAoScale = 1.0001f;
 constexpr float kAoAbs = 1e-4f;
+// Tier mask bits (render/rgb_kernel.TIER_*), and the instantiation that
+// reads the mask at run time.
+constexpr int kTierNormal = 1;
+constexpr int kTierShadow = 2;
+constexpr int kTierFlat = 4;
+constexpr int kTierAll = 7;
+constexpr int kRuntimeTier = -1;
 static_assert(64 + kRows < kTileW * kTileH, "s_y is filled by threads 64 .. 64 + kRows");
 
 // The normalised ray through pinhole coordinates (x, y): uncontracted IEEE
@@ -361,12 +395,24 @@ __device__ __forceinline__ float unordered(int i) {
   return __int_as_float(i ^ ((i >> 31) & 0x7fffffff));
 }
 
-template <bool TEX>
-__global__ void __launch_bounds__(kTileW * kTileH, TEX ? kMinBlocksTex : kMinBlocks)
+// Whether tier bit `bit` is set: from the template where it is a mask,
+// from the launch's `tier` in the runtime-tier instantiation.
+template <int TIER>
+__device__ __forceinline__ bool tier_has(int tier, int bit) {
+  return ((TIER >= 0 ? TIER : tier) & bit) != 0;
+}
+
+template <bool TEX, int TIER>
+__global__ void __launch_bounds__(kTileW * kTileH,
+                                  TEX ? kMinBlocksTex : TIER == 0 ? kMinBlocks : kMinBlocksTier)
 rgb_kernel(const float* __restrict__ t, const int* __restrict__ inst,
            const float* __restrict__ table, int n_rows, const float* __restrict__ ao,
            int n_ao, const float* __restrict__ par, const float4* __restrict__ texels,
+           const float* __restrict__ nrm, const float* __restrict__ shadow, int tier,
            int height, int width, uint8_t* __restrict__ out) {
+  const bool given_n = tier_has<TIER>(tier, kTierNormal);
+  const bool shadowed = tier_has<TIER>(tier, kTierShadow);
+  const bool flat = tier_has<TIER>(tier, kTierFlat);
   extern __shared__ __align__(16) float smem[];
   float* s_tab = smem;                                           // (n_rows, 16)
   float4* s_ao = reinterpret_cast<float4*>(s_tab + n_rows * 16);  // (n_ao,)
@@ -430,10 +476,12 @@ rgb_kernel(const float* __restrict__ t, const int* __restrict__ inst,
     const bool is_hit = isfinite(tv);
     const float ts = is_hit ? tv : 0.0f;
     const float pwx = ox + ts * rdx, pwy = oy + ts * rdy, pwz = oz + ts * rdz;
-    s_p[0][ty][tx] = pwx;
-    s_p[1][ty][tx] = pwy;
-    s_p[2][ty][tx] = pwz;
-    if (halo) {
+    if (!given_n) {
+      s_p[0][ty][tx] = pwx;
+      s_p[1][ty][tx] = pwy;
+      s_p[2][ty][tx] = pwz;
+    }
+    if (halo && !given_n) {
       const int hr = r0 + rt + hi, hc = c0 + hj;
       if (hr < height && hc < width) {
         float hx, hy, hz;
@@ -449,7 +497,7 @@ rgb_kernel(const float* __restrict__ t, const int* __restrict__ inst,
     // Table row: instances 0..O-1, ground O, sky O+1.
     const float* tab = s_tab + (id >= 0 ? id : n_inst - 1 - id) * 16;
     const float cls = tab[15];
-    const bool ground = in && cls == -1.0f;
+    const bool ground = in && cls == -1.0f && !flat;
     // The warp's ground bounding box, by integer min/max reductions on
     // order-preserving images of the floats (exact); a warp with no ground
     // pixel skips the box and the AO rows.
@@ -482,58 +530,71 @@ rgb_kernel(const float* __restrict__ t, const int* __restrict__ inst,
     }
 
     if (in) {
-      // Differences to the next row and column; zero on the frame's last.
-      float dyx = 0.0f, dyy = 0.0f, dyz = 0.0f, dxx = 0.0f, dxy = 0.0f, dxz = 0.0f;
-      if (row + 1 < height) {
-        dyx = s_p[0][ty + 1][tx] - pwx;
-        dyy = s_p[1][ty + 1][tx] - pwy;
-        dyz = s_p[2][ty + 1][tx] - pwz;
-      }
-      if (col + 1 < width) {
-        dxx = s_p[0][ty][tx + 1] - pwx;
-        dxy = s_p[1][ty][tx + 1] - pwy;
-        dxz = s_p[2][ty][tx + 1] - pwz;
-      }
-      // n = d/drow x d/dcol, normalized, flipped toward the camera.
-      float nx = dyy * dxz - dyz * dxy;
-      float ny = dyz * dxx - dyx * dxz;
-      float nz = dyx * dxy - dyy * dxx;
-      const float ninv = 1.0f / sqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-18f));
-      nx *= ninv;
-      ny *= ninv;
-      nz *= ninv;
-      if (nx * rdx + ny * rdy + nz * rdz > 0.0f) {
-        nx = -nx;
-        ny = -ny;
-        nz = -nz;
+      const size_t px = (size_t)b * n_pix + pix;
+      float nx, ny, nz;
+      if (given_n) {
+        nx = nrm[px * 3];
+        ny = nrm[px * 3 + 1];
+        nz = nrm[px * 3 + 2];
+      } else {
+        // Differences to the next row and column; zero on the frame's last.
+        float dyx = 0.0f, dyy = 0.0f, dyz = 0.0f, dxx = 0.0f, dxy = 0.0f, dxz = 0.0f;
+        if (row + 1 < height) {
+          dyx = s_p[0][ty + 1][tx] - pwx;
+          dyy = s_p[1][ty + 1][tx] - pwy;
+          dyz = s_p[2][ty + 1][tx] - pwz;
+        }
+        if (col + 1 < width) {
+          dxx = s_p[0][ty][tx + 1] - pwx;
+          dxy = s_p[1][ty][tx + 1] - pwy;
+          dxz = s_p[2][ty][tx + 1] - pwz;
+        }
+        // n = d/drow x d/dcol, normalized, flipped toward the camera.
+        nx = dyy * dxz - dyz * dxy;
+        ny = dyz * dxx - dyx * dxz;
+        nz = dyx * dxy - dyy * dxx;
+        const float ninv = 1.0f / sqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-18f));
+        nx *= ninv;
+        ny *= ninv;
+        nz *= ninv;
+        if (nx * rdx + ny * rdy + nz * rdz > 0.0f) {
+          nx = -nx;
+          ny = -ny;
+          nz = -nz;
+        }
       }
 
       float alb[3] = {tab[0], tab[1], tab[2]};
-      const float dxw = pwx - tab[12], dyw = pwy - tab[13], dzw = pwz - tab[14];
-      const float lx = tab[3] * dxw + tab[6] * dyw + tab[9] * dzw;
-      const float ly = tab[4] * dxw + tab[7] * dyw + tab[10] * dzw;
-      const float lz = tab[5] * dxw + tab[8] * dyw + tab[11] * dzw;
-      procedural_albedo(alb, lx, ly, lz, cls, p[24], p[26]);
       float w_nr = 0.0f, rough = 0.0f;
-      if constexpr (TEX) {
-        float du = 0.0f, dv = 0.0f;
-        if (is_hit) image_textures(alb, lx, ly, lz, pwx, pwy, cls, p[24], texels, du, dv, rough,
-                                   w_nr);
-        perturb_normal(nx, ny, nz, du, dv, w_nr != 0.0f);
+      if (!flat) {
+        const float dxw = pwx - tab[12], dyw = pwy - tab[13], dzw = pwz - tab[14];
+        const float lx = tab[3] * dxw + tab[6] * dyw + tab[9] * dzw;
+        const float ly = tab[4] * dxw + tab[7] * dyw + tab[10] * dzw;
+        const float lz = tab[5] * dxw + tab[8] * dyw + tab[11] * dzw;
+        procedural_albedo(alb, lx, ly, lz, cls, p[24], p[26]);
+        if constexpr (TEX) {
+          float du = 0.0f, dv = 0.0f;
+          if (is_hit) image_textures(alb, lx, ly, lz, pwx, pwy, cls, p[24], texels, du, dv, rough,
+                                     w_nr);
+          perturb_normal(nx, ny, nz, du, dv, w_nr != 0.0f);
+        }
       }
-      const float ao_f = cls == -1.0f ? 0.45f + 0.55f * clampf(m_ao / 0.6f, 0.0f, 1.0f) : 1.0f;
+      const float ao_f =
+          !flat && cls == -1.0f ? 0.45f + 0.55f * clampf(m_ao / 0.6f, 0.0f, 1.0f) : 1.0f;
+      // The sun-shadow gate: lit where the hit distance toward the sun is >= 1e9.
+      const bool lit = !shadowed || shadow[px] >= 1e9f;
 
       // Lambert sun + hemispheric dome ambient; sky gradient on misses.
       const float sun_i = p[19], dome_i = p[20];
       const float tex = 1.0f + 0.15f * p[25] * (hash_noise(pwx, pwy, pwz) - 0.5f) * 2.0f;
       const float ndotl = fmaxf(-(nx * p[16] + ny * p[17] + nz * p[18]), 0.0f);
-      const float direct = sun_i * ndotl;
+      const float direct = lit ? sun_i * ndotl : 0.0f;
       const float ambient = dome_i * (0.25f + 0.35f * (0.5f * (1.0f + nz))) * ao_f;
       const float sky_base = __fmul_rn(__fadd_rn(0.85f, __fmul_rn(0.15f, clampf(rdz, 0.0f, 1.0f))),
                                        fmaxf(dome_i, 0.3f));
       // The roughness specular of the mapped pixels (textured variant).
       float spec = 0.0f;
-      if (TEX && w_nr != 0.0f) {
+      if (TEX && w_nr != 0.0f && lit) {
         const float hx = -rdx - p[16], hy = -rdy - p[17], hz = -rdz - p[18];
         const float hn = 1.0f / sqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-12f));
         const float ndoth = fmaxf((nx * hx + ny * hy + nz * hz) * hn, 0.0f);
@@ -571,36 +632,58 @@ rgb_kernel(const float* __restrict__ t, const int* __restrict__ inst,
 }  // namespace
 }  // namespace cspe
 
+using RgbKernelFn = void (*)(const float*, const int*, const float*, int, const float*, int,
+                            const float*, const float4*, const float*, const float*, int, int,
+                            int, uint8_t*);
+
+// The instantiation of a (textured, tier) launch; null for a tier out of
+// range or a textured flat one.
+static RgbKernelFn rgb_variant(bool tex, int tier) {
+  using namespace cspe;
+  if (tier < 0 || tier > kTierAll || (tex && (tier & kTierFlat))) return nullptr;
+  static const RgbKernelFn plain[] = {rgb_kernel<false, 0>, rgb_kernel<false, 1>,
+                                      rgb_kernel<false, 2>, rgb_kernel<false, 3>,
+                                      rgb_kernel<false, 4>, rgb_kernel<false, 5>,
+                                      rgb_kernel<false, 6>, rgb_kernel<false, 7>};
+  static const RgbKernelFn textured[] = {rgb_kernel<true, 0>, rgb_kernel<true, 1>,
+                                         rgb_kernel<true, 2>, rgb_kernel<true, 3>};
+  return tex ? textured[tier] : plain[tier];
+}
+
 // t (B, H, W) f32 (+inf on miss/clip), inst (B, H, W) int32, table
 // (B, n_rows, 16) f32, ao (B, n_ao, 4) f32, par (B, 32) f32; texels null
 // (untextured) or the (13, kTexBins, kTexBins, 4) f32 table (textured);
-// out (B, H, W, 3) u8. Returns kErrSharedMemory, launching nothing, if the
-// table, the AO rows and the kernel's static arrays exceed kSmemLimit.
-template <bool TEX>
-static int launch_rgb(const float* t, const int* inst, const float* table, int n_rows,
-                      const float* ao, int n_ao, const float* par, const float* texels,
-                      int batch, int height, int width, uint8_t* out, cudaStream_t stream) {
+// normal (B, H, W, 3) f32 where tier has kTierNormal, shadow (B, H, W) f32
+// where it has kTierShadow, else null; out (B, H, W, 3) u8. Returns
+// kErrArgument for a tier and pointers that do not fit together, and
+// kErrSharedMemory if the table, the AO rows and the kernel's static
+// arrays exceed kSmemLimit, launching nothing.
+CSPE_API int cspe_rgb_tier(const float* t, const int* inst, const float* table, int n_rows,
+                           const float* ao, int n_ao, const float* par, const float* texels,
+                           const float* normal, const float* shadow, int tier, int batch,
+                           int height, int width, uint8_t* out, void* stream) {
   using namespace cspe;
+  const RgbKernelFn kernel = rgb_variant(texels != nullptr, tier);
+  if (kernel == nullptr || ((tier & kTierNormal) != 0) != (normal != nullptr) ||
+      ((tier & kTierShadow) != 0) != (shadow != nullptr))
+    return kErrArgument;
   const dim3 block(kTileW, kTileH);
   const dim3 grid((width + kTileW - 1) / kTileW, (height + kRows - 1) / kRows, batch);
   const size_t smem = (size_t)(n_rows * 16 + n_ao * 4) * sizeof(float);
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, rgb_kernel<TEX>);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem + attr.sharedSizeBytes > kSmemLimit) return kErrSharedMemory;
-  rgb_kernel<TEX><<<grid, block, smem, stream>>>(t, inst, table, n_rows, ao, n_ao, par,
-                                                 reinterpret_cast<const float4*>(texels),
-                                                 height, width, out);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      t, inst, table, n_rows, ao, n_ao, par, reinterpret_cast<const float4*>(texels), normal,
+      shadow, tier, height, width, out);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The default and textured kernels: cspe_rgb_tier at tier 0.
 CSPE_API int cspe_rgb(const float* t, const int* inst, const float* table, int n_rows,
                       const float* ao, int n_ao, const float* par, const float* texels, int batch,
                       int height, int width, uint8_t* out, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (texels != nullptr)
-    return launch_rgb<true>(t, inst, table, n_rows, ao, n_ao, par, texels, batch, height, width,
-                            out, s);
-  return launch_rgb<false>(t, inst, table, n_rows, ao, n_ao, par, texels, batch, height, width,
-                           out, s);
+  return cspe_rgb_tier(t, inst, table, n_rows, ao, n_ao, par, texels, nullptr, nullptr, 0, batch,
+                       height, width, out, stream);
 }

@@ -486,5 +486,7 @@ CSPE_API int cspe_sweep(const float* cam, const float* poses, const int* sched_i
 CSPE_API const char* cspe_error_string(int code) {
   if (code == cspe::kErrSharedMemory)
     return "the launch needs more shared memory than a block may take (48 KB)";
+  if (code == cspe::kErrArgument)
+    return "the entry point's arguments do not fit together";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -28,6 +28,10 @@ goes through the RGB kernel's textured variant with the texel table of
 device with the first batch); the labels are the untextured render's. It
 composes with the hifi tier and with clips.
 
+``procedural_textures=False`` shades the flat table albedo (no patterns,
+image textures or contact AO: the RGB kernel's flat variant), as the JAX
+``Pipeline`` field does; the labels are unchanged.
+
 Multi-GPU (``make_sharded_generate``): each rank of a ``torch.distributed``
 group generates its contiguous rows of the frame ids; a frame depends
 only on (seed, frame id) and its scene group, so this adds no
@@ -101,12 +105,14 @@ class Pipeline:
     until the first batch, which raises where there is no card.
     ``hifi_mesh=True`` renders the baked CAD meshes of the hifi tier; the
     labels stay the templates'. ``image_textures=True`` shades the RGB with
-    the image-texture tier."""
+    the image-texture tier, ``procedural_textures=False`` with the flat
+    albedo."""
 
     cfg: Config
     device: str | torch.device = "cuda"
     hifi_mesh: bool = False
     image_textures: bool = False
+    procedural_textures: bool = True
 
     def __post_init__(self):
         # Geometry is f32: no TF32 in matmuls or convolutions.
@@ -234,7 +240,7 @@ class Pipeline:
             self.roster, self.caster, self.sweeper, world, inputs.cam_pos, inputs.target,
             self.intr, inputs.lighting, shade_rgb=pc.write_rgb,
             bug_compatible=pc.bug_compatible_schema, far_clip=cfg.camera.clipping[1],
-            texels=self.texels())
+            texels=self.texels(), procedural_textures=self.procedural_textures)
         B = frame_ids.shape[0]
         if include_heatmaps:
             hms = heatmap_ops.frame_heatmaps(

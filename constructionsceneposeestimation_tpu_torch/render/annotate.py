@@ -1,14 +1,22 @@
 """The annotation pass for a batch of frames (port of ``render_frame`` of
-the JAX ``render/annotate.py`` on its default path).
+the JAX ``render/annotate.py``).
 
 One packed pixel sweep gives depth and instance; the keypoint-occlusion
 segments ride the packed caster from the same camera origin; the RGB
 epilogue shades from depth and instance (with ``texels``, the
 image-texture tier's table, the RGB kernel's textured variant); labels
-(visible set, pixel
-counts, 2D boxes, 6DoF boxes, keypoints and their visibility, point-cloud
-count) derive from poses and the two sweeps. Every tensor leads with the
-batch dimension B.
+(visible set, pixel counts, 2D boxes, 6DoF boxes, keypoints and their
+visibility, point-cloud count) derive from poses and the two sweeps. Every
+tensor leads with the batch dimension B.
+
+The RGB tiers of the JAX function, each a variant of the RGB kernel:
+``analytic_normals`` casts the pixel rays and the keypoint segments
+through the exact caster (``caster.cast``: exact t, analytic world
+normals), bypassing the pixel sweep as JAX does, and shades with those
+normals; ``sun_shadows`` casts one ray a pixel from its hit point (the
+camera on a miss) toward the sun (``caster.fast_multi_origin``) and shades
+the pixels it hits as shadowed; ``procedural_textures=False`` shades the
+flat table albedo (no patterns, image textures or contact AO).
 """
 
 from __future__ import annotations
@@ -78,24 +86,37 @@ def render_frame(roster: world_mod.Roster, caster: raycast.Raycaster,
                  sweeper: PixelSweeper, world, cam_pos: Tensor, target: Tensor,
                  intr: cam_mod.Intrinsics, lighting: sh.Lighting, shade_rgb: bool = True,
                  kpt_occlusion_tol: float = 0.02, bug_compatible: bool = False,
-                 far_clip: float = 250.0, texels: Tensor | None = None) -> FrameAnnotations:
+                 far_clip: float = 250.0, texels: Tensor | None = None,
+                 analytic_normals: bool = False, sun_shadows: bool = False,
+                 procedural_textures: bool = True) -> FrameAnnotations:
     """Annotate B frames: world (``build_world``), cam_pos/target (B, 3),
     batched ``lighting``; ``texels`` (``textures.dense_table``) textures the
-    RGB and nothing else."""
+    RGB and nothing else. ``analytic_normals``, ``sun_shadows`` and
+    ``procedural_textures`` select the RGB tiers of the module docstring;
+    only ``analytic_normals`` reaches the labels (exact t in place of the
+    packed sweep's)."""
     B = cam_pos.shape[0]
     H, W = intr.height, intr.width
     dev = cam_pos.device
     O = roster.num_instances
     M = cam_mod.look_at_matrix(cam_pos, target)
+    rd = cam_mod.pixel_rays(intr, M)
 
-    # Pixel sweep: packed (t | inst + 2), INF-valued on a miss.
-    t_px, code = raycast._unpack(sweeper(world, cam_pos, M))
-    hit = t_px < raycast.INF * 0.99
-    t = torch.where(hit, t_px, float("inf")).reshape(B, H, W)
-    inst = (code - 2).reshape(B, H, W)
+    normal = None
+    if analytic_normals:
+        # The exact caster: t exact (+inf on a miss), instance, world normal.
+        px = caster.cast(world, cam_pos, rd.reshape(B, H * W, 3))
+        t = px["t"].reshape(B, H, W)
+        inst = px["inst"].reshape(B, H, W)
+        normal = px["normal"].reshape(B, H, W, 3)
+    else:
+        # Pixel sweep: packed (t | inst + 2), INF-valued on a miss.
+        t_px, code = raycast._unpack(sweeper(world, cam_pos, M))
+        hit = t_px < raycast.INF * 0.99
+        t = torch.where(hit, t_px, float("inf")).reshape(B, H, W)
+        inst = (code - 2).reshape(B, H, W)
 
     # Depth is distance to the image plane: t * (d . view_forward).
-    rd = cam_mod.pixel_rays(intr, M)
     view_fwd = -M[:, :, 0]
     cosang = torch.sum(rd * view_fwd[:, None, None, :], dim=-1)
     depth = torch.where(torch.isfinite(t), t * cosang, float("inf"))
@@ -107,11 +128,23 @@ def render_frame(roster: world_mod.Roster, caster: raycast.Raycaster,
 
     inst_rot, inst_pos = world["inst_rot"], world["inst_pos"]
     if shade_rgb:
+        shadow_t = None
+        if sun_shadows:
+            # One ray a pixel from the hit point (the camera on a miss or
+            # beyond the far clip), biased 1e-3 toward the sun.
+            t_safe = torch.where(torch.isfinite(t), t, 0.0)[..., None]
+            p_hit = cam_pos[:, None, None, :] + t_safe * rd
+            sun = -lighting.sun_dir
+            origins = p_hit + (sun * 1e-3)[:, None, None, :]
+            shadow_t = caster.fast_multi_origin(
+                world, origins.reshape(B, H * W, 3),
+                sun[:, None, :].expand(B, H * W, 3))["t"].reshape(B, H, W).contiguous()
         rgb = rgb_kernel.fused_rgb(
             t.contiguous(), instance.contiguous(),
             rgb_kernel.instance_table(roster, inst_rot, inst_pos),
             rgb_kernel.ao_table(roster, inst_pos),
-            rgb_kernel.rgb_params(M, cam_pos, intr, lighting), texels)
+            rgb_kernel.rgb_params(M, cam_pos, intr, lighting), texels,
+            None if normal is None else normal.contiguous(), shadow_t, procedural_textures)
     else:
         rgb = torch.zeros(B, H, W, 3, dtype=torch.uint8, device=dev)
 
@@ -131,7 +164,9 @@ def render_frame(roster: world_mod.Roster, caster: raycast.Raycaster,
     kpts_w = world_mod.world_keypoints(inst_rot, inst_pos, world["kpts_local"])
     K = kpts_w.shape[2]
     kpt_flat = kpts_w.reshape(B, O * K, 3)
-    seg_hit = caster.fast(world, cam_pos, kpt_flat - cam_pos[:, None, :])
+    seg = kpt_flat - cam_pos[:, None, :]
+    seg_hit = caster.cast(world, cam_pos, seg) if analytic_normals else caster.fast(
+        world, cam_pos, seg)
     t_occ, occ_inst = seg_hit["t"], seg_hit["inst"]
     uv, z = cam_mod.project(kpt_flat, cam_pos, M, intr)
     uv = uv.reshape(B, O, K, 2)

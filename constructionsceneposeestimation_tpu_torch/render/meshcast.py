@@ -308,7 +308,11 @@ class HifiCaster:
     """The composite caster of the hifi tier (``make_hifi_caster`` in the JAX
     package): baked CAD triangles for the meshable classes and the analytic
     sweep for every other primitive, merged by packed min. A drop-in for
-    ``raycast.Raycaster`` in ``annotate.render_frame``."""
+    ``raycast.Raycaster`` in ``annotate.render_frame``. ``cast`` (the exact
+    caster of ``analytic_normals``) and ``fast_multi_origin`` (the shadow
+    rays) are the unfiltered proxy roster's, as in JAX: under
+    ``analytic_normals`` pixels and keypoint segments see the proxies, not
+    the meshes, and shadows are proxy-shaped."""
 
     def __init__(self, roster: world_mod.Roster, grid_hw: Tuple[int, int] | None = None,
                  tile: int = 1024, tri_block: int = 512):
@@ -317,6 +321,9 @@ class HifiCaster:
             raise ValueError(f"the roster has no instance of {DEFAULT_CLASSES} to mesh")
         self.base_mask = ~self.mesh.covered_prims
         self.base = raycast.Raycaster(roster, prim_mask=self.base_mask)
+        self.full = raycast.Raycaster(roster)
+        self.cast = self.full.cast
+        self.fast_multi_origin = self.full.fast_multi_origin
 
     def packed(self, world, ray_o: Tensor, ray_d: Tensor) -> Tensor:
         return torch.minimum(self.base.packed(world, ray_o, ray_d),

@@ -15,9 +15,18 @@ segments cast raw cam -> keypoint vectors. This caster is the plain version
 of the pixel-sweep kernel (render/sweep_kernel.py) and the caster of the
 occlusion segments.
 
-``occlusion_ts`` is the JAX module's generic t sweep (every primitive in
-its own frame, grouped by kind) with a per-ray excluded instance: the
-nearest hit of any other instance.
+The exact path (``Raycaster.cast``, JAX ``make_raycaster``'s ``cast``) is
+the generic sweep: every primitive in its own local frame, grouped by kind
+in ``np.unique`` order, ``argmin`` within a group (the first index wins a
+tie) and a strict ``<`` across groups; then the winner's analytic normal
+(``_local_normal``). ``Raycaster.fast_multi_origin`` is the packed sweep of
+rays with per-ray origins (the sun-shadow rays) over the same kind groups.
+Both are PyTorch, as in the JAX package (``jnp``, outside any Pallas
+kernel), and sweep at most ``EXACT_RAYS`` rays at once, so their
+(B, g, rays) planes stay a few hundred MB at any batch.
+
+``occlusion_ts`` is the generic t sweep with a per-ray excluded instance:
+the nearest hit of any other instance.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ Tensor = torch.Tensor
 
 INF = np.float32(1e10)
 EPS = 1e-7
+EXACT_RAYS = 1 << 20  # rays the exact and the per-origin sweeps hold at once
 _PAYLOAD_BITS = 6
 _PAYLOAD_MASK = (1 << _PAYLOAD_BITS) - 1
 
@@ -283,6 +293,14 @@ def _comp(v: Tensor, i: int) -> Tensor:
     return v[..., i:i + 1]
 
 
+def _to_local(rot: Tensor, v: Tensor, i: int) -> Tensor:
+    """Local component i of world vectors: sum_j rot[..., j, i] v_j, for
+    rot (B, g, 3, 3) against v (B, g, N) planes or (B, g, 1) columns given
+    as a 3-tuple."""
+    return (rot[..., 0, i, None] * v[0] + rot[..., 1, i, None] * v[1]
+            + rot[..., 2, i, None] * v[2])
+
+
 def _sweep_packed_fast(cats, world, prim_codes: Tensor, ray_o: Tensor, ray_d: Tensor) -> Tensor:
     """Packed min over every primitive: ray_o (B, 3), ray_d (B, N, 3) ->
     (B, N) packed (t | inst + 2); INF-valued where nothing is hit."""
@@ -358,13 +376,116 @@ def _sweep_packed_fast(cats, world, prim_codes: Tensor, ray_o: Tensor, ray_d: Te
     for kind, idx in cats["gen"]:
         rot = prim_rot[:, idx]  # (B, g, 3, 3)
         rel = ray_o[:, None, :] - prim_pos[:, idx]
-        # local = R^T world, component by component.
-        o = tuple((rot[..., 0, i] * rel[..., 0] + rot[..., 1, i] * rel[..., 1]
-                   + rot[..., 2, i] * rel[..., 2])[..., None] for i in range(3))
-        d = tuple(rot[..., 0, i, None] * d0 + rot[..., 1, i, None] * d1
-                  + rot[..., 2, i, None] * d2 for i in range(3))
+        rel = tuple(rel[..., j:j + 1] for j in range(3))
+        o = tuple(_to_local(rot, rel, i) for i in range(3))
+        d = tuple(_to_local(rot, (d0, d1, d2), i) for i in range(3))
         best = merge(best, _KIND_FNS[kind](o, d, params[idx]), idx)
     return best
+
+
+def _kind_groups(roster: world_mod.Roster, prim_mask=None):
+    """[(kind, prim_idx_array), ...] in ``np.unique`` order of the kinds,
+    keeping only the primitives where ``prim_mask`` holds."""
+    kinds = np.asarray(roster.prim_kind)
+    keep = np.ones(kinds.shape[0], bool) if prim_mask is None else np.asarray(prim_mask, bool)
+    groups = [(int(k), np.nonzero((kinds == k) & keep)[0]) for k in np.unique(kinds)]
+    return [(k, idx) for k, idx in groups if idx.size]
+
+
+def _sweep(groups, world, ray_o: Tensor, ray_d: Tensor, exclude_inst: Tensor | None = None,
+           prim_inst: Tensor | None = None):
+    """The generic sweep of rays from ray_o (B, 3) along ray_d (B, N, 3):
+    (t (B, N), prim index (B, N), -1 and ``INF`` where nothing is hit).
+    Each kind group in its own frames; ``argmin`` within a group (first
+    index on a tie), a strict ``<`` across groups. ``exclude_inst`` (B, N)
+    leaves out the primitives of each ray's instance."""
+    rot, pos, params = world["prim_rot"], world["prim_pos"], world["prim_params"]
+    B, N = ray_d.shape[:2]
+    dev = ray_d.device
+    d = tuple(ray_d[..., i][:, None, :] for i in range(3))  # (B, 1, N)
+    t_best = torch.full((B, N), INF, device=dev)
+    idx_best = torch.full((B, N), -1, dtype=torch.int64, device=dev)
+    for kind, idx in groups:
+        r = rot[:, idx]  # (B, g, 3, 3)
+        rel = ray_o[:, None, :] - pos[:, idx]  # (B, g, 3)
+        rel = tuple(rel[..., j:j + 1] for j in range(3))
+        o = tuple(_to_local(r, rel, i) for i in range(3))  # (B, g, 1)
+        dl = tuple(_to_local(r, d, i) for i in range(3))  # (B, g, N)
+        t = _KIND_FNS[kind](o, dl, params[idx])
+        if exclude_inst is not None:
+            same = prim_inst[idx][None, :, None] == exclude_inst[:, None, :]
+            t = torch.where(same, float(INF), t)
+        g_min, g_arg = torch.min(t, dim=1)
+        better = g_min < t_best
+        t_best = torch.where(better, g_min, t_best)
+        idx_best = torch.where(better, torch.as_tensor(idx, device=dev)[g_arg], idx_best)
+    return t_best, idx_best
+
+
+def _norm(v: Tensor) -> Tensor:
+    return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+
+
+def _local_normal(kind: Tensor, ol: Tensor, dl: Tensor, t: Tensor, params: Tensor) -> Tensor:
+    """Outward local-frame normal (..., 3) at the hit ol + t dl of each
+    ray's own primitive (kind (...), params (..., P)), flipped against the
+    local ray."""
+    p = ol + t[..., None] * dl
+    z = torch.zeros_like(p[..., 2])
+    n_plane = torch.stack([z, z, torch.ones_like(z)], -1)
+    n_sphere = p / torch.clamp_min(_norm(p), EPS)
+    rel = p / torch.clamp_min(params[..., :3], EPS)
+    ax = torch.argmax(torch.abs(rel), dim=-1, keepdim=True)
+    n_box = torch.zeros_like(p).scatter_(-1, ax, 1.0) * torch.sign(torch.gather(rel, -1, ax))
+    hh = params[..., 1]
+    side = torch.abs(p[..., 2]) < hh - 1e-4
+    radial = torch.stack([p[..., 0], p[..., 1], z], -1)
+    radial = radial / torch.clamp_min(_norm(radial), EPS)
+    cap = torch.stack([z, z, torch.sign(p[..., 2])], -1)
+    n_cyl = torch.where(side[..., None], radial, cap)
+    seg_z = torch.minimum(torch.maximum(p[..., 2], -hh), hh)
+    n_capsule = p - torch.stack([z, z, seg_z], -1)
+    n_capsule = n_capsule / torch.clamp_min(_norm(n_capsule), EPS)
+    rb, rt, chh = params[..., 0], params[..., 1], params[..., 2]
+    kslope = (rt - rb) / (2.0 * torch.clamp_min(chh, EPS))
+    n_cone_side = torch.stack([radial[..., 0], radial[..., 1], -kslope], -1)
+    n_cone_side = n_cone_side / torch.clamp_min(_norm(n_cone_side), EPS)
+    on_cap = torch.abs(torch.abs(p[..., 2]) - chh) < 1e-4
+    n_cone = torch.where(on_cap[..., None], cap, n_cone_side)
+    k = kind[..., None]
+    n = torch.where(k == assets.PLANE, n_plane,
+        torch.where(k == assets.SPHERE, n_sphere,
+        torch.where(k == assets.BOX, n_box,
+        torch.where(k == assets.CYLINDER, n_cyl,
+        torch.where(k == assets.CONE, n_cone, n_capsule)))))
+    flip = torch.sum(n * dl, dim=-1, keepdim=True) > 0
+    return torch.where(flip, -n, n)
+
+
+def _sweep_packed_multi(groups, world, prim_codes: Tensor, ray_o: Tensor,
+                        ray_d: Tensor) -> Tensor:
+    """Packed min over the kind groups of rays with per-ray origins:
+    ray_o, ray_d (B, N, 3) -> (B, N) packed (t | inst + 2). Origins and
+    directions both become (B, g, N) local planes, in the JAX package's
+    f32 operation order."""
+    rot, pos, params = world["prim_rot"], world["prim_pos"], world["prim_params"]
+    o_w = tuple(ray_o[..., i][:, None, :] for i in range(3))  # (B, 1, N)
+    d = tuple(ray_d[..., i][:, None, :] for i in range(3))
+    best = torch.full(ray_d.shape[:2], INF, device=ray_d.device)
+    for kind, idx in groups:
+        r = rot[:, idx]
+        rel = tuple(o_w[j] - pos[:, idx, j, None] for j in range(3))  # (B, g, N)
+        o = tuple(_to_local(r, rel, i) for i in range(3))
+        dl = tuple(_to_local(r, d, i) for i in range(3))
+        t = _KIND_FNS[kind](o, dl, params[idx])
+        best = torch.minimum(best, torch.amin(_pack(t, prim_codes[idx][None, :, None]), dim=1))
+    return best
+
+
+def _blocks(n_frames: int, n_rays: int):
+    """Ray slices of at most ``EXACT_RAYS`` rays over all frames."""
+    step = max(1, EXACT_RAYS // max(n_frames, 1))
+    return [slice(s, s + step) for s in range(0, n_rays, step)]
 
 
 def _masked_categories(cats, prim_mask):
@@ -376,15 +497,19 @@ def _masked_categories(cats, prim_mask):
 
 
 class Raycaster:
-    """The packed fast caster for a fixed roster (``make_raycaster().fast``
-    in the JAX package). ``chunk`` bounds the rays swept at once;
-    ``prim_mask`` (P,) bool keeps only the primitives where it holds (the
-    hifi tier leaves out the proxies its meshes replace)."""
+    """The casters of a fixed roster (``make_raycaster`` in the JAX
+    package): ``fast`` (the packed sweep over the transform categories),
+    ``cast`` (the exact sweep with analytic normals) and
+    ``fast_multi_origin`` (packed, per-ray origins). ``chunk`` bounds the
+    rays a frame sweeps at once in ``fast``; ``prim_mask`` (P,) bool keeps
+    only the primitives where it holds (the hifi tier leaves out the
+    proxies its meshes replace)."""
 
     def __init__(self, roster: world_mod.Roster, chunk: int = 65536,
                  prim_mask: np.ndarray | None = None):
         self.roster = roster
         self.cats = _transform_categories(roster)
+        self.groups = _kind_groups(roster, prim_mask)
         if prim_mask is not None:
             self.cats = _masked_categories(self.cats, prim_mask)
         self.chunk = chunk
@@ -409,6 +534,48 @@ class Raycaster:
         return {"t": torch.where(hit, t, torch.full_like(t, float("inf"))),
                 "inst": torch.where(hit, code, torch.zeros_like(code)) - 2}
 
+    def cast(self, world: Dict[str, Tensor], ray_o: Tensor, ray_d: Tensor) -> Dict[str, Tensor]:
+        """The exact sweep of rays from ray_o (B, 3) along ray_d (B, N, 3):
+        {t (B, N) exact, +inf on a miss; prim (B, N), -1 on a miss; inst
+        (B, N), -2 on a miss; normal (B, N, 3) world frame, 0 on a miss}."""
+        prim_inst = self.roster.tensor("prim_inst", ray_d.device).long()
+        kinds = self.roster.tensor("prim_kind", ray_d.device)
+        out = {"t": [], "prim": [], "inst": [], "normal": []}
+        for s in _blocks(*ray_d.shape[:2]):
+            rd = ray_d[:, s]
+            t, idx = _sweep(self.groups, world, ray_o, rd)
+            hit = t < INF
+            safe = torch.clamp_min(idx, 0)
+            frame = torch.arange(rd.shape[0], device=rd.device)[:, None]
+            rot = world["prim_rot"][frame, safe]  # (B, n, 3, 3)
+            rel = ray_o[:, None, :] - world["prim_pos"][frame, safe]
+            ol = (rot[..., 0, :] * rel[..., 0:1] + rot[..., 1, :] * rel[..., 1:2]
+                  + rot[..., 2, :] * rel[..., 2:3])
+            dl = (rot[..., 0, :] * rd[..., 0:1] + rot[..., 1, :] * rd[..., 1:2]
+                  + rot[..., 2, :] * rd[..., 2:3])
+            nl = _local_normal(kinds[safe], ol, dl, t, world["prim_params"][safe])
+            normal = (rot[..., :, 0] * nl[..., 0:1] + rot[..., :, 1] * nl[..., 1:2]
+                      + rot[..., :, 2] * nl[..., 2:3])
+            out["t"].append(torch.where(hit, t, float("inf")))
+            out["prim"].append(torch.where(hit, idx, -1))
+            out["inst"].append(torch.where(hit, prim_inst[safe], -2).to(torch.int32))
+            out["normal"].append(torch.where(hit[..., None], normal, 0.0))
+        return {k: torch.cat(v, dim=1) for k, v in out.items()}
+
+    def fast_multi_origin(self, world: Dict[str, Tensor], ray_o: Tensor,
+                          ray_d: Tensor) -> Dict[str, Tensor]:
+        """Packed sweep of rays with per-ray origins ray_o (B, N, 3) along
+        ray_d (B, N, 3) over the kind groups: {t (B, N) with +inf on a
+        miss, inst (B, N): -1 ground, -2 miss}."""
+        codes = torch.as_tensor(self.prim_codes, device=ray_d.device)
+        packed = torch.cat([_sweep_packed_multi(self.groups, world, codes, ray_o[:, s],
+                                                ray_d[:, s])
+                            for s in _blocks(*ray_d.shape[:2])], dim=1)
+        t, code = _unpack(packed)
+        hit = t < INF * 0.99
+        return {"t": torch.where(hit, t, torch.full_like(t, float("inf"))),
+                "inst": torch.where(hit, code, torch.zeros_like(code)) - 2}
+
 
 def occlusion_ts(world: Dict[str, Tensor], roster: world_mod.Roster, ray_o: Tensor,
                  ray_d: Tensor, exclude_inst: Tensor) -> Tensor:
@@ -417,20 +584,5 @@ def occlusion_ts(world: Dict[str, Tensor], roster: world_mod.Roster, ray_o: Tens
     of each ray; ``INF`` where nothing else is hit. ``ray_d`` need not be
     unit: pass keypoint - camera, and t is in units of it (a keypoint is
     occluded iff t < 1)."""
-    kinds = np.asarray(roster.prim_kind)
     prim_inst = torch.as_tensor(np.asarray(roster.prim_inst), device=ray_d.device)
-    rot, pos, params = world["prim_rot"], world["prim_pos"], world["prim_params"]
-    d0, d1, d2 = (ray_d[..., i][:, None, :] for i in range(3))  # (B, 1, N)
-    best = torch.full(ray_d.shape[:2], INF, device=ray_d.device)
-    for kind in np.unique(kinds):
-        idx = np.nonzero(kinds == kind)[0]
-        r = rot[:, idx]  # (B, g, 3, 3)
-        rel = ray_o[:, None, :] - pos[:, idx]
-        o = tuple((r[..., 0, i] * rel[..., 0] + r[..., 1, i] * rel[..., 1]
-                   + r[..., 2, i] * rel[..., 2])[..., None] for i in range(3))
-        d = tuple(r[..., 0, i, None] * d0 + r[..., 1, i, None] * d1 + r[..., 2, i, None] * d2
-                  for i in range(3))
-        t = _KIND_FNS[int(kind)](o, d, params[idx])  # (B, g, N)
-        same = prim_inst[idx][None, :, None] == exclude_inst[:, None, :]
-        best = torch.minimum(best, torch.where(same, float(INF), t).amin(dim=1))
-    return best
+    return _sweep(_kind_groups(roster), world, ray_o, ray_d, exclude_inst, prim_inst)[0]

@@ -15,6 +15,19 @@ map (``shading.perturb_normal``) and adds the roughness specular to the
 shade, in JAX's textured order. ``rgb_cuda.launches`` counts untextured
 launches, ``rgb_cuda.textured_launches`` textured ones.
 
+The tiers of ``annotate.render_frame`` that the JAX package shades in
+``jnp`` (``annotate.py:276-280``) are variants of the same kernel, chosen
+by a tier mask at compile time (``TIERS``; csrc/rgb.cu ``TIER``):
+``normal`` (B, H, W, 3) world normals replace the screen-space ones (the
+analytic-normal caster's), ``shadow_t`` (B, H, W) gates the sun's direct
+and specular terms (lit where ``shadow_t >= 1e9``), and ``procedural=False``
+shades the table's flat albedo: no local coordinates, patterns, image
+textures (``texels`` is dropped, as JAX's texture block sits inside its
+procedural branch) or contact AO; the hash noise stays.
+``rgb_cuda.tier_launches[name]`` counts the launches of each such variant
+(``variant_name``), which ``launches`` and ``textured_launches`` do not
+include.
+
 The kernel culls the contact-AO rows per 32 x 1 row of a tile (a warp):
 it keeps the rows whose widened reach meets the xy box of the row's ground
 hit points, and every culled row's term is exactly 1 there.
@@ -53,6 +66,27 @@ TILE = (32, 8)  # csrc/rgb.cu kTileW, kTileH: a block's pixel tile
 AO_SCALE = 1.0001
 AO_ABS = 1e-4
 TEX_BINS = 128  # csrc/rgb.cu kTexBins: the texel table's bins a side
+# csrc/rgb.cu's tier mask bits.
+TIER_NORMAL, TIER_SHADOW, TIER_FLAT = 1, 2, 4
+TIERS = {TIER_FLAT: "flat", TIER_NORMAL: "normal", TIER_SHADOW: "shadow"}
+
+
+def tier_mask(normal=None, shadow_t=None, procedural: bool = True) -> int:
+    """csrc/rgb.cu's tier mask of a launch."""
+    return ((TIER_NORMAL if normal is not None else 0)
+            | (TIER_SHADOW if shadow_t is not None else 0) | (0 if procedural else TIER_FLAT))
+
+
+def variant_name(textured: bool, tier: int) -> str:
+    """"default", "textured", or the variant's parts joined by "+" (e.g.
+    "textured+normal+shadow", "flat+shadow")."""
+    parts = (["textured"] if textured else []) + [n for b, n in TIERS.items() if tier & b]
+    return "+".join(parts) or "default"
+
+
+# Every tier variant the wrapper launches: the flat ones are untextured.
+VARIANTS = tuple(variant_name(tex, tier) for tex in (False, True) for tier in range(1, 8)
+                 if not (tex and tier & TIER_FLAT))
 
 
 def ao_rows(roster: world_mod.Roster):
@@ -121,44 +155,51 @@ def hit_points(t: Tensor, params: Tensor):
 
 
 def plain_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor,
-              texels: Tensor | None = None) -> Tensor:
+              texels: Tensor | None = None, normal: Tensor | None = None,
+              shadow_t: Tensor | None = None, procedural: bool = True) -> Tensor:
     """Plain version of the kernel: (B, H, W, 3) uint8; with ``texels``
-    the textured variant's."""
+    the textured variant's, with ``normal``, ``shadow_t`` or
+    ``procedural=False`` the tier variants' (module docstring)."""
     B = t.shape[0]
     dev = t.device
     p = lambda k: params[:, k].reshape(B, 1, 1)
     rd, pw = hit_points(t, params)
-    normal = sh.screen_space_normals(pw, rd)
+    if normal is None:
+        normal = sh.screen_space_normals(pw, rd)
+    else:
+        normal = (normal[..., 0], normal[..., 1], normal[..., 2])
 
     n_inst = table.shape[1] - 2
     idx = torch.where(inst >= 0, inst, n_inst - 1 - inst).long()
     tab = table[torch.arange(B, device=dev)[:, None, None], idx]  # (B, H, W, 16)
     albedo = (tab[..., 0], tab[..., 1], tab[..., 2])
-    dw = tuple(pw[i] - tab[..., 12 + i] for i in range(3))
-    lx = tab[..., 3] * dw[0] + tab[..., 6] * dw[1] + tab[..., 9] * dw[2]
-    ly = tab[..., 4] * dw[0] + tab[..., 7] * dw[1] + tab[..., 10] * dw[2]
-    lz = tab[..., 5] * dw[0] + tab[..., 8] * dw[1] + tab[..., 11] * dw[2]
-    cls = tab[..., 15]
-    albedo = sh.procedural_albedo(albedo, lx, ly, lz, cls, p(24), p(26))
-    rough = spec_w = None
-    if texels is not None:
-        albedo, (du, dv, rough, spec_w) = textures.apply_image_textures(
-            albedo, lx, ly, lz, pw[0], pw[1], cls, texels, p(24))
-        normal = sh.perturb_normal(normal, du, dv)
+    rough = spec_w = ao_f = None
+    if procedural:
+        dw = tuple(pw[i] - tab[..., 12 + i] for i in range(3))
+        lx = tab[..., 3] * dw[0] + tab[..., 6] * dw[1] + tab[..., 9] * dw[2]
+        ly = tab[..., 4] * dw[0] + tab[..., 7] * dw[1] + tab[..., 10] * dw[2]
+        lz = tab[..., 5] * dw[0] + tab[..., 8] * dw[1] + tab[..., 11] * dw[2]
+        cls = tab[..., 15]
+        albedo = sh.procedural_albedo(albedo, lx, ly, lz, cls, p(24), p(26))
+        if texels is not None:
+            albedo, (du, dv, rough, spec_w) = textures.apply_image_textures(
+                albedo, lx, ly, lz, pw[0], pw[1], cls, texels, p(24))
+            normal = sh.perturb_normal(normal, du, dv)
 
-    prox = torch.ones_like(t)
-    for a in range(ao.shape[1]):
-        q = lambda k: ao[:, a, k].reshape(B, 1, 1)
-        dxa, dya = pw[0] - q(0), pw[1] - q(1)
-        d = torch.sqrt(dxa * dxa + dya * dya)
-        prox = torch.minimum(prox, torch.clamp((d - q(2)) / 0.6, 0.0, 1.0))
-    ao_f = torch.where(inst == -1, 0.45 + 0.55 * prox, 1.0)
+        prox = torch.ones_like(t)
+        for a in range(ao.shape[1]):
+            q = lambda k: ao[:, a, k].reshape(B, 1, 1)
+            dxa, dya = pw[0] - q(0), pw[1] - q(1)
+            d = torch.sqrt(dxa * dxa + dya * dya)
+            prox = torch.minimum(prox, torch.clamp((d - q(2)) / 0.6, 0.0, 1.0))
+        ao_f = torch.where(inst == -1, 0.45 + 0.55 * prox, 1.0)
 
     lighting = sh.Lighting(sun_dir=params[:, 16:19], sun_intensity=params[:, 19],
                            dome_intensity=params[:, 20], dome_color=params[:, 21:24],
                            tex_phase=params[:, 24], tex_strength=params[:, 25],
                            dirt=params[:, 26])
-    planes = sh.shade(t, normal, pw, rd, albedo, lighting, ao=ao_f, rough=rough, spec_w=spec_w)
+    planes = sh.shade(t, normal, pw, rd, albedo, lighting, ao=ao_f, rough=rough, spec_w=spec_w,
+                      shadow_t=shadow_t)
     return sh.linear_to_srgb_u8(planes)
 
 
@@ -201,10 +242,12 @@ def ao_rows_needed(t: Tensor, inst: Tensor, ao: Tensor, params: Tensor) -> Tenso
 
 
 def rgb_cuda(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor,
-             texels: Tensor | None = None) -> Tensor:
+             texels: Tensor | None = None, normal: Tensor | None = None,
+             shadow_t: Tensor | None = None, procedural: bool = True) -> Tensor:
     """Launch csrc/rgb.cu, textured where ``texels`` (T, 128, 128, 4) is
-    given: (B, H, W, 3) uint8. The kernel refuses a table and AO rows that
-    do not fit a block's shared memory."""
+    given (and ``procedural``), in the tier variant of ``normal``,
+    ``shadow_t`` and ``procedural``: (B, H, W, 3) uint8. The kernel refuses
+    a table and AO rows that do not fit a block's shared memory."""
     B, H, W = t.shape
     R, A = table.shape[1], ao.shape[1]
     kernels.check_cuda("rgb t", t, torch.float32)
@@ -212,28 +255,42 @@ def rgb_cuda(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor,
     kernels.check_cuda("rgb table", table, torch.float32, (B, R, 16))
     kernels.check_cuda("rgb ao", ao, torch.float32, (B, A, 4))
     kernels.check_cuda("rgb params", params, torch.float32, (B, N_PAR))
+    if not procedural:
+        texels = None
     if texels is not None:
         kernels.check_cuda("rgb texels", texels, torch.float32,
                            (len(textures.TEX), TEX_BINS, TEX_BINS, 4))
+    if normal is not None:
+        kernels.check_cuda("rgb normal", normal, torch.float32, (B, H, W, 3))
+    if shadow_t is not None:
+        kernels.check_cuda("rgb shadow_t", shadow_t, torch.float32, (B, H, W))
+    tier = tier_mask(normal, shadow_t, procedural)
     out = torch.empty(B, H, W, 3, dtype=torch.uint8, device=t.device)
-    kernels.launch("cspe_rgb", t, inst, table, R, ao, A, params, texels, B, H, W, out)
-    if texels is None:
+    kernels.launch("cspe_rgb_tier", t, inst, table, R, ao, A, params, texels, normal, shadow_t,
+                   tier, B, H, W, out)
+    name = variant_name(texels is not None, tier)
+    if name == "default":
         rgb_cuda.launches += 1
-    else:
+    elif name == "textured":
         rgb_cuda.textured_launches += 1
+    else:
+        rgb_cuda.tier_launches[name] += 1
     return out
 
 
 rgb_cuda.launches = 0
 rgb_cuda.textured_launches = 0
+rgb_cuda.tier_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def fused_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor,
-              texels: Tensor | None = None) -> Tensor:
+              texels: Tensor | None = None, normal: Tensor | None = None,
+              shadow_t: Tensor | None = None, procedural: bool = True) -> Tensor:
     """(B, H, W, 3) uint8: the kernel for CUDA tensors, the plain version for
     CPU tensors; any other device raises."""
+    args = (t, inst, table, ao, params, texels, normal, shadow_t, procedural)
     if t.is_cuda:
-        return rgb_cuda(t, inst, table, ao, params, texels)
+        return rgb_cuda(*args)
     if t.device.type == "cpu":
-        return plain_rgb(t, inst, table, ao, params, texels)
+        return plain_rgb(*args)
     raise ValueError(f"fused_rgb: no RGB path for a tensor on {t.device}")

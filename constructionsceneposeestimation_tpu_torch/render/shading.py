@@ -153,13 +153,16 @@ def perturb_normal(normal: Planes3, du: Tensor, dv: Tensor, strength: float = 0.
 def shade(t: Tensor, normal: Planes3, hit_pos: Planes3, ray_d: Planes3,
           albedo: Planes3, lighting: Lighting, ao: Tensor | None = None,
           texture_strength: float = 0.15, rough: Tensor | None = None,
-          spec_w: Tensor | None = None) -> Planes3:
+          spec_w: Tensor | None = None, shadow_t: Tensor | None = None) -> Planes3:
     """Shade (B, H, W) planes -> linear RGB planes in [0, 1]: hash-noise
     texture, Lambert sun, hemispheric dome ambient (times ``ao``), and the
     dome-coloured sky gradient where ``t`` is not finite. With ``rough`` and
     ``spec_w`` (the image-texture tier), a Blinn-Phong term of the sun is
     added to hit pixels: exponent 2 / max(r^2, 0.02), gloss (1 - r)^2,
-    weighted by ``spec_w``, so a pixel of weight 0 adds an exact 0."""
+    weighted by ``spec_w``, so a pixel of weight 0 adds an exact 0. With
+    ``shadow_t`` (the hit distance toward the sun), a pixel is lit where
+    ``shadow_t >= 1e9`` and the sun's direct and specular terms vanish
+    elsewhere."""
     nx, ny, nz = normal
     is_hit = torch.isfinite(t)
     pf = lambda v: _per_frame(v, t)
@@ -167,7 +170,10 @@ def shade(t: Tensor, normal: Planes3, hit_pos: Planes3, ray_d: Planes3,
         * (_hash_noise(*hit_pos) - 0.5) * 2.0
     sd = lighting.sun_dir
     ndotl = torch.clamp_min(-(nx * pf(sd[:, 0]) + ny * pf(sd[:, 1]) + nz * pf(sd[:, 2])), 0.0)
+    lit = None if shadow_t is None else (shadow_t >= 1e9).to(ndotl.dtype)
     direct = pf(lighting.sun_intensity) * ndotl
+    if lit is not None:
+        direct = direct * lit
     dome_i = pf(lighting.dome_intensity)
     ambient = dome_i * (0.25 + 0.35 * (0.5 * (1.0 + nz)))
     if ao is not None:
@@ -182,7 +188,10 @@ def shade(t: Tensor, normal: Planes3, hit_pos: Planes3, ray_d: Planes3,
         ndoth = torch.clamp_min((nx * hx + ny * hy + nz * hz) * hn, 0.0)
         shin = 2.0 / torch.clamp_min(rough * rough, 0.02)
         gloss = torch.square(1.0 - rough)
-        spec = spec_w * gloss * pf(lighting.sun_intensity) * torch.pow(ndoth, shin)
+        spec = spec_w * gloss * pf(lighting.sun_intensity)
+        if lit is not None:
+            spec = spec * lit
+        spec = spec * torch.pow(ndoth, shin)
     out = []
     for ch, alb in enumerate(albedo):
         dc = pf(lighting.dome_color[:, ch])

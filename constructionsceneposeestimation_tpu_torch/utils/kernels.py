@@ -20,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 from pathlib import Path
@@ -37,6 +38,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "cspe_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "cspe_rgb": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P],
+    "cspe_rgb_tier": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "cspe_heatmap": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P],
     "cspe_peaks": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
 }
@@ -95,6 +97,46 @@ def library() -> ctypes.CDLL:
     lib.cspe_error_string.argtypes = [ctypes.c_int]
     lib.cspe_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ptxas_report(source: str = "rgb.cu") -> dict:
+    """{kernel: {"registers": n, "spill_bytes": m}} of ``csrc/<source>``,
+    compiled once more with ``-Xptxas -v``; a template's instantiations are
+    named by their arguments, e.g. ``rgb_kernel<false, 0>``."""
+    with tempfile.TemporaryDirectory() as work:
+        cmd = [nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+               str(Path(work) / "k.o"), str(CSRC / source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {proc.stdout}{proc.stderr}")
+    return parse_ptxas(proc.stdout + proc.stderr)
+
+
+def parse_ptxas(report: str) -> dict:
+    """The registers and spill-store bytes of each kernel in ``nvcc -Xptxas
+    -v`` output (see ``ptxas_report``)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?_ZN(\w+)", line)
+        if m:
+            # The nested name: <length><identifier> pieces, then the
+            # template arguments (Lb0E false, Li7E 7, Lin1E -1).
+            mangled, pos, kernel = m.group(1), 0, None
+            while (d := re.match(r"\d+", mangled[pos:])) and kernel is None:
+                ident = mangled[pos + d.end():pos + d.end() + int(d.group())]
+                pos += d.end() + len(ident)
+                kernel = ident if ident.endswith("_kernel") else None
+            args = re.findall(r"L([bi])(n?\d+)E", mangled[pos:]) if mangled[pos:pos + 1] == "I" \
+                else []
+            conv = {"b0": "false", "b1": "true"}
+            targs = [conv.get(k + v, v.replace("n", "-")) for k, v in args]
+            name = f"{kernel}<{', '.join(targs)}>" if targs else kernel
+        elif name and "spill stores" in line:
+            out.setdefault(name, {})["spill_bytes"] = int(
+                line.split("bytes spill stores")[0].split(",")[-1])
+        elif name and "Used" in line and "registers" in line:
+            out.setdefault(name, {})["registers"] = int(line.split("Used")[1].split()[0])
+    return out
 
 
 def launch(name: str, *args) -> None:

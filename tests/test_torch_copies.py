@@ -128,8 +128,11 @@ def test_port_imports_no_jax():
     tiny evaluation step, the ``generate`` command to shards (i.i.d., clips,
     the hifi and the image-texture tiers), read back, ``infer`` on freshly
     initialized full-width checkpoints and ``seq-eval`` on its records,
-    with the multi-GPU and visualization modules imported, load neither
-    jax nor the JAX package."""
+    ``render_frame``'s analytic-normal, sun-shadow and flat tiers (the
+    exact caster, the shadow sweep, the hifi caster's), a flat
+    ``Pipeline`` and the profiling helpers, with the multi-GPU and
+    visualization modules imported, load neither jax nor the JAX
+    package."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(2)\n"
@@ -146,6 +149,19 @@ def test_port_imports_no_jax():
         "from constructionsceneposeestimation_tpu_torch.render import annotate\n"
         "pc = annotate.pointcloud_xyzrgb(b.depth, b.rgb, pipe.intr, b.camera_pose7)\n"
         "assert pc['xyzrgb'].shape == (2, 64 * 64, 6)\n"
+        "from constructionsceneposeestimation_tpu_torch.render import meshcast\n"
+        "from constructionsceneposeestimation_tpu_torch.scene import world as wm\n"
+        "from constructionsceneposeestimation_tpu_torch.utils import profiling\n"
+        "inp = pipe.sample_inputs(0, range(2))\n"
+        "w = wm.build_world(pipe.roster, inp.pose)\n"
+        "for caster in (pipe.caster, meshcast.HifiCaster(pipe.roster, grid_hw=(64, 64))):\n"
+        "    with profiling.annotate('tiers'):\n"
+        "        a = annotate.render_frame(pipe.roster, caster, pipe.sweeper, w, inp.cam_pos,\n"
+        "            inp.target, pipe.intr, inp.lighting, analytic_normals=True,\n"
+        "            sun_shadows=True, procedural_textures=False)\n"
+        "    assert a.rgb.shape == (2, 64, 64, 3)\n"
+        "fb = Pipeline(cfg, device='cpu', procedural_textures=False).make_generate_fn()(0, range(2))\n"
+        "assert torch.equal(fb.instance, b.instance)\n"
         "import constructionsceneposeestimation_tpu_torch.parallel.mesh\n"
         "import constructionsceneposeestimation_tpu_torch.utils.viz\n"
         "model = pose_net.make_model(lite=True, device='cpu', dtype=torch.float32)\n"

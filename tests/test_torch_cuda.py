@@ -226,6 +226,103 @@ def test_rgb_textured_variant_matches_plain(scene, view, noise):
         assert far(a, b) <= far(a0, b0) + 1e-3, (far(a, b), far(a0, b0))
 
 
+def _tier_inputs(roster, w, cam, tgt, width, height, noise):
+    """The RGB inputs of the analytic-normal and sun-shadow tiers as
+    ``annotate.render_frame`` builds them on the card: the exact caster's t,
+    instance and normals, the shadow rays' t."""
+    intr = camera.intrinsics_from_apertures(12.0, 25.0, width, height)
+    M = camera.look_at_matrix(cam, tgt)
+    B = cam.shape[0]
+    caster = raycast.Raycaster(roster)
+    rd = camera.pixel_rays(intr, M)
+    hit = caster.cast(w, cam, rd.reshape(B, -1, 3))
+    t = hit["t"].reshape(B, height, width)
+    depth = t * torch.sum(rd * (-M[:, :, 0])[:, None, None], -1)
+    t = torch.where(depth >= 250.0, float("inf"), t).contiguous()
+    inst = torch.where(torch.isfinite(t), hit["inst"].reshape(B, height, width),
+                       -2).to(torch.int32).contiguous()
+    from constructionsceneposeestimation_tpu_torch.render.shading import default_lighting
+    lit = default_lighting(B, cam.device)
+    if not noise:
+        lit = lit._replace(tex_strength=torch.zeros(B, device=cam.device))
+    sun = -lit.sun_dir
+    p_hit = cam[:, None, None] + torch.where(torch.isfinite(t), t, 0.0)[..., None] * rd
+    shadow = caster.fast_multi_origin(
+        w, (p_hit + (sun * 1e-3)[:, None, None]).reshape(B, -1, 3),
+        sun[:, None].expand(B, height * width, 3))["t"].reshape(B, height, width).contiguous()
+    args = (t, inst, rgb_kernel.instance_table(roster, w["inst_rot"], w["inst_pos"]),
+            rgb_kernel.ao_table(roster, w["inst_pos"]), rgb_kernel.rgb_params(M, cam, intr, lit))
+    return args, hit["normal"].reshape(B, height, width, 3).contiguous(), shadow
+
+
+@pytest.mark.parametrize("noise", [False, True])
+@pytest.mark.parametrize("variant", list(rgb_kernel.VARIANTS))
+def test_rgb_tier_variant_matches_plain(scene, variant, noise):
+    """Each tier variant of the RGB kernel (analytic normals, sun shadows,
+    the flat albedo, their combinations, textured where not flat) against
+    its plain version on the same inputs, at 250 x 190 (ragged tiles), to
+    the tolerances of ``_check_rgb``; the launch is counted as its variant's
+    alone. A shadowed pixel is one the kernel and the plain version both
+    gate, from the same ``shadow_t``."""
+    roster, w, cam, tgt = scene
+    args, normal, shadow = _tier_inputs(roster, w, cam, tgt, 250, 190, noise)
+    parts = variant.split("+")
+    texels = None
+    if "textured" in parts:
+        from constructionsceneposeestimation_tpu_torch.render import textures
+        texels = textures.dense_table(textures.load_factors()).to(cam.device)
+    kw = dict(normal=normal if "normal" in parts else None,
+              shadow_t=shadow if "shadow" in parts else None, procedural="flat" not in parts)
+    before = (rgb_kernel.rgb_cuda.launches, rgb_kernel.rgb_cuda.textured_launches,
+              dict(rgb_kernel.rgb_cuda.tier_launches))
+    a = rgb_kernel.fused_rgb(*args, texels, **kw).float()
+    after = dict(before[2], **{variant: before[2][variant] + 1})
+    assert (rgb_kernel.rgb_cuda.launches, rgb_kernel.rgb_cuda.textured_launches,
+            rgb_kernel.rgb_cuda.tier_launches) == (before[0], before[1], after)
+    b = rgb_kernel.plain_rgb(*args, texels, **kw).float()
+    reach = rgb_kernel.ao_rows_needed(args[0], args[1], args[3], args[4]) > 0
+    torch.cuda.synchronize()
+    _check_rgb(a, b, args[1], reach, noise)
+    if "shadow" in parts and not noise:
+        unlit = (shadow < 1e9) & torch.isfinite(args[0])
+        assert 0.01 < unlit.float().mean().item() < 0.9
+        kw0 = dict(kw, shadow_t=None)
+        a0 = rgb_kernel.fused_rgb(*args, texels, **kw0).float()
+        b0 = rgb_kernel.plain_rgb(*args, texels, **kw0).float()
+        for x, x0 in ((a, a0), (b, b0)):
+            changed = (x != x0).any(-1)
+            assert not bool((changed & ~unlit).any())
+
+
+def test_rgb_default_kernel_keeps_its_registers(dev):
+    """The default instantiation keeps 32 registers and no spills beside
+    its tier variants (ptxas's report of csrc/rgb.cu); each variant stays
+    within its launch bounds' cap."""
+    from constructionsceneposeestimation_tpu_torch.utils import kernels
+    report = kernels.ptxas_report("rgb.cu")
+    assert report["rgb_kernel<false, 0>"] == {"registers": 32, "spill_bytes": 0}
+    for tex in (False, True):
+        for tier in range(8):
+            if tex and tier & rgb_kernel.TIER_FLAT:
+                continue
+            assert report[f"rgb_kernel<{str(tex).lower()}, {tier}>"]["registers"] <= (
+                64 if tex else 40), (tex, tier)
+
+
+def test_rgb_tier_refuses_missing_planes(scene):
+    """A tier without its plane is refused by the entry point, launching
+    nothing."""
+    roster, w, cam, tgt = scene
+    args, normal, shadow = _tier_inputs(roster, w, cam, tgt, 64, 48, False)
+    from constructionsceneposeestimation_tpu_torch.utils import kernels
+    out = torch.empty(*args[0].shape, 3, dtype=torch.uint8, device=cam.device)
+    B, h, wd = args[0].shape
+    with pytest.raises(RuntimeError, match="do not fit"):
+        kernels.launch("cspe_rgb_tier", args[0], args[1], args[2], args[2].shape[1], args[3],
+                       args[3].shape[1], args[4], None, None, None, rgb_kernel.TIER_NORMAL, B, h,
+                       wd, out)
+
+
 def test_rgb_kernel_refuses_oversize_table(scene):
     """An 800-row instance table overflows a block's shared memory: the
     kernel refuses it without a launch."""
@@ -550,3 +647,21 @@ def test_two_stage_on_cuda_matches_cpu(dev):
             assert torch.linalg.norm(ga[n] - g) <= 1e-2 * torch.linalg.norm(g), n
     assert torch.abs(o_d["boxes"] - o_c["boxes"]).max() < 1e-3
     assert torch.abs(o_d["scores"] - o_c["scores"]).max() < 1e-3
+
+
+def test_chained_ms_times_a_chain_on_the_card(dev):
+    """``profiling.chained_ms`` on the card: a chain of matmuls, each fed
+    the previous result, takes about as long per step as the same matmul
+    timed alone, and 4 times the work takes longer."""
+    from constructionsceneposeestimation_tpu_torch.utils import profiling
+    x = torch.randn(2048, 2048, device=dev)
+
+    def step(acc, x, k):
+        y = x + acc
+        for _ in range(k):
+            y = y @ x * 1e-3
+        return y[0, 0]
+
+    one = profiling.chained_ms(step, n=8, args=(x, 1), device=dev)
+    four = profiling.chained_ms(step, n=8, args=(x, 4), device=dev)
+    assert 0.0 < one < four

@@ -12,13 +12,16 @@ each by its absence, the warps a block of ``csrc/heatmap.cu``), and
 ``--against``, a directory of other sources with the same C entry points
 (an earlier ``csrc/``), each into a library of its own under
 ``build/kernel_variants/``. On the datagen path's inputs (64 frames at
-512^2, built as ``chip_smoke.py`` builds them) it then:
+512^2, built as ``chip_smoke.py`` builds them; for the RGB kernel's
+untextured tier variants also the exact caster's normals and the sun-shadow
+rays' t, as ``annotate.render_frame`` builds them) it then:
 
-- holds each library's RGB images (hash noise off and on) and heatmaps
-  against this build's: bit-equal or not; for RGB the pixels that differ,
-  split into sky, ground and objects, and the max |d| in u8 levels; for
-  heatmaps the max |d|;
-- times each library's ``rgb_kernel`` and ``heatmap_kernel`` by
+- holds each library's RGB images (hash noise off and on, and each tier
+  variant with the noise on) and heatmaps against this build's: bit-equal
+  or not; for RGB the pixels that differ, split into sky, ground and
+  objects, and the max |d| in u8 levels; for heatmaps the max |d|;
+- times each library's ``rgb_kernel`` (the default and, where the library
+  has ``cspe_rgb_tier``, each tier variant) and ``heatmap_kernel`` by
   ``torch.profiler`` device time over ``--iters`` launches, in turns:
   this, the others, the others again in reverse, this.
 
@@ -44,7 +47,12 @@ from constructionsceneposeestimation_tpu_torch.utils import kernels  # noqa: E40
 
 B, RES, SEED = 64, 512, 0
 TEX = ("const float tex = 1.0f + 0.15f * p[25] * (hash_noise(pwx, pwy, pwz) - 0.5f) * 2.0f;")
-BOUNDS = "__launch_bounds__(kTileW * kTileH, TEX ? kMinBlocksTex : kMinBlocks)"
+BOUNDS = ("__launch_bounds__(kTileW * kTileH,\n"
+          "                                  TEX ? kMinBlocksTex : TIER == 0 ? kMinBlocks : "
+          "kMinBlocksTier)")
+# The untextured tier masks timed (render/rgb_kernel.TIERS), by name.
+TIERS = {"default": 0, "normal": 1, "shadow": 2, "normal+shadow": 3, "flat": 4,
+         "flat+shadow": 6, "flat+normal+shadow": 7}
 # name: [(source, text, replacement)]; every text must occur once.
 VARIANTS = {
     **{f"rgb_tiles{n}": [("rgb.cu", "constexpr int kTiles = 4;", f"constexpr int kTiles = {n};")]
@@ -58,6 +66,14 @@ VARIANTS = {
     "rgb_no_noise": [("rgb.cu", TEX, "const float tex = 1.0f;")],
     "rgb_no_ao": [("rgb.cu", "for (int a0 = 0; a0 < n_ao; a0 += kTileW)",
                    "for (int a0 = 0; a0 < 0; a0 += kTileW)")],
+    # One kernel that reads the tier mask at run time (uniform branches)
+    # in place of an instantiation a mask; and the tier variants' register
+    # cap at 7 or 6 blocks an SM (36, 40 registers) in place of 8.
+    "rgb_runtime_tiers": [("rgb.cu", "  return tex ? textured[tier] : plain[tier];",
+                           "  return tex ? rgb_kernel<true, kRuntimeTier> : "
+                           "rgb_kernel<false, kRuntimeTier>;")],
+    **{f"rgb_tier_blocks{n}": [("rgb.cu", "constexpr int kMinBlocksTier = 8;",
+                                f"constexpr int kMinBlocksTier = {n};")] for n in (6, 7)},
     **{f"hm_warps{n}": [("heatmap.cu", "constexpr int kWarps = 16;",
                          f"constexpr int kWarps = {n};")] for n in (8, 32)},
 }
@@ -86,10 +102,13 @@ def build(name: str, csrc: Path, edits):
 
 
 def load(path: Path):
+    """The library at ``path``, with the entry points it has typed (an
+    earlier build may lack the newer ones)."""
     lib = ctypes.CDLL(str(path))
     for entry, argtypes in kernels.SIGNATURES.items():
-        getattr(lib, entry).argtypes = argtypes
-        getattr(lib, entry).restype = ctypes.c_int
+        if hasattr(lib, entry):
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = ctypes.c_int
     return lib
 
 
@@ -99,22 +118,6 @@ def call(lib, entry, *args):
     err = getattr(lib, entry)(*conv, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} returned {err}")
-
-
-def registers(ptxas: str) -> dict:
-    """Registers a thread and bytes of spill stores of the RGB and heatmap
-    kernels, from ptxas's report."""
-    regs, name = {}, None
-    for line in ptxas.splitlines():
-        if "Function properties for" in line or "Compiling entry function" in line:
-            name = ("rgb_kernel_textured" if "rgb_kernelILb1" in line else
-                    next((k for k in ("rgb_kernel", "heatmap_kernel") if k in line), None))
-        elif name and "spill stores" in line:
-            regs.setdefault(name, {})["spill_bytes"] = int(line.split("bytes spill stores")[0]
-                                                           .split(",")[-1])
-        elif name and "Used" in line and "registers" in line:
-            regs.setdefault(name, {})["registers"] = int(line.split("Used")[1].split()[0])
-    return regs
 
 
 def device_ms(fn, key, iters):
@@ -166,7 +169,7 @@ def main() -> int:
     with ThreadPoolExecutor(max_workers=8) as pool:
         built = dict(zip(builds, pool.map(lambda kv: build(kv[0], *kv[1]), builds.items())))
     libs = {name: load(p) for name, (p, _) in built.items()}
-    regs = {name: registers(r) for name, (_, r) in built.items()}
+    regs = {name: kernels.parse_ptxas(r) for name, (_, r) in built.items()}
     print(f"built {len(libs)} libraries; registers a thread: {json.dumps(regs)}", flush=True)
 
     # The datagen kernels' inputs, as chip_smoke.py builds them.
@@ -198,11 +201,32 @@ def main() -> int:
     C, h = pipe.num_channels, RES // cfg.pipeline.heatmap_stride
     two_s2 = float(torch.tensor(2.0 * cfg.pipeline.heatmap_sigma ** 2, dtype=torch.float32))
 
-    def rgb(lib, par):
+    # The tier variants' planes: the exact caster's normals and the
+    # sun-shadow rays' t from these hit points.
+    rd = cam_mod.pixel_rays(intr, M)
+    normal = pipe.caster.cast(world, inputs.cam_pos, rd.reshape(B, -1, 3))["normal"]
+    normal = normal.reshape(B, RES, RES, 3).contiguous()
+    sun = -inputs.lighting.sun_dir
+    p_hit = (inputs.cam_pos[:, None, None] + torch.where(torch.isfinite(t), t, 0.0)[..., None] * rd
+             + (sun * 1e-3)[:, None, None])
+    shadow = pipe.caster.fast_multi_origin(world, p_hit.reshape(B, -1, 3),
+                                           sun[:, None].expand(B, RES * RES, 3))["t"]
+    shadow = shadow.reshape(B, RES, RES).contiguous()
+    del rd, p_hit
+
+    def rgb(lib, par, tier=0):
         out = torch.empty(B, RES, RES, 3, dtype=torch.uint8, device=dev)
-        call(lib, "cspe_rgb", t, inst, table, table.shape[1], ao, ao.shape[1], par, None, B, RES,
-             RES, out)
+        if tier == 0:
+            call(lib, "cspe_rgb", t, inst, table, table.shape[1], ao, ao.shape[1], par, None, B,
+                 RES, RES, out)
+        else:
+            call(lib, "cspe_rgb_tier", t, inst, table, table.shape[1], ao, ao.shape[1], par, None,
+                 normal if tier & 1 else None, shadow if tier & 2 else None, tier, B, RES, RES,
+                 out)
         return out
+
+    def tiers(lib):
+        return TIERS if hasattr(lib, "cspe_rgb_tier") else {"default": 0}
 
     def heat(lib):
         out = torch.empty(B, C, h, h, dtype=torch.float32, device=dev)
@@ -218,8 +242,12 @@ def main() -> int:
         if name == "this":
             continue
         res = {}
-        for k, p in pars.items():
-            img = rgb(lib, p)
+        cases = [(k, p, 0) for k, p in pars.items()] + [
+            (f"{n}, noise on", pars["noise on"], tier) for n, tier in tiers(lib).items() if tier]
+        for k, p, tier in cases:
+            if k not in ref:
+                ref[k] = rgb(libs["this"], p, tier)
+            img = rgb(lib, p, tier)
             diff = (img != ref[k]).any(-1)
             n = int(diff.sum())
             res[f"rgb {k}"] = {
@@ -237,14 +265,16 @@ def main() -> int:
     order = list(libs)
     for name in order + order[1:][::-1] + order[:1]:
         lib = libs[name]
-        r = report["ms"].setdefault(name, {"rgb_kernel": [], "heatmap_kernel": []})
-        r["rgb_kernel"].append(device_ms(lambda: rgb(lib, pars["noise on"]), "rgb_kernel",
-                                         args.iters))
+        r = report["ms"].setdefault(name, {"heatmap_kernel": []})
+        for tn, tier in tiers(lib).items():
+            key = "rgb_kernel" if tier == 0 else f"rgb_kernel {tn}"
+            r.setdefault(key, []).append(device_ms(
+                lambda: rgb(lib, pars["noise on"], tier), "rgb_kernel", args.iters))
         r["heatmap_kernel"].append(device_ms(lambda: heat(lib), "heatmap_kernel", args.iters))
     for name, r in report["ms"].items():
-        print(f"[time] {name}: rgb_kernel {', '.join(f'{x:.4f}' for x in r['rgb_kernel'])} ms; "
-              f"heatmap_kernel {', '.join(f'{x:.4f}' for x in r['heatmap_kernel'])} ms "
-              f"(device time a launch, 64 x 512^2, 71 x 128^2; {card})", flush=True)
+        print(f"[time] {name}: " + "; ".join(f"{k} {', '.join(f'{x:.4f}' for x in v)} ms"
+                                             for k, v in r.items())
+              + f" (device time a launch, 64 x 512^2, 71 x 128^2; {card})", flush=True)
     out = ROOT / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     report["builds"] = {name: {"csrc": str(b[0]), "edits": b[1]} for name, b in builds.items()}
