@@ -6,9 +6,9 @@ evaluation, training (``train-eval``), dataset writing (``generate``,
 ``seq-eval``), the hifi CAD-mesh tier (``--hifi``, ``--hifi-mix``,
 ``--hifi-eval``), the image-texture tier (``--image-textures``, the RGB
 kernel's textured variant), ``render_frame``'s analytic-normal, sun-shadow
-and flat-albedo tiers (the RGB kernel's tier variants) and multi-GPU data
+and flat-albedo tiers (the RGB kernel's tier variants), multi-GPU data
 parallelism (sharded generate and the DDP and FSDP training steps, on this
-one card).
+one card) and the headline benchmark (``cli bench``).
 
     python3 chip_smoke.py
 
@@ -171,7 +171,20 @@ Run from the root of a checkout. Phases, each reported on its own line:
    against the single-process step on the same global batch (each loss to
    1e-5 relative, the parameters after 2 steps to 1e-5 on 99% of the weights
    and all within 2 lr); a failing rank fails the phase;
-14. timing: generate frames/s, the forward and the evaluation step with
+14. ``[bench]``: the port's ``bench`` command in-process at the JAX
+   benchmark's shape (a warm-up chain of 4 steps, then 4 timed steps of
+   512 x 512^2): one JSON line with the JAX keys, a finite positive value
+   and ``vs_baseline`` = round(value / 0.15, 1); the sweep, RGB and
+   heatmap kernels launched 8 times (once a generate call), the peak
+   kernel and every variant never; frames/s by CUDA events and by the host
+   clock, ms a step, peak memory; the three kernels on one batch of 512 x
+   512^2 against their plain versions run in chunks of 64 (the bars of
+   [sweep], [rgb] with noise off and [heatmap]); at the same shape the
+   host ms of sampling a batch and of issuing a step, one step under
+   ``torch.profiler`` (device time, launches, busy share) and one under
+   ``set_sync_debug_mode("warn")``; a ``Stopwatch`` report of a 64-frame
+   generate chained on the card;
+15. timing: generate frames/s, the forward and the evaluation step with
    CUDA events; the training step's ms and img/s, its split between
    datagen, forward+backward and the optimizer, its device-busy share and
    launches (torch.profiler) and its peak memory; each kernel's device time
@@ -184,7 +197,8 @@ Prints the kernels' JSON line (the RGB row with its textured variant's
 wrapper's call by CUDA events, ``launches`` those of the two-stage,
 sequence and hifi paths, ``train_crop`` (both crop runs), ``train_detect``,
 ``infer``, ``generate_sequence``, ``infer_sequence``, ``generate_hifi``,
-``train_detect_hifi``, ``infer_hifi``, the textured and the analytic paths, and
+``train_detect_hifi``, ``infer_hifi``, the textured and the analytic paths and
+``bench``, and
 ``launches_by_path`` each path's; the heatmap kernel's entry also holds its
 times at the crop shapes; one entry for each RGB tier variant, named
 ``rgb_epilogue/<variant>``, with its launches on the [analytic] paths), then
@@ -2299,6 +2313,224 @@ def distributed_phase(card):
     return records
 
 
+def bench_kernels_vs_plain(pipe, gen, dev, card, chunk=B):
+    """The sweep, RGB and heatmap kernels on one batch at ``bench``'s shape
+    (``pipe``'s batch of 512 x 512^2), each held against its plain version
+    run on the same inputs in chunks of ``chunk`` frames, to the bars of
+    the [sweep], [rgb] (hash noise off) and [heatmap] phases. The inputs
+    are built as in those phases; the heatmaps' come from one generate
+    call at this batch."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.core import camera as cam_mod
+    from constructionsceneposeestimation_tpu_torch.ops import heatmap as hm
+    from constructionsceneposeestimation_tpu_torch.render import raycast, rgb_kernel, sweep_kernel
+    from constructionsceneposeestimation_tpu_torch.scene import world as world_mod
+
+    n, intr = pipe.cfg.pipeline.batch_size, pipe.intr
+    check(intr.height == intr.width == RES, f"bench frames are not {RES}^2")
+    ids = list(range(n))
+    parts = [slice(i, i + chunk) for i in range(0, n, chunk)]
+    inputs = pipe.sample_inputs(500, ids)
+    world = world_mod.build_world(pipe.roster, inputs.pose)
+    M = cam_mod.look_at_matrix(inputs.cam_pos, inputs.target)
+    batched = ("prim_rot", "prim_pos", "inst_rot", "inst_pos", "kpts_local")
+
+    def part(sl):
+        return {k: v[sl] if k in batched else v for k, v in world.items()}
+
+    si, sf, radii = pipe.sweeper.schedule(dev)
+    packed = sweep_kernel.sweep_cuda(si, sf, world, inputs.cam_pos, M, intr, radii)
+    plain = torch.cat([sweep_kernel.plain_pixel_sweep(pipe.caster, part(sl), inputs.cam_pos[sl],
+                                                      M[sl], intr) for sl in parts])
+    tk, ck, tp, cp, same = sweep_agreement("bench", packed, plain)
+    sweep_err = torch.abs(tk - tp)[same].max().item()
+    del packed, plain, tk, ck, same
+
+    t = torch.where(tp < raycast.INF * 0.99, tp, float("inf")).reshape(n, RES, RES)
+    inst = (cp - 2).reshape(n, RES, RES)
+    del tp, cp
+    rd = cam_mod.pixel_rays(intr, M)
+    clipped = (t * torch.sum(rd * (-M[:, :, 0])[:, None, None, :], dim=-1)
+               >= pipe.cfg.camera.clipping[1])
+    del rd
+    t = torch.where(clipped, float("inf"), t).contiguous()
+    inst = torch.where(clipped, -2, inst).to(torch.int32).contiguous()
+    table = rgb_kernel.instance_table(pipe.roster, world["inst_rot"], world["inst_pos"])
+    ao = rgb_kernel.ao_table(pipe.roster, world["inst_pos"])
+    lit = inputs.lighting._replace(tex_strength=torch.zeros_like(inputs.lighting.tex_strength))
+    par = rgb_kernel.rgb_params(M, inputs.cam_pos, intr, lit)
+    rk = rgb_kernel.rgb_cuda(t, inst, table, ao, par)
+    rp = torch.cat([rgb_kernel.plain_rgb(t[sl], inst[sl], table[sl], ao[sl], par[sl])
+                    for sl in parts])
+    sky = inst == -2
+    sky_exact = bool(torch.equal(rk[sky], rp[sky]))
+    d = torch.abs(rk.float() - rp.float())
+    mean_d, over_1, rgb_err = d.mean().item(), (d > 1).float().mean().item(), d.max().item()
+    del rk, rp, d, t, inst, sky
+    phase("bench", f"rgb kernel at {n} x {RES}^2 against the plain version in chunks of "
+          f"{chunk}, noise off: mean |d| {mean_d:.4f} u8 (< 0.5), |d| > 1 on {over_1:.5f} "
+          f"(< 0.02), sky exact {sky_exact}, max |d| {rgb_err:.0f}")
+    check(mean_d < 0.5 and over_1 < 0.02 and sky_exact,
+          f"rgb kernel disagrees with its plain version at {n} frames (noise off)")
+
+    fb = gen(600, ids)
+    kc = pipe.roster.tensor("inst_kpt_channel", dev).reshape(1, -1).expand(n, -1)
+    uv = fb.kpt_uv.reshape(n, -1, 2).contiguous()
+    vis = (fb.kpt_visible.reshape(n, -1) & (kc >= 0)).contiguous()
+    ch = torch.clamp_min(kc, 0).to(torch.int32).contiguous()
+    del fb
+    stride = pipe.cfg.pipeline.heatmap_stride
+    rest = (pipe.num_channels, RES // stride, RES // stride, pipe.cfg.pipeline.heatmap_sigma,
+            stride)
+    hk = hm.heatmap_cuda(uv, ch, vis, *rest)
+    hm_err = max(torch.abs(hk[sl] - hm.render_heatmaps(uv[sl], ch[sl], vis[sl], *rest)).max()
+                 .item() for sl in parts)
+    phase("bench", f"heatmap kernel at {tuple(hk.shape)} against the plain version in chunks "
+          f"of {chunk}: max |d| {hm_err:.2e} (< 2e-4); sweep max |d| on same-instance hits "
+          f"{sweep_err:.3e} on {card}")
+    check(hm_err < 2e-4, f"heatmap kernel disagrees with its plain version at {n} frames")
+
+
+def bench_phase(dev, card, counters, datagen):
+    """``[bench]``: the port's ``bench`` command in-process through the CLI's
+    parser, at the JAX benchmark's shape (a warm-up chain of 4 steps, then
+    4 timed steps of 512 x 512^2): its one JSON line (metric, unit, a finite
+    positive value, ``vs_baseline`` = round(value / 0.15, 1)), the sweep,
+    RGB and heatmap kernels launched once a generate call (8) and nothing
+    else; frames/s by CUDA events and by the host clock, ms a step and the
+    peak memory. Then, at the same shape: ``Pipeline.sample_inputs``'s host
+    ms and the host ms to issue a whole step, one step under
+    ``torch.profiler`` (device time, launches, the device's busy share, the
+    kernels that take most), one step under
+    ``torch.cuda.set_sync_debug_mode("warn")`` (each synchronising call and
+    where), and a ``Stopwatch`` over a 64-frame generate chained on the
+    card. Between them the three kernels, at the command's shape, against
+    their plain versions (``bench_kernels_vs_plain``). Returns the
+    command's launches."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from constructionsceneposeestimation_tpu_torch import bench, cli
+    from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
+    from constructionsceneposeestimation_tpu_torch.utils import profiling
+
+    args = cli.build_parser().parse_args(["bench"])
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    out = io.StringIO()
+    reset(counters)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = args.fn(args)
+    wall_s = time.perf_counter() - t0
+    got = read(counters)
+    lines = out.getvalue().splitlines()
+    phase("bench", f"`cli bench` printed {len(lines)} line(s): {' | '.join(lines)}")
+    check(len(lines) == 1, "bench printed other than one line")
+    rec = json.loads(lines[0])
+    check(list(rec) == ["metric", "value", "unit", "vs_baseline"]
+          and rec["metric"] == bench.METRIC and rec["unit"] == "frames/s",
+          f"bench line: {rec}")
+    check(isinstance(rec["value"], float) and math.isfinite(rec["value"]) and rec["value"] > 0,
+          f"bench value {rec['value']}")
+    check(rec["vs_baseline"] == round(rec["value"] / bench.REFERENCE_FPS, 1),
+          f"vs_baseline {rec['vs_baseline']} != round({rec['value']} / 0.15, 1)")
+    calls = 2 * bench.STEPS
+    stray = {k: c for k, c in got.items() if k not in datagen and c}
+    phase("bench", f"launches over {calls} generate calls (warm-up and timed): "
+          f"{ {k: got[k] for k in datagen} }; other kernels and variants: {stray or 'none'}")
+    check(all(got[k] == calls for k in datagen),
+          f"bench: a datagen kernel did not launch once a generate call: {got}")
+    check(not stray, f"bench launched another kernel or variant: {stray}")
+    n, steps = res["batch"], res["steps"]
+    check((n, steps, res["size"]) == (bench.BATCH, bench.STEPS, bench.SIZE),
+          f"bench ran {n} x {res['size']}^2, {steps} steps")
+    check(math.isfinite(res["total"]), "bench: the chain's scalar is not finite")
+    phase("bench", f"{steps} chained steps of {n} x {bench.SIZE}^2: {res['ms']:.3f} ms by CUDA "
+          f"events = {res['ms'] / steps:.3f} ms a step = {res['fps']:.1f} frames/s; host clock "
+          f"{res['host_ms']:.3f} ms = {n * steps * 1000.0 / res['host_ms']:.1f} frames/s; peak "
+          f"memory {res['peak_bytes'] / 1e9:.2f} GB (torch.cuda.max_memory_allocated over both "
+          f"chains; {held_gb:.2f} GB held before by earlier phases); the command "
+          f"{wall_s:.1f} s in all on {card}")
+
+    cfg = Config(pipeline=PipelineConfig(render_width=bench.SIZE, render_height=bench.SIZE,
+                                         batch_size=n))
+    pipe = Pipeline(cfg, device=dev)
+    gen = pipe.make_generate_fn()
+    bench_kernels_vs_plain(pipe, gen, dev, card)
+    ids = list(range(n))
+    sample_ms, issue_ms = [], []
+    for s in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.sample_inputs(100 + s, ids)
+        torch.cuda.synchronize()
+        sample_ms.append((time.perf_counter() - t0) * 1e3)
+    for s in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total = bench.consume(gen(200 + s, ids))
+        issue_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    phase("bench", f"host ms for sampling one batch of {n} (Pipeline.sample_inputs, "
+          f"synchronised): {[round(x, 3) for x in sample_ms]}; host ms to issue one whole "
+          f"step (generate and consume, from an idle card): {[round(x, 3) for x in issue_ms]} "
+          f"on {card}")
+
+    for s in range(2):  # the first cycle pays the profiler's start-up
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            total = bench.consume(gen(300 + s, ids))
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    step_ms = res["ms"] / steps
+    ours = {name: sum(e.self_device_time_total for e in kern if name in e.key) / 1e3
+            for name in ("sweep_kernel", "rgb_kernel<false, 0>", "heatmap_kernel")}
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    phase("bench", f"one step of {n} x {bench.SIZE}^2 under torch.profiler (second cycle): "
+          f"{wall_ms:.1f} ms wall, device busy {busy_ms:.3f} ms = {100 * busy_ms / step_ms:.1f}% "
+          f"of the chained step's {step_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of the "
+          f"profiled wall), {sum(e.count for e in kern)} kernel launches; the datagen kernels "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items()) + "; most device time: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x {e.count}"
+                      for e in top) + f" on {card}")
+    check(math.isfinite(float(total)), "profiled bench step: total not finite")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            total = bench.consume(gen(400, ids))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    where = {}
+    for w in caught:
+        if str(w.message).startswith("called a synchronizing"):
+            key = f"{Path(w.filename).parent.name}/{Path(w.filename).name}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    phase("bench", f"one step under set_sync_debug_mode('warn'): {sum(where.values())} "
+          f"synchronising call(s)" + (": " + ", ".join(f"{k} x{c}" for k, c in where.items())
+                                      if where else ""))
+    del total, pipe, gen
+
+    small = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES, batch_size=B))
+    gen64 = Pipeline(small, device=dev).make_generate_fn()
+    sw = profiling.Stopwatch()
+    ms = sw.measure(f"generate {B} x {RES}^2, consumed", lambda acc: acc + bench.consume(
+        gen64(SEED, range(B))) * 1e-12, n=4)
+    check(math.isfinite(ms) and ms > 0, f"Stopwatch: {ms} ms")
+    phase("bench", f"Stopwatch report (chained_ms, 4 steps after a warm-up, CUDA events) on "
+          f"{card}: {sw.report()}")
+    return got
+
+
 def main() -> int:
     if not (ROOT / "constructionsceneposeestimation_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout; the port's package is missing", file=sys.stderr)
@@ -2900,7 +3132,12 @@ def main() -> int:
     # this card over gloo, then 1 over NCCL.
     distributed_phase(card)
 
-    # 14. Timing: generate frames/s (every field consumed), min of 4 regions.
+    # 14. [bench]: the headline command at the JAX benchmark's shape.
+    bench_launches = bench_phase(dev, card, counters, datagen)
+    for k in counters:
+        launches[k]["bench"] = bench_launches[k]
+
+    # 15. Timing: generate frames/s (every field consumed), min of 4 regions.
     region_ms(gen, B * 10)  # the warm-up
     regions = [region_ms(gen, B * (11 + r)) for r in range(4)]
     best = min(regions)
@@ -2967,7 +3204,8 @@ def main() -> int:
               f"{100 * r['bound_ms'] / r['ms']:.1f}%), launches "
               f"{ {p: c[tier_key(v)] for p, c in an_launches.items()} } on {card}")
     paths = ("train_crop", "train_detect", "infer", "generate_sequence", "infer_sequence",
-             "generate_hifi", "train_detect_hifi", "infer_hifi", *textured_by_path, *an_launches)
+             "generate_hifi", "train_detect_hifi", "infer_hifi", *textured_by_path, *an_launches,
+             "bench")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": sum(launches[name][p] for p in paths),

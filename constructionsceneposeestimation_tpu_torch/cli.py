@@ -1,6 +1,6 @@
 """Command-line interface of the port (the ``generate``, ``train``,
-``train-eval``, ``train-crop``, ``train-detect``, ``infer`` and ``seq-eval``
-commands of the JAX ``cli.py``).
+``train-eval``, ``train-crop``, ``train-detect``, ``infer``, ``seq-eval``
+and ``bench`` commands of the JAX ``cli.py``).
 
   python -m constructionsceneposeestimation_tpu_torch.cli generate --out DIR --frames N
       Batched dataset generation, to the reference's file tree or
@@ -24,6 +24,9 @@ commands of the JAX ``cli.py``).
       and crane solves, one JSON line a frame.
   python -m constructionsceneposeestimation_tpu_torch.cli seq-eval --poses P --sequence-len N
       Temporal metrics of ``infer --sequence-len N`` records.
+  python -m constructionsceneposeestimation_tpu_torch.cli bench
+      The headline datagen benchmark (``bench.py`` of this package): one
+      JSON line of annotated 512x512 frames/s.
 
 All run on the card unless ``--device cpu``. The printed lines read as
 the JAX package's do.
@@ -684,6 +687,12 @@ def cmd_seq_eval(args) -> None:
               f"{args.fps} fps")
 
 
+def cmd_bench(args) -> dict:
+    """The headline benchmark; returns ``bench.run``'s result."""
+    from . import bench
+    return bench.main(device=args.device)
+
+
 def _train_flags(p, steps: int, batch: int, inner: int) -> None:
     p.add_argument("--steps", type=int, default=steps)
     p.add_argument("--batch", type=int, default=batch)
@@ -874,6 +883,9 @@ def build_parser() -> argparse.ArgumentParser:
     se.add_argument("--fps", type=float, default=None,
                     help="clip frame rate for implied-speed reporting")
     se.set_defaults(fn=cmd_seq_eval)
+    b = sub.add_parser("bench", help="headline benchmark: annotated 512x512 datagen frames/s")
+    _device_flag(b)
+    b.set_defaults(fn=cmd_bench)
     return ap
 
 

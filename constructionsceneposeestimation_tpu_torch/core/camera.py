@@ -76,6 +76,14 @@ def look_at_matrix(cam_pos: Tensor, target: Tensor) -> Tensor:
     return torch.stack([-forward, -right, up], dim=-1)
 
 
+def reference_camera_quat_wxyz(cam_pos: Tensor, target: Tensor) -> Tensor:
+    """The reference's (w, x, y, z) camera quaternion: Shepperd run on the
+    det=-1 look-at frame, which cannot represent a reflection (for the
+    level aims the sampler draws it normalizes to the identity). The
+    ``bug_compatible`` label of ``camera_pose7_xyzw``."""
+    return rotation.quat_wxyz_from_matrix(look_at_matrix(cam_pos, target))
+
+
 def pinhole_basis(M: Tensor) -> Tensor:
     """``M @ R_PINHOLE_FROM_CAM^T``: the columns (-M[:, 1], -M[:, 2], -M[:, 0])."""
     return torch.stack([-M[..., 1], -M[..., 2], -M[..., 0]], dim=-1)
@@ -115,6 +123,14 @@ def world_to_pinhole(points_w: Tensor, cam_pos: Tensor, R_cam2world: Tensor) -> 
     return torch.stack([-cam[..., 1], -cam[..., 2], -cam[..., 0]], dim=-1)
 
 
+def pinhole_to_world(points_pin: Tensor, cam_pos: Tensor, R_cam2world: Tensor) -> Tensor:
+    """Pinhole coordinates (..., N, 3) -> world points (..., N, 3), the
+    inverse of ``world_to_pinhole``: the camera-frame point of pinhole
+    (x, y, z) is (-z, -x, -y)."""
+    cam = torch.stack([-points_pin[..., 2], -points_pin[..., 0], -points_pin[..., 1]], dim=-1)
+    return torch.einsum("...ij,...nj->...ni", R_cam2world, cam) + cam_pos[..., None, :]
+
+
 def project(points_w: Tensor, cam_pos: Tensor, R_cam2world: Tensor, intr: Intrinsics):
     """World points (B, N, 3) -> (uv (B, N, 2), pinhole depth z (B, N))."""
     pin = world_to_pinhole(points_w, cam_pos, R_cam2world)
@@ -141,6 +157,19 @@ def pixel_rays(intr: Intrinsics, R_cam2world: Tensor) -> Tensor:
         [M[..., i, 0] * c0 + M[..., i, 1] * c1 + M[..., i, 2] * c2 for i in range(3)],
         dim=-1)
     return dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+
+
+def backproject_depth(depth: Tensor, intr: Intrinsics, cam_pos: Tensor,
+                      R_cam2world: Tensor) -> Tensor:
+    """The geometrically correct back-projection: depth (..., H, W), the
+    distance to the image plane, -> world points (..., H, W, 3), with
+    ``cam_pos`` (..., 3) and ``R_cam2world`` (..., 3, 3)."""
+    u = torch.arange(intr.width, dtype=torch.float32, device=depth.device)
+    v = torch.arange(intr.height, dtype=torch.float32, device=depth.device)
+    x = (u[None, :] - intr.cx) * depth / intr.fx
+    y = (v[:, None] - intr.cy) * depth / intr.fy
+    pin = torch.stack([x, y, depth], dim=-1).reshape(depth.shape[:-2] + (-1, 3))
+    return pinhole_to_world(pin, cam_pos, R_cam2world).reshape(depth.shape + (3,))
 
 
 def backproject_depth_reference_quirk(depth: Tensor, intr: Intrinsics,

@@ -1,9 +1,9 @@
 """Batched rotation math on tensors (port of the JAX ``core/rotation.py``).
 
-Only what the datagen and evaluation paths need: Shepperd matrix ->
-quaternion and back, the extrinsic-xyz euler extraction of the label
-pipeline, the Newton-polar ``orthonormalize`` and the elementary axis
-rotations. Every function takes any leading batch shape.
+Shepperd matrix -> quaternion and back, the Hamilton product and
+quaternion rotation of vectors, the extrinsic-xyz euler extraction of the
+label pipeline, the Newton-polar ``orthonormalize`` and the elementary
+axis rotations. Every function takes any leading batch shape.
 """
 
 from __future__ import annotations
@@ -63,6 +63,25 @@ def matrix_from_quat_wxyz(q: Tensor) -> Tensor:
 def matrix_from_quat_xyzw(q: Tensor) -> Tensor:
     """Quaternion in scipy (x, y, z, w) order -> rotation matrix."""
     return matrix_from_quat_wxyz(torch.cat([q[..., 3:4], q[..., 0:3]], dim=-1))
+
+
+def quat_mul_wxyz(a: Tensor, b: Tensor) -> Tensor:
+    """Hamilton product a * b of (w, x, y, z) quaternions (..., 4)."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([aw * bw - ax * bx - ay * by - az * bz,
+                        aw * bx + ax * bw + ay * bz - az * by,
+                        aw * by - ax * bz + ay * bw + az * bx,
+                        aw * bz + ax * by - ay * bx + az * bw], dim=-1)
+
+
+def rotate_vec_wxyz(q: Tensor, v: Tensor) -> Tensor:
+    """Vectors v (..., 3) rotated by the unit quaternion q (..., 4), (w, x,
+    y, z): v + w t + qv x t with t = 2 qv x v."""
+    qv, w = q[..., 1:4], q[..., 0:1]
+    qv, v = torch.broadcast_tensors(qv, v)  # linalg.cross does not broadcast (3,) over (N, 3)
+    t = 2.0 * torch.linalg.cross(qv, v, dim=-1)
+    return v + w * t + torch.linalg.cross(qv, t, dim=-1)
 
 
 def _axis_matrix(deg: Tensor, axis: int) -> Tensor:

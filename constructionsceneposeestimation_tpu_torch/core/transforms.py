@@ -14,13 +14,16 @@ from . import rotation
 Tensor = torch.Tensor
 
 
-def make_transform(R: Tensor, t: Tensor) -> Tensor:
-    """(..., 4, 4) column-vector local-to-world transform."""
-    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
-    R = R.expand(batch + (3, 3))
+def make_transform(R: Tensor, t: Tensor, scale: Tensor | None = None) -> Tensor:
+    """(..., 4, 4) column-vector local-to-world transform; ``scale`` (..., 3)
+    scales the linear block's columns per local axis (the layout
+    ``bbox_record_to_pose`` decomposes: column norms = scale)."""
+    lin = R if scale is None else R * scale[..., None, :]
+    batch = torch.broadcast_shapes(lin.shape[:-2], t.shape[:-1])
+    lin = lin.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
-    top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
+    top = torch.cat([lin, t[..., :, None]], dim=-1)
+    bottom = torch.zeros(batch + (1, 4), dtype=lin.dtype, device=lin.device)
     bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
@@ -39,3 +42,29 @@ def bbox_record_to_pose(corner_min: Tensor, corner_max: Tensor,
     scale = torch.linalg.norm(rot_mtx, dim=-2)  # column norms
     size_world = scale * torch.abs(corner_max - corner_min)
     return center_world, size_world, euler_deg
+
+
+def transform_points(T: Tensor, points: Tensor) -> Tensor:
+    """Points (..., N, 3) through the (..., 4, 4) column-vector transform."""
+    return torch.einsum("...ij,...nj->...ni", T[..., :3, :3], points) + T[..., None, :3, 3]
+
+
+def world_aabb_of_local_aabb(corner_min: Tensor, corner_max: Tensor, T: Tensor):
+    """(world min (..., 3), world max (..., 3)): the axis-aligned box around
+    the 8 transformed corners of a local AABB (the reference's
+    ``ComputeWorldBound(...).ComputeAlignedRange()``)."""
+    lohi = (corner_min, corner_max)
+    corners = torch.stack([torch.stack([lohi[i][..., 0], lohi[j][..., 1], lohi[k][..., 2]], dim=-1)
+                           for i in (0, 1) for j in (0, 1) for k in (0, 1)], dim=-2)
+    world = transform_points(T, corners)
+    return world.amin(dim=-2), world.amax(dim=-2)
+
+
+def collision_radius_xy(corner_min: Tensor, corner_max: Tensor, T: Tensor,
+                        minimum: float = 1.0) -> Tensor:
+    """XY collision radius: 0.9 x half the world AABB's XY diagonal, at
+    least ``minimum`` metres."""
+    wmin, wmax = world_aabb_of_local_aabb(corner_min, corner_max, T)
+    dx = (wmax[..., 0] - wmin[..., 0]) / 2.0
+    dy = (wmax[..., 1] - wmin[..., 1]) / 2.0
+    return torch.clamp_min(torch.sqrt(dx * dx + dy * dy) * 0.9, minimum)

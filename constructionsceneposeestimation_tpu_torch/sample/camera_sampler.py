@@ -3,7 +3,8 @@
 Two samplers: the continuous domain-randomization sampler the datagen step
 uses (distance, height and angle ranges from ``CameraConfig``, horizontal
 aim at a jittered scene-centre target) and the reference's systematic
-three-stage ladder (key positions, rings, biased random fill). Random draws
+three-stage ladder (key positions, rings, biased random fill), and the
+reference's retry nudge of a camera position (``retry_jitter``). Random draws
 come from an explicit ``torch.Generator``; the draw step and the
 deterministic transform are separate so a batch can draw on the host and
 transform on the device.
@@ -73,6 +74,19 @@ def sample_camera_batch(gen: torch.Generator, n: int,
                         cfg: CameraConfig = CameraConfig()) -> Tuple[Tensor, Tensor]:
     """Continuous DR viewpoints: (cam_pos (n, 3), target (n, 3)) on the CPU."""
     return cameras_from_draws(camera_draws(gen, n), cfg)
+
+
+def retry_jitter(gen: torch.Generator, cam_pos: Tensor) -> Tensor:
+    """The reference's retry nudge of a camera position (..., 3): uniform
+    (-2, 2) m on x and y, half that on z."""
+    return jitter_from_draws(torch.rand(cam_pos.shape, generator=gen).to(cam_pos.device),
+                             cam_pos)
+
+
+def jitter_from_draws(u: Tensor, cam_pos: Tensor) -> Tensor:
+    """Uniforms in [0, 1) shaped like ``cam_pos`` -> the nudged positions."""
+    half_z = torch.tensor([1.0, 1.0, 0.5], device=cam_pos.device)
+    return cam_pos + _uniform(u, -2.0, 2.0) * half_z
 
 
 def mix_cameras(use_ladder, ladder_cam: Tensor, ladder_tgt: Tensor, dr_cam: Tensor,

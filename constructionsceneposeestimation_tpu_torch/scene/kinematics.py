@@ -69,6 +69,14 @@ def crane_reach_xy(joints: Tensor) -> Tensor:
     return tip * torch.cos(pitch)
 
 
+def human_joint_positions(canonical_kpts: Tensor, yaw_deg: Tensor, pos: Tensor) -> Tensor:
+    """Rigidly posed COCO joints: ``canonical_kpts`` (17, 3) yawed about +Z
+    by ``yaw_deg`` (...) and moved to ``pos`` (..., 3) -> (..., 17, 3), the
+    reference randomizer's translate + rotateZ of the worker's root."""
+    R = rotation.matrix_rot_z_degrees(yaw_deg)
+    return torch.einsum("...ij,kj->...ki", R, canonical_kpts) + pos[..., None, :]
+
+
 def sample_human_pose(u: Tensor) -> Tensor:
     """Uniforms in [0, 1) (..., 10) -> working-pose joint angles in degrees."""
     low = torch.as_tensor(HUMAN_POSE_LOW, device=u.device)

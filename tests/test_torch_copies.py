@@ -130,9 +130,9 @@ def test_port_imports_no_jax():
     initialized full-width checkpoints and ``seq-eval`` on its records,
     ``render_frame``'s analytic-normal, sun-shadow and flat tiers (the
     exact caster, the shadow sweep, the hifi caster's), a flat
-    ``Pipeline`` and the profiling helpers, with the multi-GPU and
-    visualization modules imported, load neither jax nor the JAX
-    package."""
+    ``Pipeline``, the profiling helpers and ``bench`` at 64^2, with the
+    multi-GPU and visualization modules imported, load neither jax nor the
+    JAX package."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(2)\n"
@@ -196,6 +196,8 @@ def test_port_imports_no_jax():
         "with contextlib.redirect_stdout(out):\n"
         "    cli.main(['seq-eval', '--poses', f'{d}/poses.jsonl', '--sequence-len', '2'])\n"
         "assert out.getvalue().startswith('sequence eval (1 clips x 2 frames, 2 frames):')\n"
+        "from constructionsceneposeestimation_tpu_torch import bench\n"
+        "bench.run(batch=2, steps=1, size=64, device='cpu')\n"
         "import shutil; shutil.rmtree(d)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "       or m.startswith('constructionsceneposeestimation_tpu.')\n"

@@ -1,5 +1,7 @@
 """The port's geometry (core/), articulation, world assembly and random
-streams, held against the JAX package on the same numpy inputs.
+streams, and the public helpers of core/, scene/kinematics and the camera
+sampler's retry nudge, held against the JAX package on the same numpy
+inputs.
 
 Tolerances: both sides compute in float32 from the same inputs; what
 differs is the order of sums and transcendental implementations, so
@@ -18,12 +20,14 @@ from constructionsceneposeestimation_tpu.config import RandomizationConfig as JR
 from constructionsceneposeestimation_tpu.core import camera as jcam
 from constructionsceneposeestimation_tpu.core import rotation as jrot
 from constructionsceneposeestimation_tpu.core import transforms as jtf
+from constructionsceneposeestimation_tpu.sample import camera_sampler as jcs
 from constructionsceneposeestimation_tpu.sample import placement as jpl
 from constructionsceneposeestimation_tpu.scene import kinematics as jkin
 from constructionsceneposeestimation_tpu.scene import world as jworld
 from constructionsceneposeestimation_tpu_torch import convert
 from constructionsceneposeestimation_tpu_torch.config import SceneConfig
 from constructionsceneposeestimation_tpu_torch.core import camera, rotation, transforms
+from constructionsceneposeestimation_tpu_torch.sample import camera_sampler
 from constructionsceneposeestimation_tpu_torch.scene import assets, kinematics, world
 from constructionsceneposeestimation_tpu_torch.utils import prng
 
@@ -206,3 +210,105 @@ def test_prng_streams_deterministic_and_distinct():
     assert torch.equal(g(20), g(29)) and not torch.equal(g(29), g(30))
     assert not torch.equal(torch.rand(4, generator=prng.generator(3, prng.SCENE_STREAM, 5)),
                            torch.rand(4, generator=prng.generator(3, prng.FRAME_STREAM, 5)))
+
+
+# The public helpers, each against its JAX function to f32 rounding.
+def _unit_quats(n, seed):
+    q = np.random.RandomState(seed).normal(size=(n, 4)).astype(np.float32)
+    return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+def test_quat_mul_and_rotate_vec():
+    a, b = _unit_quats(32, 10), _unit_quats(32, 11)
+    v = np.random.RandomState(12).uniform(-5, 5, (32, 3)).astype(np.float32)
+    np.testing.assert_allclose(rotation.quat_mul_wxyz(T(a), T(b)).numpy(),
+                               np.asarray(jrot.quat_mul_wxyz(a, b)), atol=1e-5)
+    np.testing.assert_allclose(rotation.rotate_vec_wxyz(T(a), T(v)).numpy(),
+                               np.asarray(jrot.rotate_vec_wxyz(a, v)), atol=1e-5)
+    # One quaternion over many vectors.
+    np.testing.assert_allclose(rotation.rotate_vec_wxyz(T(a[0]), T(v)).numpy(),
+                               np.asarray(jrot.rotate_vec_wxyz(a[0], v)), atol=1e-5)
+
+
+def test_reference_quat_and_pinhole_to_world():
+    cam, tgt = _cameras()
+    np.testing.assert_allclose(camera.reference_camera_quat_wxyz(T(cam), T(tgt)).numpy(),
+                               np.asarray(jcam.reference_camera_quat_wxyz(cam, tgt)), atol=1e-5)
+    R = np.asarray(jcam.world_from_pinhole_matrix(cam, tgt))
+    M = np.asarray(jcam.look_at_matrix(cam, tgt))
+    pin = np.random.RandomState(13).uniform(-5, 5, (16, 40, 3)).astype(np.float32)
+    got = camera.pinhole_to_world(T(pin), T(cam), T(M)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jcam.pinhole_to_world(pin, cam, M)), atol=1e-5)
+    np.testing.assert_allclose(
+        camera.world_to_pinhole(T(got), T(cam), T(M)).numpy(), pin, atol=1e-4)
+    assert np.all(np.linalg.det(R) > 0)
+
+
+def test_backproject_depth():
+    cam, tgt = _cameras()
+    intr_m = camera.intrinsics_from_apertures(12.0, 25.0, 32, 24)
+    intr_r = jcam.intrinsics_from_apertures(12.0, 25.0, 32, 24)
+    M = np.asarray(jcam.look_at_matrix(cam, tgt))[:4]
+    depth = np.random.RandomState(14).uniform(0.5, 5.0, (4, 24, 32)).astype(np.float32)
+    got = camera.backproject_depth(T(depth), intr_m, T(cam[:4]), T(M)).numpy()
+    assert got.shape == (4, 24, 32, 3)
+    for i in range(4):
+        ref = jcam.backproject_depth(depth[i], intr_r, cam[i], M[i])
+        np.testing.assert_allclose(got[i], np.asarray(ref), atol=1e-5)
+        one = camera.backproject_depth(T(depth[i]), intr_m, T(cam[i]), T(M[i])).numpy()
+        np.testing.assert_allclose(one, got[i], atol=1e-6)
+    # The points lie at their pixels, at their depth.
+    pts = got.reshape(4, -1, 3)
+    uv, z = camera.project(T(pts), T(cam[:4]), T(M), intr_m)
+    np.testing.assert_allclose(z.numpy(), depth.reshape(4, -1), rtol=1e-5)
+    u, v = np.meshgrid(np.arange(32), np.arange(24))
+    np.testing.assert_allclose(uv.numpy()[0, :, 0], u.reshape(-1), atol=1e-3)
+    np.testing.assert_allclose(uv.numpy()[0, :, 1], v.reshape(-1), atol=1e-3)
+
+
+def test_transform_points_aabb_and_radius():
+    R = _rotations(8, 15)
+    rng = np.random.RandomState(16)
+    t = rng.uniform(-5, 5, (8, 3)).astype(np.float32)
+    scale = rng.uniform(0.5, 2.0, (8, 3)).astype(np.float32)
+    Tm = transforms.make_transform(T(R), T(t), T(scale)).numpy()
+    np.testing.assert_allclose(Tm, np.asarray(jtf.make_transform(R, t, scale)), atol=1e-6)
+    # Without scale, the existing callers' result: bit-equal to JAX.
+    np.testing.assert_array_equal(transforms.make_transform(T(R), T(t)).numpy(),
+                                  np.asarray(jtf.make_transform(R, t)))
+    pts = rng.uniform(-3, 3, (8, 20, 3)).astype(np.float32)
+    np.testing.assert_allclose(transforms.transform_points(T(Tm), T(pts)).numpy(),
+                               np.asarray(jtf.transform_points(Tm, pts)), atol=1e-5)
+    lo = rng.uniform(-2, 0, (8, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0.1, 3, (8, 3)).astype(np.float32)
+    for a, b in zip(transforms.world_aabb_of_local_aabb(T(lo), T(hi), T(Tm)),
+                    jtf.world_aabb_of_local_aabb(lo, hi, Tm)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+    for minimum in (1.0, 3.0):
+        np.testing.assert_allclose(
+            transforms.collision_radius_xy(T(lo), T(hi), T(Tm), minimum).numpy(),
+            np.asarray(jtf.collision_radius_xy(lo, hi, Tm, minimum)), atol=1e-5)
+
+
+def test_human_joint_positions():
+    rng = np.random.RandomState(17)
+    yaw = rng.uniform(-180, 180, 6).astype(np.float32)
+    pos = rng.uniform(-8, 8, (6, 3)).astype(np.float32)
+    got = kinematics.human_joint_positions(T(assets.CANONICAL_COCO), T(yaw), T(pos)).numpy()
+    ref = jkin.human_joint_positions(jnp.asarray(assets.CANONICAL_COCO), yaw, pos)
+    assert got.shape == (6, 17, 3)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=1e-5)
+
+
+def test_retry_jitter():
+    cam, _ = _cameras()
+    key = jax.random.PRNGKey(18)
+    u = np.asarray(jax.random.uniform(key, cam.shape))  # the draws JAX's nudge takes
+    np.testing.assert_allclose(camera_sampler.jitter_from_draws(T(u), T(cam)).numpy(),
+                               np.asarray(jcs.retry_jitter(key, cam)), atol=1e-5)
+    a = camera_sampler.retry_jitter(prng.generator(3, 9), T(cam))
+    b = camera_sampler.retry_jitter(prng.generator(3, 9), T(cam))
+    assert torch.equal(a, b)
+    d = (a - T(cam)).numpy()
+    assert np.all(np.abs(d[:, :2]) <= 2.0) and np.all(np.abs(d[:, 2]) <= 1.0)
+    assert np.abs(d[:, 2]).max() > 0.0
