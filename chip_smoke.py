@@ -125,10 +125,21 @@ Run from the root of a checkout. Phases, each reported on its own line:
    direct hifi generate), ``train-detect`` with the two-stage detector's
    arguments plus ``--hifi-mix 4 --hifi-eval`` (20 steps; hifi batches at
    steps 0, 4, 8, 12, 16 and for the evaluation), ``infer --hifi`` of 32
-   frames; a ``[mesh]`` line for the triangle sweep on 32 x 512^2 (pixels
-   and segments: ms, device time and launches, visited pairs and bound
-   beside the brute force), its share of a hifi batch, and the detector
-   step with hifi batches beside the proxy step;
+   frames, the mesh sweep kernel (``csrc/meshsweep.cu``) launched twice a
+   hifi batch on each; ``[mesh]`` lines for the triangle sweep on 32 x
+   512^2, pixels and segments: the kernel's registers and spills, the
+   kernel against ``plain_mesh_sweep`` on the same terms and rays (pixels:
+   the ``[sweep]`` bars; segments: the same without the edge test), its
+   visit counts equal to ``visited()``, two calls bit-equal; its device
+   time, its wrapper's call and ``MeshCaster.packed`` beside the plain
+   version's time and launches, the bound (each visited pair's 22
+   operations of the kernel's division-free test, 4 more on each pair that
+   passes it; the plain test's 30 a pair beside) and the brute force; the hifi frames' ``kpt_visible`` with the kernel
+   against the plain sweep (>= 0.99); the mesh sweep's share of a hifi
+   batch, and the detector step with hifi batches beside the proxy step;
+   after ``[bench]``, the kernel's launches on every hifi path (> 0, the
+   ``--hifi-eval`` evaluation and the textured hifi paths included) and on
+   no other;
 11. ``[textures]``, in the same directory: the RGB kernel's textured
    variant against its plain version on 64 x 512² frames, proxy and hifi,
    hash noise off and on (noise off: mean |d| < 0.5 u8, |d| > 1 on < 2% of
@@ -201,8 +212,9 @@ sequence and hifi paths, ``train_crop`` (both crop runs), ``train_detect``,
 ``bench``, and
 ``launches_by_path`` each path's; the heatmap kernel's entry also holds its
 times at the crop shapes; one entry for each RGB tier variant, named
-``rgb_epilogue/<variant>``, with its launches on the [analytic] paths), then
-the card line, then as the
+``rgb_epilogue/<variant>``, with its launches on the [analytic] paths; the
+``mesh_sweep`` entry for a hifi batch's pixel and segment calls, with its
+launches by path), then the card line, then as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
 line, on any failure or when no GPU is present. Imports nothing of JAX.
 """
@@ -270,11 +282,28 @@ RGB_TEX_MAP_OPS = 69
 # on this one card.
 DIST_TIMEOUT = 300
 DIST_CASES = {"gloo": "ddp-focal,fsdp-focal", "nccl": "ddp-focal,fsdp-focal"}
-# Operations of one (ray, triangle) pair of the mesh sweep's test
-# (render/meshcast.py): three 3-term dots 15, the reciprocal and its guard 3,
-# t, u and v 3, u + v 1, four compares and two ands 6, the select and the
-# min 2.
-MESH_PAIR_OPS = 30
+# Operations the mesh sweep needs on one (ray, triangle) pair of a visited
+# block, by the division-free test of csrc/meshsweep.cu: three 3-term dots
+# (det, u_num, v_num) 15, u_num + v_num 1, the sign test (u_num's and
+# v_num's sign against det's: one three-input logic op and its compare) 2,
+# |u_num + v_num| <= |det| and |det| >= EPS 2, and the two ands that join
+# the three tests 2. A pair that passes (mesh_pair_passes counts them) also
+# needs the reciprocal, t, t > EPS and the min: 4. The bound leaves out the
+# slab tests of the cull and the pack of each block's min, so it stays a
+# least time. The plain version's test (render/meshcast.plain_mesh_sweep:
+# the reciprocal and its guard 3, t, u and v 3, four compares and two ands
+# 6, the select and the min 2 on every pair) is 30 a pair; its bound is
+# printed beside, labelled.
+MESH_PAIR_OPS = 22
+MESH_PASS_OPS = 4
+MESH_PLAIN_PAIR_OPS = 30
+# The mesh sweep kernel (csrc/meshsweep.cu) replaces the JAX sweep's
+# `tile_fn`, a jnp loop that XLA fuses (not a Pallas kernel); its launches
+# count under this key, on the paths that render hifi batches.
+MESH = "mesh_sweep"
+MESH_JNP_LOOP = "constructionsceneposeestimation_tpu/render/meshcast.py:307-344"
+HIFI_PATHS = ("generate_hifi", "train_detect_hifi", "hifi_eval", "infer_hifi",
+              "generate_hifi_textured", "train_detect_textured")
 # The line heads `train-eval` prints after training (the JAX cli.py:262-331).
 TRAIN_EVAL_LINES = (
     "decode-floor PCK@0.5:", "model PCK@0.5:", "assoc decode floor:",
@@ -294,12 +323,14 @@ REPLACES = {
     "rgb_epilogue": "constructionsceneposeestimation_tpu/render/rgb_kernel.py:51",
     "heatmap_targets": "constructionsceneposeestimation_tpu/ops/heatmap.py:58",
     "peak_decode": "constructionsceneposeestimation_tpu/ops/peak_kernel.py:56",
+    MESH: "constructionsceneposeestimation_tpu/render/meshcast.py:307",
 }
 SOURCES = {
     "pixel_sweep": "constructionsceneposeestimation_tpu_torch/csrc/sweep.cu",
     "rgb_epilogue": "constructionsceneposeestimation_tpu_torch/csrc/rgb.cu",
     "heatmap_targets": "constructionsceneposeestimation_tpu_torch/csrc/heatmap.cu",
     "peak_decode": "constructionsceneposeestimation_tpu_torch/csrc/peaks.cu",
+    MESH: "constructionsceneposeestimation_tpu_torch/csrc/meshsweep.cu",
 }
 # The least time the card could take: the larger of the bytes the function
 # must move (each input read once, each output written once) over the
@@ -477,6 +508,57 @@ def sweep_agreement(tag, packed_k, packed_p):
     check(hit_agree > 0.9995 and frac_big < 1e-5 and frac_1e5 < 0.005 and inst_agree > 0.999,
           f"{tag}: sweep kernel disagrees with its plain version")
     return tk, ck, tp, cp, same
+
+
+def segment_agreement(tag, packed_k, packed_p):
+    """The mesh sweep kernel's packed output on keypoint segments (B, N)
+    against its plain version's: ``sweep_agreement``'s bars on hits,
+    instances and t, without its edge test (the rays are not a grid).
+    Returns (t, code) of both and the same-instance hit mask."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.render import raycast
+    tk, ck = raycast._unpack(packed_k)
+    tp, cp = raycast._unpack(packed_p)
+    hk, hp = tk < raycast.INF * 0.99, tp < raycast.INF * 0.99
+    both = hk & hp
+    rel = (torch.abs(tk - tp) / tp)[both]
+    n = max(int(both.sum()), 1)
+    hit_agree = (hk == hp).float().mean().item()
+    inst_agree = 1.0 - int((ck[both] != cp[both]).sum()) / n
+    frac_1e5, frac_big = int((rel > 1e-5).sum()) / n, int((rel > 2e-4).sum()) / n
+    phase(tag, f"segments: hit agree {hit_agree:.6f} (> 0.9995), inst agree {inst_agree:.6f} "
+          f"(> 0.999), rel > 1e-5 on {frac_1e5:.5f} (< 0.005) and rel > 2e-4 on {frac_big:.2e} "
+          f"(< 1e-5) of {int(both.sum())} hit rays")
+    check(hit_agree > 0.9995 and inst_agree > 0.999 and frac_1e5 < 0.005 and frac_big < 1e-5,
+          f"{tag}: the segments' sweep kernel disagrees with its plain version")
+    return tk, ck, tp, cp, both & (ck == cp)
+
+
+def mesh_pair_passes(terms, lo, hi, ray_o, ray_d, lay) -> int:
+    """The (ray, triangle) pairs of the visited blocks that pass the mesh
+    sweep kernel's division-free test (u_num and v_num of det's sign,
+    |u_num + v_num| <= |det|, |det| >= EPS): the pairs that take its
+    reciprocal, t and min. The test in PyTorch, chunked as
+    ``plain_mesh_sweep`` chunks its own; its dots are summed in the plain
+    version's order, so a pair within an ulp of an edge may count
+    otherwise than in the kernel."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.render import meshcast, raycast
+    T = terms.shape[-1]
+    W, _ = meshcast.block_matrices(terms)
+    rays = meshcast.group_rays(ray_d, lay)
+    triples = torch.nonzero(meshcast.block_hits(ray_o, rays, lo, hi))
+    step = max(1, meshcast.MAX_PAIRS // (lay.rays * T))
+    passes = 0
+    for c in range(0, triples.shape[0], step):
+        b, g, k = triples[c:c + step].unbind(1)
+        det, un, vn = torch.bmm(rays[b, g], W[b, k]).unflatten(-1, (3, T)).unbind(2)
+        bits = det.view(torch.int32)
+        sign = (un.view(torch.int32) ^ bits) | (vn.view(torch.int32) ^ bits)
+        ok = ((sign >= 0) & (torch.abs(un + vn) <= torch.abs(det))
+              & (torch.abs(det) >= raycast.EPS))
+        passes += int(ok.sum())
+    return passes
 
 
 def bound(nbytes: float, nops: float):
@@ -657,22 +739,27 @@ def host_fields(batch):
 
 
 def reset(counters):
-    """Set every kernel wrapper's launch counts to 0."""
+    """Set every kernel wrapper's launch counts to 0, the mesh sweep's too."""
+    from constructionsceneposeestimation_tpu_torch.render import meshcast
     for fn in counters.values():
         fn.launches = 0
     rgb = counters["rgb_epilogue"]
     rgb.textured_launches = 0
     rgb.tier_launches = dict.fromkeys(rgb.tier_launches, 0)
+    meshcast.mesh_sweep_cuda.launches = 0
 
 
 def read(counters):
-    """Every kernel wrapper's launch count, and the RGB kernel's textured
+    """Every kernel wrapper's launch count, the RGB kernel's textured
     launches (``TEXTURED``) and those of each tier variant
-    (``tier_key``), which its ``launches`` do not include."""
+    (``tier_key``), which its ``launches`` do not include, and the mesh
+    sweep's (``MESH``), which launches on the hifi paths only."""
+    from constructionsceneposeestimation_tpu_torch.render import meshcast
     rgb = counters["rgb_epilogue"]
     return {**{k: fn.launches for k, fn in counters.items()},
             TEXTURED: rgb.textured_launches,
-            **{tier_key(v): n for v, n in rgb.tier_launches.items()}}
+            **{tier_key(v): n for v, n in rgb.tier_launches.items()},
+            MESH: meshcast.mesh_sweep_cuda.launches}
 
 
 def tier_key(variant):
@@ -1417,6 +1504,7 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
     from constructionsceneposeestimation_tpu_torch.scene import world as world_mod
     from constructionsceneposeestimation_tpu_torch.train import detect_loop
     from constructionsceneposeestimation_tpu_torch.train import loop as train_loop
+    from constructionsceneposeestimation_tpu_torch.utils import kernels
 
     launches = {}
     world, cam, M, intr = scene
@@ -1479,7 +1567,8 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
     check(lines[-1].startswith(f"done: {HIFI_FRAMES} frames in ")
           and got.keys() == want.keys() and all(np.array_equal(got[k], v)
                                                 for k, v in want.items())
-          and all(launches["generate_hifi"][k] == 1 for k in datagen),
+          and all(launches["generate_hifi"][k] == 1 for k in datagen)
+          and launches["generate_hifi"][MESH] == 2,
           f"generate --hifi: {lines}, launches {launches['generate_hifi']}, or its shard is not "
           f"bit-equal to direct hifi generate")
     phase("hifi", f"generate --hifi --format packed --heatmaps, {HIFI_FRAMES} frames: shard "
@@ -1488,18 +1577,21 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
     # train-detect with the two-stage detector's arguments, --hifi-mix 4
     # --hifi-eval: the hifi sweep renders steps 0, 4, 8, 12, 16 and the
     # evaluation batch.
+    # The mesh sweep's launches in the training steps' hifi batches are
+    # counted apart, so that the evaluation's show.
     sweeper_call, gen_step = meshcast.HifiSweeper.__call__, detect_loop.DetectTrainStep.generate
-    hifi_calls, hifi_steps = [0], []
+    hifi_calls, hifi_steps, mesh_in_steps = [0], [], [0]
 
     def counting(self, *a):
         hifi_calls[0] += 1
         return sweeper_call(self, *a)
 
     def recording(self, seed, frame_ids, step):
-        before = hifi_calls[0]
+        before, mesh_before = hifi_calls[0], meshcast.mesh_sweep_cuda.launches
         out = gen_step(self, seed, frame_ids, step)
         if hifi_calls[0] > before:
             hifi_steps.append(step)
+            mesh_in_steps[0] += meshcast.mesh_sweep_cuda.launches - mesh_before
         return out
 
     meshcast.HifiSweeper.__call__, detect_loop.DetectTrainStep.generate = counting, recording
@@ -1527,10 +1619,14 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
                                      if ln.startswith("detector P/R")),
           f"train-detect --hifi-mix {HIFI_MIX} --hifi-eval: hifi steps {hifi_steps}, hifi "
           f"batches {hifi_calls[0]}, missing lines {missing}")
+    # Each hifi batch sweeps its pixels and its keypoint segments.
+    eval_mesh = launches["train_detect_hifi"][MESH] - mesh_in_steps[0]
     check(all(launches["train_detect_hifi"][k] == TRAIN_STEPS + 1
               for k in ("pixel_sweep", "rgb_epilogue"))
-          and launches["train_detect_hifi"]["heatmap_targets"] == 0,
-          f"train-detect --hifi-mix: launches {launches['train_detect_hifi']}")
+          and launches["train_detect_hifi"]["heatmap_targets"] == 0
+          and launches["train_detect_hifi"][MESH] == 2 * hifi_calls[0] and eval_mesh == 2,
+          f"train-detect --hifi-mix: launches {launches['train_detect_hifi']}, mesh sweep "
+          f"{mesh_in_steps[0]} in the steps")
     phase("hifi", f"train-detect {' '.join(DETECT_ARGS)} --hifi-mix {HIFI_MIX} --hifi-eval: "
           f"{TRAIN_STEPS} steps of {TRAIN_B} x {RES}^2, hifi batches at steps {hifi_steps} and "
           f"the 64 evaluation frames; launches {launches['train_detect_hifi']}; losses "
@@ -1547,42 +1643,117 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
     records = [json.loads(ln) for ln in poses.read_text().splitlines()]
     check([r["frame_id"] for r in records] == list(range(HIFI_FRAMES))
           and all(launches["infer_hifi"][k] == HIFI_FRAMES // INFER_B
-                  for k in ("pixel_sweep", "rgb_epilogue")),
+                  for k in ("pixel_sweep", "rgb_epilogue"))
+          and launches["infer_hifi"][MESH] == 2 * HIFI_FRAMES // INFER_B,
           f"infer --hifi: {len(records)} records, launches {launches['infer_hifi']}")
     phase("hifi", f"infer --hifi --track, {HIFI_FRAMES} frames in batches of {INFER_B}: "
           f"{sum(len(r['detections']) for r in records)} detections; launches "
           f"{launches['infer_hifi']}")
 
-    # The mesh sweep on 32 x 512^2 hifi frames: pixel rays (square tiles)
-    # and keypoint segments (one range a frame), against its bound: the
-    # visited (ray, triangle) pairs x MESH_PAIR_OPS at the FP32 rate, beside
-    # the brute-force count of every ray against every triangle.
+    # The mesh sweep on 32 x 512^2 hifi frames, pixel rays (square tiles)
+    # and keypoint segments (one group a frame): csrc/meshsweep.cu against
+    # plain_mesh_sweep on the same terms and rays (pixels: the [sweep] bars;
+    # segments, not a grid: the same bars without the edge test), its visits
+    # equal to visited(), two calls bit-equal; the kernel's device time
+    # against its bound, the visited (ray, triangle) pairs x MESH_PAIR_OPS
+    # and the pairs that pass x MESH_PASS_OPS at the FP32 rate (the terms'
+    # and rays' bytes beside; the plain test's MESH_PLAIN_PAIR_OPS a pair
+    # printed apart), and the brute-force count of every ray against every
+    # triangle; the plain version's time and launches a call;
+    # MeshCaster.packed (the terms and the kernel) by CUDA events.
     n = HIFI_FRAMES
     inp = hpipe.sample_inputs(SEED + 3000, range(n))
     w = world_mod.build_world(hpipe.roster, inp.pose)
     Mh = cam_mod.look_at_matrix(inp.cam_pos, inp.target)
     mesh = hpipe.caster.mesh
+    o = inp.cam_pos.contiguous()
     px = cam_mod.pixel_rays(intr, Mh).reshape(n, -1, 3)
     kp = world_mod.world_keypoints(w["inst_rot"], w["inst_pos"], w["kpts_local"])
-    seg = kp.reshape(n, -1, 3) - inp.cam_pos[:, None]
-    rays = {"pixels": px, "segments": seg}
+    seg = (kp.reshape(n, -1, 3) - inp.cam_pos[:, None]).contiguous()
+    phase("mesh", f"csrc/meshsweep.cu, registers and spill bytes (ptxas): "
+          f"{kernels.ptxas_report('meshsweep.cu')}")
+    terms, lo, hi = mesh.mesh_terms(w, o)
+    codes = mesh._on(dev)["codes"]
     mesh_r = {}
-    for name, d in rays.items():
-        visited = int(mesh.visited(w, inp.cam_pos, d).sum())
-        group = min(d.shape[1], mesh.tile)
-        pairs = visited * group * mesh.tri_block
-        brute = n * d.shape[1] * mesh.n_triangles
-        ms = cuda_ms(lambda: mesh.packed(w, inp.cam_pos, d), iters=3, warmup=1)
+    for name, d in (("pixels", px), ("segments", seg)):
+        lay = mesh.layout(d.shape[1])
+        k_fn = lambda d=d, lay=lay: meshcast.mesh_sweep_cuda(terms, lo, hi, codes, o, d, lay)
+        p_fn = lambda d=d, lay=lay: meshcast.plain_mesh_sweep(terms, lo, hi, codes, o, d, lay)
+        visits = torch.full((n, lay.groups), -1, dtype=torch.int32, device=dev)
+        out = meshcast.mesh_sweep_cuda(terms, lo, hi, codes, o, d, lay, visits)
+        again, plain = k_fn(), p_fn()
+        visited = mesh.visited(w, o, d).sum(-1)
+        torch.cuda.synchronize()
+        bit_equal = torch.equal(out.view(torch.int32), again.view(torch.int32))
+        visits_equal = torch.equal(visits, visited.int())
+        phase("mesh", f"{name}, {n} x {RES}^2, {d.shape[1]} rays a frame in {lay.groups} "
+              f"group(s) of {lay.rays}: two calls bit-equal: {bit_equal}; visits equal to "
+              f"visited(): {visits_equal}")
+        check(bit_equal and visits_equal, f"mesh sweep {name}: two calls differ, or its visits "
+              f"differ from visited()")
+        agreement = sweep_agreement if name == "pixels" else segment_agreement
+        tk, ck, tp, cp, same = agreement("mesh", out, plain)
+        err = torch.abs(tk - tp)[same].max().item()
+        del out, again, plain, tk, ck, tp, cp, same
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            mesh.packed(w, inp.cam_pos, d)
+            p_fn()
             torch.cuda.synchronize()
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        mesh_r[name] = {"ms": ms, "pairs": pairs, "brute": brute, "visited": visited,
-                        "launches": sum(e.count for e in kern),
-                        "device_ms": sum(e.self_device_time_total for e in kern) / 1e3,
-                        "bound_ms": bound(0.0, pairs * MESH_PAIR_OPS)[0]}
+        pairs = int(visited.sum()) * lay.rays * mesh.tri_block
+        passes = mesh_pair_passes(terms, lo, hi, o, d, lay)
+        nbytes = (terms.numel() + lo.numel() + hi.numel() + codes.numel() + o.numel()
+                  + d.numel() + d.shape[0] * d.shape[1]) * 4
+        mesh_r[name] = {"ms": device_ms(k_fn, "mesh_sweep_kernel"), "call_ms": cuda_ms(k_fn),
+                        "packed_ms": cuda_ms(lambda d=d: mesh.packed(w, o, d), iters=3, warmup=1),
+                        "plain_ms": cuda_ms(p_fn, iters=2, warmup=1),
+                        "plain_launches": sum(e.count for e in kern),
+                        "plain_device_ms": sum(e.self_device_time_total for e in kern) / 1e3,
+                        "max_abs_err": err, "visits": int(visited.sum()), "pairs": pairs,
+                        "passes": passes, "brute": n * d.shape[1] * mesh.n_triangles,
+                        "bytes": nbytes, "ops": pairs * MESH_PAIR_OPS + passes * MESH_PASS_OPS,
+                        "bound": bound(nbytes, pairs * MESH_PAIR_OPS + passes * MESH_PASS_OPS),
+                        "plain_test_bound_ms": bound(nbytes, pairs * MESH_PLAIN_PAIR_OPS)[0]}
+    for name, r in mesh_r.items():
+        phase("mesh", f"{name}, {n} x {RES}^2: kernel {r['ms']:.4f} ms (device time; the "
+              f"wrapper's call {r['call_ms']:.4f} ms, MeshCaster.packed with its terms "
+              f"{r['packed_ms']:.4f} ms, CUDA events) in 1 launch; plain {r['plain_ms']:.3f} ms "
+              f"(device time {r['plain_device_ms']:.3f} ms in {r['plain_launches']} launches); "
+              f"{r['visits']} (frame, ray group, block) visits = {r['pairs']:.4e} (ray, "
+              f"triangle) pairs, {r['passes']} of them passing the test, brute force "
+              f"{r['brute']:.4e}; bound {r['bound'][0]:.4f} ms ({r['bound'][1]}: "
+              f"{MESH_PAIR_OPS} a pair and {MESH_PASS_OPS} more a passing pair at 67 TFLOP/s, "
+              f"{r['bytes'] / 1e6:.1f} MB at 3.35 TB/s), {100 * r['bound'][0] / r['ms']:.1f}% of "
+              f"the kernel; the plain test's bound ({MESH_PLAIN_PAIR_OPS} a pair) "
+              f"{r['plain_test_bound_ms']:.4f} ms; brute-force bound "
+              f"{bound(0.0, r['brute'] * MESH_PAIR_OPS)[0]:.4f} ms; on {card}")
+
+    # The hifi frames' labels with the kernel against those with the plain
+    # sweep on the card: kpt_visible, which the segments decide, on >= 0.99
+    # (tests/test_torch_cuda.py's bar of a hifi batch against the CPU).
+    packed_fn = meshcast.MeshCaster.packed
+
+    def plain_packed(self, world, ray_o, ray_d):
+        terms, lo, hi = self.mesh_terms(world, ray_o)
+        return meshcast.plain_mesh_sweep(terms, lo, hi, self._on(ray_d.device)["codes"],
+                                         ray_o.contiguous(), ray_d.contiguous(),
+                                         self.layout(ray_d.shape[1]))
+
     hgen = hpipe.make_generate_fn()
+    with torch.no_grad():
+        fk = hgen(SEED + 3000, range(n))
+        meshcast.MeshCaster.packed = plain_packed
+        try:
+            fp = hgen(SEED + 3000, range(n))
+        finally:
+            meshcast.MeshCaster.packed = packed_fn
+    agree = {f: (getattr(fk, f) == getattr(fp, f)).float().mean().item()
+             for f in ("kpt_visible", "instance")}
+    phase("mesh", f"hifi generate {n} x {RES}^2, the kernel against the plain sweep: "
+          f"kpt_visible agree {agree['kpt_visible']:.6f} (>= 0.99), instance "
+          f"{agree['instance']:.6f}")
+    check(agree["kpt_visible"] >= 0.99, "hifi frames: kpt_visible with the mesh sweep kernel")
+    del fk, fp
     pgen = Pipeline(cfg, device=dev).make_generate_fn()
     region_ms(hgen, 0, n)
     region_ms(pgen, 0, n)
@@ -1590,18 +1761,12 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
     for r, k in enumerate(("hifi", "proxy", "proxy", "hifi")):
         turns[k].append(region_ms(hgen if k == "hifi" else pgen, n * (r + 1), n))
     hifi_ms = min(turns["hifi"])
-    mesh_ms = mesh_r["pixels"]["ms"] + mesh_r["segments"]["ms"]
-    for name, r in mesh_r.items():
-        phase("mesh", f"{name}, {n} x {RES}^2: {r['ms']:.3f} ms a batch (CUDA events), device "
-              f"time {r['device_ms']:.3f} ms in {r['launches']} kernel launches; "
-              f"{r['visited']} (frame, ray group, block) visits = {r['pairs']:.4e} (ray, "
-              f"triangle) pairs, brute force {r['brute']:.4e}; bound {r['bound_ms']:.4f} ms "
-              f"(operations: {MESH_PAIR_OPS} a pair at 67 TFLOP/s), brute-force bound "
-              f"{bound(0.0, r['brute'] * MESH_PAIR_OPS)[0]:.4f} ms; on {card}")
+    mesh_ms = mesh_r["pixels"]["packed_ms"] + mesh_r["segments"]["packed_ms"]
     phase("time", f"generate {n} x {RES}^2 with heatmaps, in turns: hifi {turns['hifi']} ms, "
           f"proxy {turns['proxy']} ms; min {hifi_ms:.3f} ms = {n * 1000.0 / hifi_ms:.1f} "
           f"frames/s hifi, {min(turns['proxy']):.3f} ms proxy; the mesh sweep's "
-          f"{mesh_ms:.3f} ms is {100 * mesh_ms / hifi_ms:.1f}% of the hifi batch; on {card}")
+          f"{mesh_ms:.3f} ms (MeshCaster.packed, pixels and segments) is "
+          f"{100 * mesh_ms / hifi_ms:.1f}% of the hifi batch; on {card}")
 
     # The detector step (the run of record's scene) with every batch hifi,
     # beside the proxy step.
@@ -1614,7 +1779,16 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
             dcfg, det, Pipeline(dcfg, device=dev), hifi_pipe=hifi, hifi_every=1),
                     train_loop.create_train_state(dcfg, det), ", stride-2 maps, 2 dumpers, "
                     "3 workers", f"detector step, {tag} batches")
-    return launches
+    # The kernels line's entry: a hifi batch's two calls, pixels and segments.
+    bytes_, ops, pairs = (sum(r[k] for r in mesh_r.values()) for k in ("bytes", "ops", "pairs"))
+    total = {k: sum(r[k] for r in mesh_r.values())
+             for k in ("ms", "call_ms", "plain_ms", "packed_ms")}
+    return launches, {**total, "max_abs_err": max(r["max_abs_err"] for r in mesh_r.values()),
+                      "bound": bound(bytes_, ops), "hifi_eval": eval_mesh,
+                      "plain_test_bound_ms": bound(bytes_, pairs * MESH_PLAIN_PAIR_OPS)[0],
+                      "hifi_batch_ms": hifi_ms, **{k: {f: r[f] for f in (
+                          "ms", "call_ms", "packed_ms", "plain_ms", "plain_launches", "pairs",
+                          "passes")} for k, r in mesh_r.items()}}
 
 
 def textured_rgb_inputs(pipe, sweeper, world, inputs, M):
@@ -1871,7 +2045,8 @@ def textures_phase(dev, card, counters, datagen, work, ck):
                                                     for k, v in want.items()),
                   f"{path}: shard {c[0]} is not bit-equal to direct textured generate")
         want_l = {**dict.fromkeys(read(counters), 0), TEXTURED: len(chunks),
-                  "pixel_sweep": len(chunks), "heatmap_targets": len(chunks)}
+                  "pixel_sweep": len(chunks), "heatmap_targets": len(chunks),
+                  MESH: 2 * len(chunks) if "--hifi" in argv else 0}
         check(lines[-1].startswith(f"done: {frames} frames in ") and launches[path] == want_l,
               f"{path}: {lines[-1:]}, launches {launches[path]}, want {want_l}")
         phase("textures", f"generate --image-textures {' '.join(argv)} --format packed: {frames} "
@@ -1909,7 +2084,7 @@ def textures_phase(dev, card, counters, datagen, work, ck):
     got_l = launches["train_detect_textured"]
     check(not missing and hifi_calls[0] == n_hifi + 1 and got_l[TEXTURED] == n_hifi + 1
           and got_l["rgb_epilogue"] == TRAIN_STEPS - n_hifi
-          and got_l["pixel_sweep"] == TRAIN_STEPS + 1,
+          and got_l["pixel_sweep"] == TRAIN_STEPS + 1 and got_l[MESH] == 2 * hifi_calls[0],
           f"train-detect --image-textures: missing lines {missing}, hifi batches "
           f"{hifi_calls[0]}, launches {got_l}")
     phase("textures", f"train-detect {' '.join(DETECT_ARGS)} --hifi-mix {HIFI_MIX} --hifi-eval "
@@ -3092,8 +3267,9 @@ def main() -> int:
     try:
         two_stage_launches, crop_hm = two_stage_phase(dev, card, counters, work)
         two_stage_launches.update(sequence_phase(dev, card, counters, datagen, work, ck))
-        two_stage_launches.update(hifi_phase(dev, card, counters, datagen, work, ck,
-                                             (world, inputs.cam_pos, M, intr)))
+        hifi_launches, mesh_result = hifi_phase(dev, card, counters, datagen, work, ck,
+                                                (world, inputs.cam_pos, M, intr))
+        two_stage_launches.update(hifi_launches)
         # 11. [textures]: the image-texture tier, on the same checkpoints.
         tex_launches, results["rgb_epilogue"]["textured"] = textures_phase(
             dev, card, counters, datagen, work, ck)
@@ -3136,6 +3312,20 @@ def main() -> int:
     bench_launches = bench_phase(dev, card, counters, datagen)
     for k in counters:
         launches[k]["bench"] = bench_launches[k]
+
+    # The mesh sweep kernel launched on every hifi path, and on no other.
+    mesh_by_path = {p: c[MESH] for p, c in {
+        "eval": eval_launches, "train_eval": train_launches, "generate_cli": gen_cli_launches,
+        "train_data_dir": data_dir_launches, **two_stage_launches,
+        "bench": bench_launches}.items()}
+    mesh_by_path["hifi_eval"] = mesh_result.pop("hifi_eval")
+    stray = {p: c for p, c in mesh_by_path.items() if p not in HIFI_PATHS and c}
+    unlaunched = [p for p in HIFI_PATHS if not mesh_by_path[p] > 0]
+    phase("mesh", f"mesh sweep launches on the hifi paths "
+          f"{ {p: mesh_by_path[p] for p in HIFI_PATHS} }; on the {len(mesh_by_path) - len(HIFI_PATHS)}"
+          f" other paths: {stray or 'none'}")
+    check(not stray and not unlaunched, f"mesh sweep launches: none on {unlaunched}, stray "
+          f"{stray}")
 
     # 15. Timing: generate frames/s (every field consumed), min of 4 regions.
     region_ms(gen, B * 10)  # the warm-up
@@ -3203,6 +3393,14 @@ def main() -> int:
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}; roofline share "
               f"{100 * r['bound_ms'] / r['ms']:.1f}%), launches "
               f"{ {p: c[tier_key(v)] for p, c in an_launches.items()} } on {card}")
+    mesh_result["bound_ms"], mesh_result["bound_by"] = mesh_result.pop("bound")
+    phase("time", f"{MESH}: kernel {mesh_result['ms']:.4f} ms a hifi batch of {HIFI_FRAMES} x "
+          f"{RES}^2, pixels and segments (device time; the wrapper's calls "
+          f"{mesh_result['call_ms']:.4f} ms, MeshCaster.packed {mesh_result['packed_ms']:.4f} ms "
+          f"by CUDA events), plain {mesh_result['plain_ms']:.4f} ms, bound "
+          f"{mesh_result['bound_ms']:.4f} ms ({mesh_result['bound_by']}; roofline share "
+          f"{100 * mesh_result['bound_ms'] / mesh_result['ms']:.1f}%; the plain test's bound "
+          f"{mesh_result['plain_test_bound_ms']:.4f} ms), launches {mesh_by_path} on {card}")
     paths = ("train_crop", "train_detect", "infer", "generate_sequence", "infer_sequence",
              "generate_hifi", "train_detect_hifi", "infer_hifi", *textured_by_path, *an_launches,
              "bench")
@@ -3220,7 +3418,11 @@ def main() -> int:
          "launches": sum(c[tier_key(v)] for c in an_launches.values()),
          "launches_by_path": {p: c[tier_key(v)] for p, c in an_launches.items()},
          "library_ms": None, **r}
-        for v, r in tier_results.items()]}
+        for v, r in tier_results.items()] + [
+        {"name": MESH, "route": "cuda", "source": SOURCES[MESH], "replaces": REPLACES[MESH],
+         "jnp_loop": MESH_JNP_LOOP, "launches": sum(mesh_by_path[p] for p in HIFI_PATHS
+                                                    if p != "hifi_eval"),
+         "launches_by_path": mesh_by_path, "library_ms": None, **mesh_result}]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

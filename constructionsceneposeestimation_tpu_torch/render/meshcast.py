@@ -10,27 +10,31 @@ are byte copies of the JAX package's.
 
 With one camera origin a frame, each Möller–Trumbore quantity is a dot of
 the ray direction with a per-triangle vector: det = d . (e2 x e1), u_num =
-d . (e2 x s), v_num = d . (s x e1), t_num = e2 . (s x e1), s = o - v0. So
-a (rays x triangles) block test is one batched (R, 3) @ (3, 3T) product
-plus elementwise work, and the packed min (``raycast._pack``) yields depth
+d . (e2 x s), v_num = d . (s x e1), t_num = e2 . (s x e1), s = o - v0.
+``MeshCaster.mesh_terms`` computes those vectors for every frame and
+triangle, and the packed min (``raycast._pack``) of the test yields depth
 and instance together.
 
 Culling, as in the JAX sweep: each instance's faces are Morton-sorted and
 cut into blocks of ``tri_block`` triangles (padded with degenerate
 triangles, which miss), each block with its exact posed AABB inflated by
 1e-5 of its extent, so a grazing ray that passes Möller–Trumbore is not
-culled by an ulp. Rays go in groups of ``tile``: square image tiles on the
-pixel grid (``grid_hw``), contiguous ranges otherwise (the keypoint
-segments). The JAX sweep visits each tile's hit blocks in a ``while_loop``;
-here every (frame, group, block) slab test runs at once, the visited
-triples are gathered with one ``nonzero``, and the test runs on fixed-size
-chunks of triples, each (P, tile, tri_block), reduced into (B, groups,
-tile) with ``scatter_reduce(amin)``. The packed min does not depend on the
-order of visits, so the result is the JAX sweep's.
+culled by an ulp. Rays go in groups of ``tile`` (``ray_layout``): square
+image tiles on the pixel grid (``grid_hw``), contiguous ranges otherwise
+(the keypoint segments). Each group visits only the blocks whose box one
+of its rays meets.
 
-This sweep is PyTorch on tensors: the JAX package computes it in ``jnp``,
-outside any Pallas kernel. It is bound by the memory traffic of its
-elementwise passes over each chunk.
+Kernel: ``csrc/meshsweep.cu`` (``mesh_sweep_cuda``), which replaces the JAX
+sweep's ``tile_fn``, a ``jnp`` loop that XLA fuses: a CUDA block a slice of
+a group's rays, its slab test, and the visited blocks' triangles staged in
+shared memory. Plain version: ``plain_mesh_sweep``, where every (frame,
+group, block) slab test runs at once, the visited triples are gathered
+with one ``nonzero``, and the test runs on fixed-size chunks of triples as
+a batched (R, 3) @ (3, 3T) product, each (P, tile, tri_block), reduced into
+(B, groups, tile) with ``scatter_reduce(amin)``. The packed min does not
+depend on the order of visits, so both give the JAX sweep's result.
+``MeshCaster.packed`` dispatches on the device of the rays: CUDA tensors
+launch the kernel, CPU tensors take the plain version.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch
 
 from ..core import camera as cam_mod
 from ..scene import world as world_mod
+from ..utils import kernels
 from . import raycast
 from .sweep_kernel import PixelSweeper
 
@@ -55,9 +60,13 @@ SKIN_NPZ = DATA_DIR / "worker_skin.npz"
 DEFAULT_CLASSES = ("trafficcone", "tree", "fence", "human")
 
 _BIG = np.float32(3e38)
-# Elements of one (triples, rays, triangles) chunk of the triangle test and
-# of one chunk of the slab test: 128 MB a f32 intermediate.
+# Elements of one (triples, rays, triangles) chunk of the plain triangle
+# test and of one chunk of the slab test: 128 MB a f32 intermediate.
 MAX_PAIRS = 1 << 25
+# csrc/meshsweep.cu: its compile-time block of triangles, and the rows of
+# terms a block (cr 3, au 3, qv 3, tn).
+KERNEL_TRI_BLOCK = 512
+N_TERMS = 10
 
 
 def load_skin(path=SKIN_NPZ) -> Dict[str, np.ndarray]:
@@ -133,6 +142,143 @@ def _aabb_hit_any(ray_o: Tensor, ray_d: Tensor, lo: Tensor, hi: Tensor) -> Tenso
     return torch.any(ok & (tmn <= tmx) & (tmx > raycast.EPS), dim=2)
 
 
+class RayLayout(NamedTuple):
+    """A frame's N rays in ``groups`` groups of ``rays``: with ``grid_w`` > 0
+    square ``side`` x ``side`` tiles of a pixel grid ``grid_w`` wide, in
+    row-major order of the tiles; else contiguous ranges."""
+
+    groups: int
+    rays: int
+    grid_w: int
+    side: int
+
+
+def ray_layout(n: int, tile: int, grid_hw: Tuple[int, int] | None) -> RayLayout:
+    """Square image tiles of ``tile`` rays when the ``n`` rays are the
+    ``grid_hw`` pixel grid, contiguous ranges of ``tile`` when they divide
+    the rays, else one group."""
+    side = math.isqrt(tile)
+    if grid_hw is not None:
+        H, W = grid_hw
+        if n == H * W and H % side == 0 and W % side == 0:
+            return RayLayout(n // tile, tile, W, side)
+    if n > tile and n % tile == 0:
+        return RayLayout(n // tile, tile, 0, side)
+    return RayLayout(1, n, 0, side)
+
+
+def group_rays(x: Tensor, lay: RayLayout) -> Tensor:
+    """(B, N, ...) -> (B, groups, rays, ...) in ``lay``'s order."""
+    B, tail = x.shape[0], x.shape[2:]
+    if lay.grid_w:
+        s, W = lay.side, lay.grid_w
+        return (x.reshape(B, -1, s, W // s, s, *tail).transpose(2, 3)
+                .reshape(B, lay.groups, lay.rays, *tail))
+    return x.reshape(B, lay.groups, lay.rays, *tail)
+
+
+def ungroup(x: Tensor, lay: RayLayout) -> Tensor:
+    """(B, groups, rays) -> (B, N), the inverse of ``group_rays``."""
+    B = x.shape[0]
+    if lay.grid_w:
+        s, W = lay.side, lay.grid_w
+        return x.reshape(B, -1, W // s, s, s).transpose(2, 3).reshape(B, -1)
+    return x.reshape(B, -1)
+
+
+def block_hits(ray_o: Tensor, rays: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
+    """(B, G, n_blocks) bool: the blocks whose box a ray of the group
+    (``rays`` (B, G, R, 3)) hits, the slab test run on a few frames at a
+    time."""
+    B, G, R = rays.shape[:3]
+    step = max(1, MAX_PAIRS // (G * R * lo.shape[1]))
+    return torch.cat([_aabb_hit_any(ray_o[b:b + step], rays[b:b + step], lo[b:b + step],
+                                    hi[b:b + step]) for b in range(0, B, step)])
+
+
+def block_matrices(terms: Tensor) -> Tuple[Tensor, Tensor]:
+    """``terms`` (B, n_blocks, N_TERMS, T) as one matrix a block, W (B,
+    n_blocks, 3, 3T), whose columns are the vectors cr, au and qv of each
+    triangle in turn (a ray's (1, 3) @ W gives det | u_num | v_num), and
+    t_num (B, n_blocks, T)."""
+    B, nb, _, T = terms.shape
+    W = terms[:, :, :9].unflatten(2, (3, 3)).transpose(2, 3).reshape(B, nb, 3, 3 * T)
+    return W, terms[:, :, 9]
+
+
+def plain_mesh_sweep(terms: Tensor, lo: Tensor, hi: Tensor, codes: Tensor, ray_o: Tensor,
+                     ray_d: Tensor, lay: RayLayout) -> Tensor:
+    """Plain version of ``csrc/meshsweep.cu``: the packed min over the
+    blocks each group visits, (B, N) packed f32 (t | code), INF where no
+    block is visited. ``terms`` (B, n_blocks, N_TERMS, T), ``lo``/``hi``
+    (B, n_blocks, 3) as ``MeshCaster.mesh_terms`` gives them, ``codes``
+    (n_blocks,) int32, ``ray_o`` (B, 3), ``ray_d`` (B, N, 3)."""
+    B, _, _, T = terms.shape
+    W, tn = block_matrices(terms)
+    rays = group_rays(ray_d, lay)
+    G, R = lay.groups, lay.rays
+    triples = torch.nonzero(block_hits(ray_o, rays, lo, hi))  # (V, 3): b, g, block
+    best = torch.full((B * G, R), raycast.INF, device=ray_d.device)
+    step = max(1, MAX_PAIRS // (R * T))
+    for c in range(0, triples.shape[0], step):
+        b, g, k = triples[c:c + step].unbind(1)
+        D = torch.bmm(rays[b, g], W[b, k])  # (P, R, 3T): det | u_num | v_num
+        det = D[..., :T]
+        inv = torch.where(torch.abs(det) < raycast.EPS, 0.0, torch.reciprocal(det))
+        u, v = D[..., T:].unflatten(-1, (2, T)).mul_(inv[:, :, None]).unbind(2)
+        t = tn[b, k][:, None, :] * inv
+        # inv == 0 (|det| < EPS, the padding too) leaves t = 0, which
+        # fails t > EPS.
+        ok = (torch.minimum(u, v) >= 0.0) & (u + v <= 1.0) & (t > raycast.EPS)
+        t_min = torch.where(ok, t, float(raycast.INF)).amin(dim=2)  # (P, R)
+        # A block has one code, and packing a code is monotone in t: the
+        # pack of the block's min is the min of its packed values.
+        pk = raycast._pack(t_min, codes[k, None])
+        best.scatter_reduce_(0, (b * G + g)[:, None].expand(-1, R), pk, "amin")
+    return ungroup(best.reshape(B, G, R), lay)
+
+
+def mesh_sweep_cuda(terms: Tensor, lo: Tensor, hi: Tensor, codes: Tensor, ray_o: Tensor,
+                    ray_d: Tensor, lay: RayLayout, visits: Tensor | None = None) -> Tensor:
+    """Launch csrc/meshsweep.cu: ``plain_mesh_sweep``'s (B, N) packed f32.
+    With ``visits`` (B, groups) int32, the kernel also writes there the
+    blocks each group visits (``MeshCaster.visited(...).sum(-1)``). Raises,
+    before any launch, unless every tensor is a contiguous CUDA tensor of
+    its type and shape and the blocks hold ``KERNEL_TRI_BLOCK`` triangles,
+    the kernel's compile-time width."""
+    if terms.dim() != 4 or terms.shape[2:] != (N_TERMS, KERNEL_TRI_BLOCK):
+        raise ValueError(f"mesh sweep: terms must be (B, n_blocks, {N_TERMS}, "
+                         f"{KERNEL_TRI_BLOCK}): the kernel's tri_block is {KERNEL_TRI_BLOCK}, "
+                         f"got {tuple(terms.shape)}")
+    B, nb = terms.shape[:2]
+    N = ray_d.shape[1] if ray_d.dim() == 3 else -1
+    if lay.groups * lay.rays != N:
+        raise ValueError(f"mesh sweep: layout {lay} does not cover {N} rays")
+    specs = [("mesh terms", terms, torch.float32, tuple(terms.shape)),
+             ("mesh lo", lo, torch.float32, (B, nb, 3)),
+             ("mesh hi", hi, torch.float32, (B, nb, 3)),
+             ("mesh codes", codes, torch.int32, (nb,)),
+             ("mesh ray_o", ray_o, torch.float32, (B, 3)),
+             ("mesh ray_d", ray_d, torch.float32, (B, N, 3))]
+    if visits is not None:
+        specs.append(("mesh visits", visits, torch.int32, (B, lay.groups)))
+    # Types and shapes first, whatever the device; then device and layout.
+    for name, t, dtype, shape in specs:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} of shape {shape}, got {t.dtype} of "
+                             f"shape {tuple(t.shape)}")
+    for name, t, dtype, shape in specs:
+        kernels.check_cuda(name, t, dtype, shape)
+    out = torch.empty(B, N, dtype=torch.float32, device=ray_d.device)
+    kernels.launch("cspe_mesh_sweep", terms, lo, hi, codes, ray_o, ray_d, B, nb, N, lay.groups,
+                   lay.rays, lay.grid_w, lay.side, out, visits)
+    mesh_sweep_cuda.launches += 1
+    return out
+
+
+mesh_sweep_cuda.launches = 0
+
+
 class MeshCaster:
     """The culled triangle sweep over every roster instance of a meshed
     class (``make_mesh_caster``). ``packed(world, ray_o (B,
@@ -148,10 +294,9 @@ class MeshCaster:
         self.covered_prims = np.isin(np.asarray(roster.prim_inst), meshed)
         self.n_triangles = sum(c.n_faces * len(c.ids) for c in classes)
         # Each block's payload code: its owning instance + 2.
-        codes = np.concatenate([np.repeat(c.ids + 2, c.n_blocks * tri_block).astype(np.int32)
-                                for c in classes])
-        self.n_blocks = len(codes) // tri_block
-        self.codes = codes.reshape(self.n_blocks, tri_block)
+        self.codes = np.concatenate([np.repeat(c.ids + 2, c.n_blocks)
+                                     for c in classes]).astype(np.int32)
+        self.n_blocks = len(self.codes)
         self._dev = {}
 
     def _on(self, device) -> dict:
@@ -190,80 +335,42 @@ class MeshCaster:
         return tuple(torch.cat(c, dim=1).reshape(B, self.n_blocks, self.tri_block, 3)
                      for c in cs)
 
-    def _terms(self, world, ray_o: Tensor):
-        """Per triangle, W (B, n_blocks, 3, 3 tri_block): the vectors whose dots
-        with a ray give det, u_num and v_num; t_num (B, n_blocks, tri_block);
-        and each block's inflated AABB (lo, hi (B, n_blocks, 3))."""
+    def mesh_terms(self, world, ray_o: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+        """The sweep's inputs in the layout ``csrc/meshsweep.cu`` reads: terms
+        (B, n_blocks, N_TERMS, tri_block), for each block rows of tri_block
+        floats for cr = e2 x e1 (3; det = d . cr), au = e2 x s (3; u_num =
+        d . au), qv = s x e1 (3; v_num = d . qv) and tn = e2 . qv (t_num), s
+        = o - v0; and each block's inflated AABB, lo and hi (B, n_blocks,
+        3)."""
         c0, c1, c2 = self.corners(world)
         e1, e2 = c1 - c0, c2 - c0
         s = ray_o[:, None, None, :] - c0
         cross = lambda a, b: torch.linalg.cross(a, b, dim=-1)
         qv = cross(s, e1)
         tn = torch.sum(e2 * qv, dim=-1)
-        W = torch.cat([cross(e2, e1), cross(e2, s), qv], dim=2).transpose(2, 3)
+        terms = torch.cat([cross(e2, e1), cross(e2, s), qv, tn[..., None]], dim=-1)
         blk_lo = torch.minimum(torch.minimum(c0, c1), c2).amin(dim=2)
         blk_hi = torch.maximum(torch.maximum(c0, c1), c2).amax(dim=2)
         # The boxes are exact f32 bounds: inflate them, or a ray grazing a
         # silhouette triangle could pass the triangle test yet miss the slab.
         eps = 1e-5 * torch.amax(blk_hi - blk_lo, dim=-1, keepdim=True)
-        return W.contiguous(), tn, blk_lo - eps, blk_hi + eps
+        return terms.transpose(2, 3).contiguous(), blk_lo - eps, blk_hi + eps
 
-    def _groups(self, ray_d: Tensor):
-        """(rays (B, G, R, 3), back): square image tiles when ``ray_d`` is the
-        ``grid_hw`` pixel grid, contiguous ranges of ``tile`` when they divide
-        the rays, else one group; ``back`` maps (B, G, R) to (B, N)."""
-        B, N = ray_d.shape[:2]
-        th = tw = math.isqrt(self.tile)
-        if self.grid_hw is not None:
-            H, W = self.grid_hw
-            if N == H * W and H % th == 0 and W % tw == 0:
-                rt = (ray_d.reshape(B, H // th, th, W // tw, tw, 3).transpose(2, 3)
-                      .reshape(B, -1, th * tw, 3))
-                return rt, lambda x: (x.reshape(B, H // th, W // tw, th, tw).transpose(2, 3)
-                                      .reshape(B, N))
-        if N > self.tile and N % self.tile == 0:
-            return ray_d.reshape(B, N // self.tile, self.tile, 3), lambda x: x.reshape(B, N)
-        return ray_d[:, None], lambda x: x.reshape(B, N)
-
-    def relevant(self, ray_o: Tensor, rays: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
-        """(B, G, n_blocks) bool: the blocks whose box a ray of the group
-        hits, the slab test run on a few frames at a time."""
-        B, G, R = rays.shape[:3]
-        step = max(1, MAX_PAIRS // (G * R * self.n_blocks))
-        return torch.cat([_aabb_hit_any(ray_o[b:b + step], rays[b:b + step], lo[b:b + step],
-                                        hi[b:b + step]) for b in range(0, B, step)])
+    def layout(self, n: int) -> RayLayout:
+        """How ``n`` rays a frame go in groups (``ray_layout``)."""
+        return ray_layout(n, self.tile, self.grid_hw)
 
     def visited(self, world, ray_o: Tensor, ray_d: Tensor) -> Tensor:
         """(B, G, n_blocks) bool: the (frame, ray group, block) triples the
         sweep tests, each ``tile`` rays against ``tri_block`` triangles."""
-        _, _, lo, hi = self._terms(world, ray_o)
-        return self.relevant(ray_o, self._groups(ray_d)[0], lo, hi)
+        _, lo, hi = self.mesh_terms(world, ray_o)
+        return block_hits(ray_o, group_rays(ray_d, self.layout(ray_d.shape[1])), lo, hi)
 
     def packed(self, world, ray_o: Tensor, ray_d: Tensor) -> Tensor:
-        W, tn, lo, hi = self._terms(world, ray_o)
-        rays, back = self._groups(ray_d)
-        B, G, R = rays.shape[:3]
-        T = self.tri_block
-        codes = self._on(ray_d.device)["codes"]
-        triples = torch.nonzero(self.relevant(ray_o, rays, lo, hi))  # (V, 3): b, g, block
-        best = torch.full((B * G, R), raycast.INF, device=ray_d.device)
-        step = max(1, MAX_PAIRS // (R * T))
-        for c in range(0, triples.shape[0], step):
-            b, g, k = triples[c:c + step].unbind(1)
-            D = torch.bmm(rays[b, g], W[b, k])  # (P, R, 3T): det | u_num | v_num
-            det = D[..., :T]
-            inv = torch.where(torch.abs(det) < raycast.EPS, 0.0, torch.reciprocal(det))
-            u, v = D[..., T:].unflatten(-1, (2, T)).mul_(inv[:, :, None]).unbind(2)
-            t = tn[b, k][:, None, :] * inv
-            # inv == 0 (|det| < EPS, the padding too) leaves t = 0, which
-            # fails t > EPS.
-            ok = (torch.minimum(u, v) >= 0.0) & (u + v <= 1.0) & (t > raycast.EPS)
-            t_min = torch.where(ok, t, float(raycast.INF)).amin(dim=2)  # (P, R)
-            # A block has one code, and packing a code is monotone in t: the
-            # pack of the block's min is the min of its packed values.
-            pk = raycast._pack(t_min, codes[k, :1])
-            best.scatter_reduce_(0, (b * G + g)[:, None].expand(-1, R), pk, "amin")
-        return back(best.reshape(B, G, R))
+        terms, lo, hi = self.mesh_terms(world, ray_o)
+        sweep = mesh_sweep_cuda if ray_d.is_cuda else plain_mesh_sweep
+        return sweep(terms, lo, hi, self._on(ray_d.device)["codes"], ray_o.contiguous(),
+                     ray_d.contiguous(), self.layout(ray_d.shape[1]))
 
 
 def make_mesh_caster(roster: world_mod.Roster, tri_block: int = 512, tile: int = 1024,
@@ -272,8 +379,11 @@ def make_mesh_caster(roster: world_mod.Roster, tri_block: int = 512, tile: int =
     ``DEFAULT_CLASSES`` (the worker: the skinned mesh), or None when the
     roster has none. Every instance's faces are padded to whole blocks of
     ``tri_block``, so a block has one owning instance (the cull's grain).
-    ``tile`` rays a group, a perfect square: with ``grid_hw=(H, W)`` the
-    pixel rays go in square image tiles."""
+    ``tri_block`` is the JAX caster's knob and the plain version takes any;
+    the kernel's is compiled in, so on the card only ``KERNEL_TRI_BLOCK``
+    runs (``mesh_sweep_cuda`` refuses another before a launch). ``tile``
+    rays a group, a perfect square: with ``grid_hw=(H, W)`` the pixel rays
+    go in square image tiles."""
     if math.isqrt(tile) ** 2 != tile:
         raise ValueError(f"tile={tile} must be a perfect square (square image tiles: "
                          f"th = tw = isqrt(tile))")
@@ -312,7 +422,8 @@ class HifiCaster:
     caster of ``analytic_normals``) and ``fast_multi_origin`` (the shadow
     rays) are the unfiltered proxy roster's, as in JAX: under
     ``analytic_normals`` pixels and keypoint segments see the proxies, not
-    the meshes, and shadows are proxy-shaped."""
+    the meshes, and shadows are proxy-shaped. ``tri_block`` as in
+    ``make_mesh_caster``: only ``KERNEL_TRI_BLOCK`` runs on the card."""
 
     def __init__(self, roster: world_mod.Roster, grid_hw: Tuple[int, int] | None = None,
                  tile: int = 1024, tri_block: int = 512):

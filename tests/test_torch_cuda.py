@@ -121,6 +121,116 @@ def test_sweep_kernel_refuses_oversize_schedule(scene):
     assert sweep_kernel.sweep_cuda.launches == before
 
 
+MESH_SCENES = {"default": SceneConfig(), "two_dumpers": SceneConfig(n_dumpers=2, n_humans=3)}
+
+
+@pytest.fixture(scope="module", params=list(MESH_SCENES))
+def mesh_scene(dev, request):
+    """Four sampled frames of each hifi roster on the card: roster, world,
+    cameras, targets."""
+    sc = MESH_SCENES[request.param]
+    roster = world.make_roster(sc)
+    pose, _ = placement.sample_scenes([prng.generator(7, prng.SCENE_STREAM, i)
+                                       for i in range(4)], roster, sc, device=dev)
+    cam = torch.tensor([[9.0, 4.0, 3.0], [-14.0, 8.0, 6.0], [0.1, 0.1, 25.0], [5.0, -6.0, 1.6]],
+                       device=dev)
+    tgt = torch.tensor([[0.0, 0.0, 1.5], [2.0, 0.0, 1.0], [0.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                       device=dev)
+    return roster, world.build_world(roster, pose), cam, tgt
+
+
+def _check_mesh(mesh, w, cam, d):
+    """csrc/meshsweep.cu against plain_mesh_sweep on the same terms and rays,
+    to the pixel sweep's tolerances; its visits equal ``visited()``, two
+    calls are bit-equal and ``packed`` launches it. Returns its output."""
+    terms, lo, hi = mesh.mesh_terms(w, cam)
+    codes, lay = mesh._on(cam.device)["codes"], mesh.layout(d.shape[1])
+    visits = torch.full((cam.shape[0], lay.groups), -1, dtype=torch.int32, device=cam.device)
+    before = meshcast.mesh_sweep_cuda.launches
+    k = meshcast.mesh_sweep_cuda(terms, lo, hi, codes, cam, d, lay, visits)
+    again = meshcast.mesh_sweep_cuda(terms, lo, hi, codes, cam, d, lay)
+    packed = mesh.packed(w, cam, d)
+    assert meshcast.mesh_sweep_cuda.launches == before + 3
+    p = meshcast.plain_mesh_sweep(terms, lo, hi, codes, cam, d, lay)
+    assert torch.equal(k.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(k.view(torch.int32), packed.view(torch.int32))
+    assert torch.equal(visits, mesh.visited(w, cam, d).sum(-1).int())
+    tk, ck = raycast._unpack(k)
+    tp, cp = raycast._unpack(p)
+    hk, hp = tk < raycast.INF * 0.99, tp < raycast.INF * 0.99
+    assert (hk == hp).float().mean() > 0.9995
+    both = hk & hp
+    rel = (torch.abs(tk - tp) / tp)[both]
+    n = max(int(both.sum()), 1)
+    assert int((rel > 2e-4).sum()) / n < 1e-4
+    assert int((rel > 1e-5).sum()) / n < 0.005
+    assert int((ck[both] != cp[both]).sum()) / n < 1e-3
+    return k, visits
+
+
+@pytest.mark.parametrize("size", [128, 512])
+def test_mesh_sweep_kernel_matches_plain(mesh_scene, size):
+    """Pixels in 32 x 32 tiles (at 128^2 the groups are too few to fill the
+    card, so a CUDA block takes 64 rays of a tile; at 512^2 a whole tile)
+    and the keypoint segments, one group a frame."""
+    roster, w, cam, tgt = mesh_scene
+    intr = camera.intrinsics_from_apertures(12.0, 25.0, size, size)
+    mesh = meshcast.make_mesh_caster(roster, grid_hw=(size, size))
+    px = camera.pixel_rays(intr, camera.look_at_matrix(cam, tgt)).reshape(4, -1, 3)
+    _, visits = _check_mesh(mesh, w, cam, px)
+    assert int(visits.sum()) > 0
+    kp = world.world_keypoints(w["inst_rot"], w["inst_pos"], w["kpts_local"]).reshape(4, -1, 3)
+    _check_mesh(mesh, w, cam, (kp - cam[:, None]).contiguous())
+
+
+def test_mesh_sweep_camera_inside_a_block(mesh_scene):
+    """Cameras at the centre of a block's box (a tree's, in every frame),
+    looking through it at the scene."""
+    roster, w, cam, tgt = mesh_scene
+    mesh = meshcast.make_mesh_caster(roster, grid_hw=(128, 128))
+    _, lo, hi = mesh.mesh_terms(w, cam)
+    k = int(np.nonzero(mesh.codes - 2 == roster.inst_class_names.index("tree"))[0][0])
+    inside = 0.5 * (lo[:, k] + hi[:, k])
+    assert bool(((inside > lo[:, k]) & (inside < hi[:, k])).all())
+    intr = camera.intrinsics_from_apertures(12.0, 25.0, 128, 128)
+    px = camera.pixel_rays(intr, camera.look_at_matrix(inside, tgt)).reshape(4, -1, 3)
+    _check_mesh(mesh, w, inside, px)
+
+
+def test_mesh_sweep_with_no_visit_leaves_inf(mesh_scene):
+    """Cameras 200 m up looking up: no group meets a box, and every ray keeps
+    raycast.INF, bit for bit."""
+    roster, w, cam, _ = mesh_scene
+    mesh = meshcast.make_mesh_caster(roster, grid_hw=(128, 128))
+    up = cam + torch.tensor([0.0, 0.0, 200.0], device=cam.device)
+    intr = camera.intrinsics_from_apertures(12.0, 25.0, 128, 128)
+    px = camera.pixel_rays(intr, camera.look_at_matrix(up, up + torch.tensor(
+        [0.1, 0.0, 10.0], device=cam.device))).reshape(4, -1, 3)
+    out, visits = _check_mesh(mesh, w, up, px)
+    assert int(visits.abs().sum()) == 0
+    inf = torch.tensor(raycast.INF, device=cam.device).view(torch.int32)
+    assert bool((out.view(torch.int32) == inf).all())
+
+
+def test_mesh_sweep_one_group_of_many_rays(mesh_scene):
+    """1500 rays a frame, which 1024 does not divide: one group, which a
+    CUDA block's slab test walks in chunks."""
+    roster, w, cam, _ = mesh_scene
+    mesh = meshcast.make_mesh_caster(roster)
+    gen = torch.Generator().manual_seed(3)
+    aim = (torch.rand(4, 1500, 3, generator=gen) - 0.5) * torch.tensor([30.0, 30.0, 8.0])
+    d = (aim.to(cam.device) + torch.tensor([0.0, 0.0, 2.0], device=cam.device)
+         - cam[:, None]).contiguous()
+    assert mesh.layout(1500) == meshcast.RayLayout(1, 1500, 0, 32)
+    _check_mesh(mesh, w, cam, d)
+
+
+def test_mesh_sweep_kernel_has_no_spills(dev):
+    from constructionsceneposeestimation_tpu_torch.utils import kernels
+    report = kernels.ptxas_report("meshsweep.cu")
+    assert len(report) == 2 and all(r["spill_bytes"] == 0 for r in report.values()), report
+
+
 def _rgb_pair(roster, w, cam, tgt, width, height, noise, texels=None):
     """The kernel's and the plain version's images of the frames seen from
     cam (textured with ``texels``), the instance map, and the ground pixels
@@ -441,8 +551,11 @@ def test_hifi_and_clip_batches_on_cuda_match_cpu(dev, mode):
                    else Pipeline(cfg, device=where).make_sequence_fn(3))
            for where in (dev, "cpu")}
     before = sweep_kernel.sweep_cuda.launches
+    mesh_before = meshcast.mesh_sweep_cuda.launches
     g = fns[dev](3, range(1, 5))
     assert sweep_kernel.sweep_cuda.launches == before + 1
+    # The hifi batch's triangle sweep: pixels and keypoint segments.
+    assert meshcast.mesh_sweep_cuda.launches == mesh_before + (2 if hifi else 0)
     c = fns["cpu"](3, range(1, 5))
     assert (g.instance.cpu() == c.instance).float().mean() > 0.999
     fin = torch.isfinite(g.depth.cpu()) & torch.isfinite(c.depth)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time variants of the RGB and heatmap kernels on one GPU, and hold another
-build of the kernels against this one bit for bit.
+"""Time variants of the RGB, heatmap and mesh sweep kernels on one GPU, and
+hold another build of the kernels against this one bit for bit.
 
     python3 tools/kernel_variants.py [--against CSRC_DIR] [--only NAME,...]
                                      [--iters 20] [--out build/kernel_variants.json]
@@ -8,22 +8,28 @@ build of the kernels against this one bit for bit.
 Builds ``csrc/`` as it stands ("this"), each variant of ``VARIANTS`` (a copy
 of ``csrc/`` with a few lines of text replaced: the tiles a block and the
 launch bounds of ``csrc/rgb.cu``, its stages taken out one at a time to time
-each by its absence, the warps a block of ``csrc/heatmap.cu``), and
-``--against``, a directory of other sources with the same C entry points
-(an earlier ``csrc/``), each into a library of its own under
+each by its absence, the warps a block of ``csrc/heatmap.cu``, the rays a
+thread and the branch of ``csrc/meshsweep.cu``), and ``--against``, a
+directory of other sources with some of the same C entry points (an
+earlier ``csrc/``), each into a library of its own under
 ``build/kernel_variants/``. On the datagen path's inputs (64 frames at
 512^2, built as ``chip_smoke.py`` builds them; for the RGB kernel's
 untextured tier variants also the exact caster's normals and the sun-shadow
-rays' t, as ``annotate.render_frame`` builds them) it then:
+rays' t, as ``annotate.render_frame`` builds them) and the mesh sweep's (32
+hifi frames at 512^2, pixel rays in 32 x 32 tiles and keypoint segments,
+built as ``chip_smoke.py``'s ``[mesh]`` phase builds them) it then:
 
 - holds each library's RGB images (hash noise off and on, and each tier
-  variant with the noise on) and heatmaps against this build's: bit-equal
-  or not; for RGB the pixels that differ, split into sky, ground and
-  objects, and the max |d| in u8 levels; for heatmaps the max |d|;
+  variant with the noise on), heatmaps and mesh sweeps against this
+  build's: bit-equal or not; for RGB the pixels that differ, split into
+  sky, ground and objects, and the max |d| in u8 levels; for heatmaps the
+  max |d|; for the mesh sweep the rays that differ;
 - times each library's ``rgb_kernel`` (the default and, where the library
-  has ``cspe_rgb_tier``, each tier variant) and ``heatmap_kernel`` by
-  ``torch.profiler`` device time over ``--iters`` launches, in turns:
-  this, the others, the others again in reverse, this.
+  has ``cspe_rgb_tier``, each tier variant), ``heatmap_kernel`` and
+  ``mesh_sweep_kernel`` (pixels, segments) by ``torch.profiler`` device
+  time over ``--iters`` launches, in turns: this, the others, the others
+  again in reverse, this. A library is held and timed on the entry points
+  it has.
 
 Prints a line for each comparison and time, with the card's name and power
 limit and each kernel's registers and spills (``ptxas -v``), and writes them to
@@ -53,6 +59,32 @@ BOUNDS = ("__launch_bounds__(kTileW * kTileH,\n"
 # The untextured tier masks timed (render/rgb_kernel.TIERS), by name.
 TIERS = {"default": 0, "normal": 1, "shadow": 2, "normal+shadow": 3, "flat": 4,
          "flat+shadow": 6, "flat+normal+shadow": 7}
+# The mesh sweep's [mesh] inputs: frames and the sample seed.
+MESH_B, MESH_SEED = 32, 3000
+# csrc/meshsweep.cu: its triangle loop's head and its test a ray, and the
+# "any" variant's test: every ray's test first, then one branch a triangle
+# for the divides of the rays that pass.
+MESH_TRI = "      const float4 p = smem4[3 * i], q = smem4[3 * i + 1], w = smem4[3 * i + 2];\n"
+MESH_TEST = """        if (sign >= 0 && fabsf(un + vn) <= fabsf(det) && fabsf(det) >= kEps) {
+          const float t = w.y * (1.0f / det);
+          if (t > kEps) tb[j] = fminf(tb[j], t);
+        }
+      }
+"""
+MESH_ANY = """        dets[j] = det;
+        pass[j] = sign >= 0 && fabsf(un + vn) <= fabsf(det) && fabsf(det) >= kEps;
+        any = any || pass[j];
+      }
+      if (any) {
+#pragma unroll
+        for (int j = 0; j < kRays; ++j) {
+          if (pass[j]) {
+            const float t = w.y * (1.0f / dets[j]);
+            if (t > kEps) tb[j] = fminf(tb[j], t);
+          }
+        }
+      }
+"""
 # name: [(source, text, replacement)]; every text must occur once.
 VARIANTS = {
     **{f"rgb_tiles{n}": [("rgb.cu", "constexpr int kTiles = 4;", f"constexpr int kTiles = {n};")]
@@ -76,6 +108,13 @@ VARIANTS = {
                                 f"constexpr int kMinBlocksTier = {n};")] for n in (6, 7)},
     **{f"hm_warps{n}": [("heatmap.cu", "constexpr int kWarps = 16;",
                          f"constexpr int kWarps = {n};")] for n in (8, 32)},
+    # The pixel rays' instantiation at 128 threads x 8 rays a 1024-ray
+    # tile in place of 256 x 4; one branch a triangle in place of one a ray.
+    "mesh_rays8": [("meshsweep.cu", "launch<256, 4, 1>(a, B, smem, stream);",
+                    "launch<128, 8, 1>(a, B, smem, stream);")],
+    "mesh_any": [("meshsweep.cu", MESH_TRI,
+                  MESH_TRI + "      float dets[kRays];\n      bool pass[kRays], any = false;\n"),
+                 ("meshsweep.cu", MESH_TEST, MESH_ANY)],
 }
 
 
@@ -154,7 +193,8 @@ def main() -> int:
     from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
     from constructionsceneposeestimation_tpu_torch.core import camera as cam_mod
     from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
-    from constructionsceneposeestimation_tpu_torch.render import annotate, raycast, rgb_kernel
+    from constructionsceneposeestimation_tpu_torch.render import (annotate, meshcast, raycast,
+                                                                 rgb_kernel)
     from constructionsceneposeestimation_tpu_torch.scene import world as world_mod
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -214,6 +254,18 @@ def main() -> int:
     shadow = shadow.reshape(B, RES, RES).contiguous()
     del rd, p_hit
 
+    # The mesh sweep's inputs.
+    hpipe = Pipeline(cfg, device=dev, hifi_mesh=True)
+    hin = hpipe.sample_inputs(MESH_SEED, range(MESH_B))
+    hw = world_mod.build_world(hpipe.roster, hin.pose)
+    mesh, o = hpipe.caster.mesh, hin.cam_pos.contiguous()
+    hM = cam_mod.look_at_matrix(hin.cam_pos, hin.target)
+    hkp = world_mod.world_keypoints(hw["inst_rot"], hw["inst_pos"], hw["kpts_local"])
+    rays = {"pixels": cam_mod.pixel_rays(intr, hM).reshape(MESH_B, -1, 3).contiguous(),
+            "segments": (hkp.reshape(MESH_B, -1, 3) - o[:, None]).contiguous()}
+    terms, lo, hi = mesh.mesh_terms(hw, o)
+    codes = mesh._on(dev)["codes"]
+
     def rgb(lib, par, tier=0):
         out = torch.empty(B, RES, RES, 3, dtype=torch.uint8, device=dev)
         if tier == 0:
@@ -226,7 +278,16 @@ def main() -> int:
         return out
 
     def tiers(lib):
+        if not hasattr(lib, "cspe_rgb"):
+            return {}
         return TIERS if hasattr(lib, "cspe_rgb_tier") else {"default": 0}
+
+    def sweep(lib, d):
+        lay = mesh.layout(d.shape[1])
+        out = torch.empty(d.shape[:2], dtype=torch.float32, device=dev)
+        call(lib, "cspe_mesh_sweep", terms, lo, hi, codes, o, d, MESH_B, lo.shape[1], d.shape[1],
+             lay.groups, lay.rays, lay.grid_w, lay.side, out, None)
+        return out
 
     def heat(lib):
         out = torch.empty(B, C, h, h, dtype=torch.float32, device=dev)
@@ -238,11 +299,12 @@ def main() -> int:
     kinds = {"sky": inst == -2, "ground": inst == -1, "objects": inst >= 0}
     ref = {k: rgb(libs["this"], p) for k, p in pars.items()}
     ref_hm = heat(libs["this"])
+    ref_mesh = {k: sweep(libs["this"], d) for k, d in rays.items()}
     for name, lib in libs.items():
         if name == "this":
             continue
         res = {}
-        cases = [(k, p, 0) for k, p in pars.items()] + [
+        cases = [(k, p, 0) for k, p in pars.items() if tiers(lib)] + [
             (f"{n}, noise on", pars["noise on"], tier) for n, tier in tiers(lib).items() if tier]
         for k, p, tier in cases:
             if k not in ref:
@@ -254,9 +316,16 @@ def main() -> int:
                 "bit_equal": n == 0, "pixels_differ": n, "of": diff.numel(),
                 "max_abs_u8": int((img.int() - ref[k].int()).abs().max()),
                 **{f"on {kk}": int((diff & m).sum()) for kk, m in kinds.items()}}
-        hm = heat(lib)
-        res["heatmaps"] = {"bit_equal": bool(torch.equal(hm, ref_hm)),
-                           "max_abs": float((hm - ref_hm).abs().max())}
+        if hasattr(lib, "cspe_heatmap"):
+            hm = heat(lib)
+            res["heatmaps"] = {"bit_equal": bool(torch.equal(hm, ref_hm)),
+                               "max_abs": float((hm - ref_hm).abs().max())}
+        if hasattr(lib, "cspe_mesh_sweep"):
+            for k, d in rays.items():
+                differ = int((sweep(lib, d).view(torch.int32)
+                              != ref_mesh[k].view(torch.int32)).sum())
+                res[f"mesh sweep {k}"] = {"bit_equal": differ == 0, "rays_differ": differ,
+                                          "of": ref_mesh[k].numel()}
         torch.cuda.synchronize()
         report["compare"][name] = res
         for k, r in res.items():
@@ -265,16 +334,23 @@ def main() -> int:
     order = list(libs)
     for name in order + order[1:][::-1] + order[:1]:
         lib = libs[name]
-        r = report["ms"].setdefault(name, {"heatmap_kernel": []})
+        r = report["ms"].setdefault(name, {})
         for tn, tier in tiers(lib).items():
             key = "rgb_kernel" if tier == 0 else f"rgb_kernel {tn}"
             r.setdefault(key, []).append(device_ms(
                 lambda: rgb(lib, pars["noise on"], tier), "rgb_kernel", args.iters))
-        r["heatmap_kernel"].append(device_ms(lambda: heat(lib), "heatmap_kernel", args.iters))
+        if hasattr(lib, "cspe_heatmap"):
+            r.setdefault("heatmap_kernel", []).append(
+                device_ms(lambda: heat(lib), "heatmap_kernel", args.iters))
+        if hasattr(lib, "cspe_mesh_sweep"):
+            for k, d in rays.items():
+                r.setdefault(f"mesh_sweep_kernel {k}", []).append(
+                    device_ms(lambda: sweep(lib, d), "mesh_sweep_kernel", args.iters))
     for name, r in report["ms"].items():
         print(f"[time] {name}: " + "; ".join(f"{k} {', '.join(f'{x:.4f}' for x in v)} ms"
                                              for k, v in r.items())
-              + f" (device time a launch, 64 x 512^2, 71 x 128^2; {card})", flush=True)
+              + f" (device time a launch; RGB 64 x 512^2, heatmaps 71 x 128^2, mesh sweep "
+              f"{MESH_B} x 512^2 hifi; {card})", flush=True)
     out = ROOT / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     report["builds"] = {name: {"csrc": str(b[0]), "edits": b[1]} for name, b in builds.items()}
