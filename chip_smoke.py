@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths once on one NVIDIA GPU: datagen,
-evaluation, training (``train-eval``), dataset writing (``generate``,
-``train-eval --data-dir``), the two-stage deployment path
-(``train-crop``, ``train-detect``, ``infer``), clips (``--sequence-len``,
-``seq-eval``), the hifi CAD-mesh tier (``--hifi``, ``--hifi-mix``,
-``--hifi-eval``), the image-texture tier (``--image-textures``, the RGB
-kernel's textured variant), ``render_frame``'s analytic-normal, sun-shadow
-and flat-albedo tiers (the RGB kernel's tier variants), multi-GPU data
-parallelism (sharded generate and the DDP and FSDP training steps, on this
-one card) and the headline benchmark (``cli bench``).
+"""Drive the PyTorch port's paths once on one NVIDIA GPU: datagen, evaluation,
+training (``train-eval``), dataset writing (``generate``, ``train-eval
+--data-dir``), the two-stage deployment path (``train-crop``,
+``train-detect``, ``infer``), clips (``--sequence-len``, ``seq-eval``), the
+hifi CAD-mesh tier (``--hifi``, ``--hifi-mix``, ``--hifi-eval``), the
+image-texture tier (``--image-textures``, the RGB kernel's textured
+variant), ``render_frame``'s analytic-normal, sun-shadow and flat-albedo
+tiers (the RGB kernel's tier variants), the analytic caster's kernel
+(``csrc/raycast.cu``: the keypoint segments of every render, the exact
+caster and the shadow sweep), multi-GPU data parallelism (sharded generate
+and the DDP and FSDP training steps, on this one card) and the headline
+benchmark (``cli bench``).
 
     python3 chip_smoke.py
 
@@ -175,6 +177,25 @@ Run from the root of a checkout. Phases, each reported on its own line:
    variant's device time beside the default kernel's in one window, plain
    time, bound and registers; the default instantiation at 32 registers
    and no spills; no tier variant launched on an earlier path;
+12b. ``[raycast]``: ``csrc/raycast.cu``'s registers and spills; its three
+   modes against the plain walks (``render/raycast.packed_sweep``,
+   ``exact_sweep`` with ``plain_cast``'s normal, ``multi_sweep``) on the
+   card on the same inputs: the exact cast of 64 x 512^2 pixel rays (t,
+   prim and inst bit-equal, normals within 1e-6, their bit-equal share
+   printed), the shadow rays from its hits (every packed value
+   bit-equal), the packed sweep of those pixel rays, of the keypoint
+   segments of a 512-frame ``bench`` batch (and their exact cast) and of
+   both on the hifi tier's masked ``base`` roster (bit-equal); a
+   duplicated primitive resolving to the first index in the kernel and
+   the plain version, and ``torch.min``'s tie rule on the card; the card
+   against the CPU at 4 x 128^2 (the CPU tests' tolerances); each mode's
+   device time, its wrapper's call and the plain version beside its bound
+   (the (ray, row) pairs the rays need, each its row's
+   ``RAYCAST_ROW_OPS``) and the brute-force bound of every pair; the launches of one segment sweep, kernel and
+   plain, and of a 64-frame generate batch; after ``[bench]``, the packed
+   mode launched once a render on every path (as the pixel sweep, or the
+   exact mode under analytic normals), the exact and per-origin modes on
+   the analytic paths only, no plain walk on the card;
 13. ``[distributed]``: ``tools/check_sharded_step.py --dryrun`` under
    ``torch.distributed.run``, 2 ranks on cuda:0 over gloo, then 1 rank over
    NCCL: the dry run's FSDP step and its sharded generate at 256² bit-equal
@@ -214,7 +235,9 @@ sequence and hifi paths, ``train_crop`` (both crop runs), ``train_detect``,
 times at the crop shapes; one entry for each RGB tier variant, named
 ``rgb_epilogue/<variant>``, with its launches on the [analytic] paths; the
 ``mesh_sweep`` entry for a hifi batch's pixel and segment calls, with its
-launches by path), then the card line, then as the
+launches by path; the ``raycast_packed``, ``raycast_exact`` and
+``raycast_multi`` entries, each with its ``jnp_loop`` and launches by
+path), then the card line, then as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
 line, on any failure or when no GPU is present. Imports nothing of JAX.
 """
@@ -304,6 +327,44 @@ MESH = "mesh_sweep"
 MESH_JNP_LOOP = "constructionsceneposeestimation_tpu/render/meshcast.py:307-344"
 HIFI_PATHS = ("generate_hifi", "train_detect_hifi", "hifi_eval", "infer_hifi",
               "generate_hifi_textured", "train_detect_textured")
+# The analytic caster's kernel (csrc/raycast.cu) in its three modes, each
+# the kernel of a jnp sweep of the JAX caster (not a Pallas kernel); their
+# launches count under these keys, the profiler names their instantiations
+# by RAYCAST_KERNEL. PLAIN_CASTER counts the plain walks
+# (render/raycast.packed_sweep, exact_sweep, multi_sweep) run on the card
+# within a path: 0 on every path.
+RAYCAST_PACKED, RAYCAST_EXACT, RAYCAST_MULTI = "raycast_packed", "raycast_exact", "raycast_multi"
+RAYCAST_MODES = (RAYCAST_PACKED, RAYCAST_EXACT, RAYCAST_MULTI)
+RAYCAST_KERNEL = {RAYCAST_PACKED: "raycast_kernel<0>", RAYCAST_EXACT: "raycast_kernel<1>",
+                  RAYCAST_MULTI: "raycast_kernel<2>"}
+RAYCAST_JNP_LOOP = {
+    RAYCAST_PACKED: "constructionsceneposeestimation_tpu/render/raycast.py:542-653 "
+                    "(_sweep_packed_fast)",
+    RAYCAST_EXACT: "constructionsceneposeestimation_tpu/render/raycast.py:180-198, 272-324 "
+                   "(_sweep, _local_normal)",
+    RAYCAST_MULTI: "constructionsceneposeestimation_tpu/render/raycast.py:243-254 "
+                   "(_sweep_packed_multi)",
+}
+PLAIN_CASTER = "raycast_plain_on_card"
+# Operations csrc/raycast.cu does on one (ray, row) pair, by the row's op
+# (render/raycast.OP_*), counted from the source (each add, multiply,
+# compare, and, min/max, select, abs, divide and square root as one): the
+# generic local-frame formulas of plane, sphere, box, cylinder, cone and
+# capsule, then the packed walk's transform-free plane, sphere, cylinder
+# and cone, fence slab box, yaw box and axial capsule. A generic row also
+# needs its local direction (three dots, RAYCAST_LOCAL_OPS), and in the
+# per-origin mode its local origin (three differences and dots,
+# RAYCAST_ORIGIN_OPS); every pair ends in a pack and a min, or a compare
+# and two selects (RAYCAST_MERGE_OPS). A packed ray needs its reciprocals
+# and dots once (RAYCAST_RAY_OPS), an exact hit its normal, in world axes
+# (RAYCAST_NORMAL_OPS).
+RAYCAST_ROW_OPS = {0: 10, 1: 30, 2: 45, 3: 69, 4: 99, 5: 72,
+                   8: 5, 9: 25, 10: 59, 11: 91, 12: 33, 13: 52, 14: 83}
+RAYCAST_LOCAL_OPS = 15
+RAYCAST_ORIGIN_OPS = 18
+RAYCAST_MERGE_OPS = 3
+RAYCAST_RAY_OPS = 28
+RAYCAST_NORMAL_OPS = 60
 # The line heads `train-eval` prints after training (the JAX cli.py:262-331).
 TRAIN_EVAL_LINES = (
     "decode-floor PCK@0.5:", "model PCK@0.5:", "assoc decode floor:",
@@ -324,6 +385,9 @@ REPLACES = {
     "heatmap_targets": "constructionsceneposeestimation_tpu/ops/heatmap.py:58",
     "peak_decode": "constructionsceneposeestimation_tpu/ops/peak_kernel.py:56",
     MESH: "constructionsceneposeestimation_tpu/render/meshcast.py:307",
+    RAYCAST_PACKED: "constructionsceneposeestimation_tpu/render/raycast.py:542",
+    RAYCAST_EXACT: "constructionsceneposeestimation_tpu/render/raycast.py:180",
+    RAYCAST_MULTI: "constructionsceneposeestimation_tpu/render/raycast.py:243",
 }
 SOURCES = {
     "pixel_sweep": "constructionsceneposeestimation_tpu_torch/csrc/sweep.cu",
@@ -331,6 +395,7 @@ SOURCES = {
     "heatmap_targets": "constructionsceneposeestimation_tpu_torch/csrc/heatmap.cu",
     "peak_decode": "constructionsceneposeestimation_tpu_torch/csrc/peaks.cu",
     MESH: "constructionsceneposeestimation_tpu_torch/csrc/meshsweep.cu",
+    **dict.fromkeys(RAYCAST_MODES, "constructionsceneposeestimation_tpu_torch/csrc/raycast.cu"),
 }
 # The least time the card could take: the larger of the bytes the function
 # must move (each input read once, each output written once) over the
@@ -405,6 +470,10 @@ def cuda_ms(fn, iters=5, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+# The kernels' profiler keys that device_ms_window timed by CUDA events.
+EVENTS_TIMED = set()
+
+
 def device_ms(fn, key, iters=10):
     """Mean device milliseconds per launch of the kernels whose name holds
     ``key``, from torch.profiler over ``iters`` calls after a warm-up
@@ -418,45 +487,51 @@ def device_ms_window(calls, iters=10):
     over ``iters`` calls of each, taken in turns in one window after a
     warm-up: the kernel's own time, without its wrapper's host work, which
     exceeds a 0.2 ms kernel and would hide it from CUDA events around the
-    calls. The profiler has dropped records of a short kernel on the H100
-    (9 of 20 peak-kernel launches seen once, none of 10 heatmap launches
-    once), so each mean is over the launches it recorded, and a shortfall
-    is printed; a window in which it recorded none of a key is profiled
-    again, up to 3 times, and then that kernel is timed by CUDA events
-    around its calls instead, which is printed."""
+    calls. The window is the profiler's active step after a warm-up step of
+    the same calls (``schedule(warmup=1, active=1)``): without one, the
+    profiler has dropped records of the launches early in a window on the
+    H100. Each mean is over the launches it recorded, and a shortfall is
+    printed with the kernel names it did record; a window in which it
+    recorded none of a key is profiled again, up to 3 times, and then that
+    kernel is timed by CUDA events around its calls instead, which is
+    printed."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     out = [None] * len(calls)
     for attempt in range(3):
         for fn, _ in calls:
             fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                for fn, _ in calls:
-                    fn()
-            torch.cuda.synchronize()
-        averages = [e for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
+        kept = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: kept.append(p.key_averages())) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    for fn, _ in calls:
+                        fn()
+                torch.cuda.synchronize()
+                prof.step()
+        check(len(kept) == 1, f"the profiler closed {len(kept)} active windows, not 1")
+        averages = [e for e in kept[0] if e.device_type == torch.autograd.DeviceType.CUDA]
         for i, (_, key) in enumerate(calls):
             if out[i] is not None:
                 continue
             evs = [e for e in averages if key in e.key]
             seen = sum(e.count for e in evs)
             check(seen <= iters, f"profiler saw {key} launched {seen} times in {iters} calls")
+            if seen < iters:
+                names = {e.key[:90]: e.count for e in averages}
+                phase("time", f"profiler recorded {seen} of {iters} {key} launches (window "
+                      f"{attempt + 1} of 3); the kernels it recorded: {names}")
             if seen:
-                if seen < iters:
-                    phase("time", f"profiler recorded {seen} of {iters} {key} launches; mean "
-                          "over those")
                 out[i] = sum(e.self_device_time_total for e in evs) / 1000.0 / seen
-            else:
-                phase("time", f"profiler recorded no {key} launch in {iters} calls (window "
-                      f"{attempt + 1} of 3)")
         if all(v is not None for v in out):
             return out
     for i, (fn, key) in enumerate(calls):
         if out[i] is None:
             out[i] = cuda_ms(fn, iters=iters)
+            EVENTS_TIMED.add(key)
             phase("time", f"{key}: timed by CUDA events around {iters} calls instead: "
                   f"{out[i]:.4f} ms, the wrapper's host work included")
     return out
@@ -738,28 +813,49 @@ def host_fields(batch):
     return out
 
 
+def caster_wrappers():
+    """The analytic caster's kernel wrappers, by launch-count key."""
+    from constructionsceneposeestimation_tpu_torch.render import raycast
+    return {RAYCAST_PACKED: raycast.packed_cuda, RAYCAST_EXACT: raycast.exact_cuda,
+            RAYCAST_MULTI: raycast.multi_cuda}
+
+
+def plain_walks():
+    """The caster's plain walks, whose ``card_calls`` count their calls on
+    the card."""
+    from constructionsceneposeestimation_tpu_torch.render import raycast
+    return raycast.packed_sweep, raycast.exact_sweep, raycast.multi_sweep
+
+
 def reset(counters):
-    """Set every kernel wrapper's launch counts to 0, the mesh sweep's too."""
+    """Set every kernel wrapper's launch counts to 0, the mesh sweep's, the
+    caster's and the plain caster walks' too."""
     from constructionsceneposeestimation_tpu_torch.render import meshcast
-    for fn in counters.values():
+    for fn in [*counters.values(), *caster_wrappers().values()]:
         fn.launches = 0
     rgb = counters["rgb_epilogue"]
     rgb.textured_launches = 0
     rgb.tier_launches = dict.fromkeys(rgb.tier_launches, 0)
     meshcast.mesh_sweep_cuda.launches = 0
+    for fn in plain_walks():
+        fn.card_calls = 0
 
 
 def read(counters):
     """Every kernel wrapper's launch count, the RGB kernel's textured
     launches (``TEXTURED``) and those of each tier variant
-    (``tier_key``), which its ``launches`` do not include, and the mesh
-    sweep's (``MESH``), which launches on the hifi paths only."""
+    (``tier_key``), which its ``launches`` do not include, the mesh
+    sweep's (``MESH``), which launches on the hifi paths only, the
+    caster's three modes (``RAYCAST_MODES``) and the plain caster walks run
+    on the card (``PLAIN_CASTER``)."""
     from constructionsceneposeestimation_tpu_torch.render import meshcast
     rgb = counters["rgb_epilogue"]
     return {**{k: fn.launches for k, fn in counters.items()},
             TEXTURED: rgb.textured_launches,
             **{tier_key(v): n for v, n in rgb.tier_launches.items()},
-            MESH: meshcast.mesh_sweep_cuda.launches}
+            MESH: meshcast.mesh_sweep_cuda.launches,
+            **{k: fn.launches for k, fn in caster_wrappers().items()},
+            PLAIN_CASTER: sum(fn.card_calls for fn in plain_walks())}
 
 
 def tier_key(variant):
@@ -2046,6 +2142,7 @@ def textures_phase(dev, card, counters, datagen, work, ck):
                   f"{path}: shard {c[0]} is not bit-equal to direct textured generate")
         want_l = {**dict.fromkeys(read(counters), 0), TEXTURED: len(chunks),
                   "pixel_sweep": len(chunks), "heatmap_targets": len(chunks),
+                  RAYCAST_PACKED: len(chunks),
                   MESH: 2 * len(chunks) if "--hifi" in argv else 0}
         check(lines[-1].startswith(f"done: {frames} frames in ") and launches[path] == want_l,
               f"{path}: {lines[-1:]}, launches {launches[path]}, want {want_l}")
@@ -2225,8 +2322,8 @@ def analytic_phase(dev, card, counters):
     casters = {"cast_ms": cast_ms, "cast_peak_gib": cast_peak / 2 ** 30,
                "shadow_ms": shadow_ms, "shadow_peak_gib": shadow_peak / 2 ** 30,
                "rays": B * RES * RES, "lit_share": lit_share}
-    phase("analytic", f"exact caster (Raycaster.cast), {B} x {RES}^2 pixel rays in blocks of "
-          f"{2 ** 20} rays: {cast_ms:.3f} ms a batch (CUDA events), peak "
+    phase("analytic", f"exact caster (Raycaster.cast: csrc/raycast.cu), {B} x "
+          f"{RES}^2 pixel rays: {cast_ms:.3f} ms a batch (CUDA events), peak "
           f"{casters['cast_peak_gib']:.2f} GiB above the inputs; shadow sweep "
           f"(fast_multi_origin) from its hit points: {shadow_ms:.3f} ms, peak "
           f"{casters['shadow_peak_gib']:.2f} GiB; hit pixels {int(is_hit.sum()) / t.numel():.4f}, "
@@ -2303,8 +2400,10 @@ def analytic_phase(dev, card, counters):
         out = rf(**kw)
         torch.cuda.synchronize()
         launches[f"render_{name}"] = got = read(counters)
-        want = dict(zero, **{tier_key(name): 1,
-                             "pixel_sweep": 0 if kw["analytic_normals"] else 1})
+        an = kw["analytic_normals"]
+        want = dict(zero, **{tier_key(name): 1, "pixel_sweep": 0 if an else 1,
+                             RAYCAST_PACKED: 0 if an else 1, RAYCAST_EXACT: 2 if an else 0,
+                             RAYCAST_MULTI: int(kw["sun_shadows"])})
         check(got == want, f"render_frame {name}: launches {got}, want {want}")
         times[name] = cuda_ms(lambda: rf(**kw), iters=1, warmup=0)
         changed = (torch.abs(out.rgb.float() - default.rgb.float()).amax(-1) > 2).float().mean()
@@ -2374,7 +2473,8 @@ def analytic_phase(dev, card, counters):
         flat_b = fpipe.make_generate_fn()(SEED, range(B))
         torch.cuda.synchronize()
     launches["generate_flat"] = got = read(counters)
-    want = dict(zero, **{tier_key("flat"): 1, "pixel_sweep": 1, "heatmap_targets": 1})
+    want = dict(zero, **{tier_key("flat"): 1, "pixel_sweep": 1, "heatmap_targets": 1,
+                         RAYCAST_PACKED: 1})
     same = [f for f in flat_b._fields if f != "rgb"
             and torch.equal(getattr(flat_b, f), getattr(plain_b, f))]
     phase("analytic", f"Pipeline(procedural_textures=False) generate, {B} x {RES}^2 with "
@@ -2429,6 +2529,330 @@ def analytic_phase(dev, card, counters):
     check(d0 == {"registers": 32, "spill_bytes": 0},
           f"the default RGB kernel left 32 registers and no spills: {d0}")
     return launches, variants, casters
+
+
+def row_meets(table, roster, world, ray_o, ray_d):
+    """(S,) int64: for each row of ``table`` (a ``raycast.SweepTable``) the
+    rays of ray_d (B, N, 3), from ray_o (B, 3) or per ray (B, N, 3), whose
+    half-line meets the row's bounding sphere (``sweep_kernel``'s
+    ``bounding_radii`` of its kind; the ground plane always): the pairs a
+    walk needs, whatever it culls. Directions need not be unit length.
+    Frame by frame on the card."""
+    import numpy as np
+    import torch
+    from constructionsceneposeestimation_tpu_torch.render import sweep_kernel
+    from constructionsceneposeestimation_tpu_torch.scene import assets
+    prim = table.rows[:, 1]
+    op = {assets.PLANE: 0, assets.SPHERE: 1, assets.CYLINDER: 2, assets.CONE: 3,
+          assets.BOX: 4, assets.CAPSULE: 6}
+    kinds = np.asarray(roster.prim_kind)[prim]
+    sched_i = np.stack([np.asarray([op[int(k)] for k in kinds]), prim], -1)
+    radii = torch.as_tensor(sweep_kernel.bounding_radii(
+        sched_i, np.asarray(roster.prim_params)[prim]), device=ray_d.device)
+    plane = radii < 0
+    idx = torch.as_tensor(prim, device=ray_d.device).long()
+    meets = torch.zeros(len(prim), dtype=torch.int64, device=ray_d.device)
+    for b in range(ray_d.shape[0]):
+        d = ray_d[b]  # (N, 3)
+        v = world["prim_pos"][b, idx][None] - (ray_o[b][:, None] if ray_o.dim() == 3
+                                                else ray_o[b][None, None])  # (N or 1, S, 3)
+        dd = torch.sum(d * d, -1, keepdim=True)  # (N, 1)
+        tc = torch.sum(d[:, None] * v, -1)  # (N, S)
+        vv = torch.sum(v * v, -1)
+        r2 = radii * radii
+        meet = ((tc > 0) & (vv * dd - tc * tc <= r2 * dd)) | (vv <= r2) | plane
+        meets += meet.sum(0)
+    return meets
+
+
+def raycast_bound(table, meets, n_rays, nbytes, mode, hits=0):
+    """(bound_ms, bound_by, operations, brute-force bound_ms) of
+    csrc/raycast.cu's function of ``table`` over ``n_rays`` rays in
+    ``mode`` (``RAYCAST_MODES``), moving ``nbytes``: each needed (ray, row)
+    pair (``meets`` (S,), from ``row_meets``) its row's RAYCAST_ROW_OPS, a
+    generic row its local direction (and origin per ray), the merge; a
+    packed ray its shared terms, an exact hit its normal. The brute-force
+    bound charges every (ray, row) pair, as this walk tests them."""
+    ops = brute = 0
+    for op, n in zip(table.rows[:, 0].tolist(), meets.tolist()):
+        pair = RAYCAST_ROW_OPS[op] + RAYCAST_MERGE_OPS
+        if op <= 5:
+            pair += RAYCAST_LOCAL_OPS + (RAYCAST_ORIGIN_OPS if mode == RAYCAST_MULTI else 0)
+        ops += n * pair
+        brute += n_rays * pair
+    own = (n_rays * RAYCAST_RAY_OPS if mode == RAYCAST_PACKED else 0) + hits * RAYCAST_NORMAL_OPS
+    return (*bound(nbytes, ops + own), ops + own, bound(nbytes, brute + own)[0])
+
+
+def packed_equal(tag, k, p):
+    """Two packed (B, N) sweeps, bit for bit: printed; returns the share of
+    values that differ."""
+    import torch
+    differ = (k.view(torch.int32) != p.view(torch.int32)).float().mean().item()
+    phase("raycast", f"{tag}: {k.numel()} packed values, bit-equal to the plain version on "
+          f"{1.0 - differ:.6f} (all)")
+    return differ
+
+
+def exact_equal(tag, k, p):
+    """Two exact casts (``Raycaster.cast``'s dicts): t, prim and inst bit for
+    bit, the normal's bit-equal share and max |d| on the hits; printed.
+    Returns (every t, prim and inst equal, normal max |d|)."""
+    import torch
+    same = {f: bool(torch.equal(k[f].view(torch.int32) if f == "t" else k[f],
+                                p[f].view(torch.int32) if f == "t" else p[f]))
+            for f in ("t", "prim", "inst")}
+    hit = torch.isfinite(p["t"])
+    dn = torch.abs(k["normal"] - p["normal"]).amax(-1)
+    share = (dn[hit] == 0).float().mean().item()
+    err = dn.max().item()
+    phase("raycast", f"{tag}: {hit.numel()} rays, {int(hit.sum())} hits; bit-equal to the plain "
+          f"version: t {same['t']}, prim {same['prim']}, inst {same['inst']}; normal bit-equal "
+          f"on {share:.6f} of the hits, max |d| {err:.3e} (<= 1e-6)")
+    return all(same.values()), err
+
+
+def plain_multi_packed(caster, world, ray_o, ray_d):
+    """``Raycaster.plain_multi_origin``'s packed values: the plain
+    per-origin walk, ``EXACT_RAYS`` rays at a time."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.render import raycast
+    return torch.cat([raycast.multi_sweep(caster.kind_table, world, ray_o[:, s], ray_d[:, s])
+                      for s in raycast._blocks(*ray_d.shape[:2])], dim=1)
+
+
+def casts_agree(tag, a, b, n_px):
+    """Card against CPU casts ({t, inst[, prim, normal]}) of rays whose
+    first ``n_px`` a frame are pixel rays and the rest keypoint segments:
+    hits and instances on > 0.999 of the pixel rays and > 0.99 of the
+    segments, t to rtol 3e-4 on the same share of the common hits; normals
+    within 1e-5 on > 0.98 of the common pixel hits and 1e-2 on all (the
+    tolerances of tests/test_torch_raycast.py and test_torch_analytic.py).
+    Returns the stats and whether they hold."""
+    import torch
+    stats, ok = {}, True
+    for part, sl, bar in (("pixels", slice(0, n_px), 0.999), ("segments", slice(n_px, None), 0.99)):
+        ta, tb = a["t"][:, sl].cpu(), b["t"][:, sl]
+        if ta.numel() == 0:
+            continue
+        ha, hb = torch.isfinite(ta), torch.isfinite(tb)
+        both = ha & hb
+        hit = (ha == hb).float().mean().item()
+        close = (torch.abs(ta - tb) <= 3e-4 * torch.abs(tb))[both].float().mean().item()
+        inst = (a["inst"][:, sl].cpu() == b["inst"][:, sl])[both].float().mean().item()
+        stats.update({f"{part} hit": hit, f"{part} t": close, f"{part} inst": inst})
+        ok = ok and hit > bar and close > bar and inst > bar
+        if "normal" in a and part == "pixels":
+            dn = torch.abs(a["normal"][:, sl].cpu() - b["normal"][:, sl]).amax(-1)[both]
+            stats["normal > 1e-5"] = (dn > 1e-5).float().mean().item()
+            stats["normal max"] = dn.max().item()
+            ok = ok and stats["normal > 1e-5"] < 0.02 and stats["normal max"] < 1e-2
+    phase("raycast", f"card vs CPU, {tag}: " + ", ".join(f"{k} {v:.6g}" for k, v in stats.items()))
+    return ok
+
+
+def raycast_phase(dev, card):
+    """``[raycast]``: csrc/raycast.cu in its three modes against the plain
+    walks on the card, on the same inputs: the exact cast of 64 x 512^2
+    pixel rays (t, prim and inst bit-equal, normals within 1e-6), the
+    shadow rays from its hits toward the sun (every packed value
+    bit-equal), the packed sweep of those pixel rays, of the keypoint
+    segments of a 512-frame ``bench`` batch (and their exact cast) and of
+    both on the hifi tier's masked ``base`` roster; a duplicated primitive
+    resolving to the first index in the kernel and in the plain version
+    (and ``torch.min``'s own tie rule); the card against the CPU at 4 x
+    128^2; each mode's device time, its wrapper's call and the plain
+    version, beside its bound of the needed (ray, row) pairs and the
+    brute-force bound; the launches of one segment sweep, kernel and plain, and of a 64-frame
+    generate batch. Returns the kernels line's numbers of each mode."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
+    from constructionsceneposeestimation_tpu_torch.core import camera as cam_mod
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
+    from constructionsceneposeestimation_tpu_torch.render import meshcast, raycast
+    from constructionsceneposeestimation_tpu_torch.scene import assets, world as world_mod
+    from constructionsceneposeestimation_tpu_torch.utils import kernels
+
+    regs = kernels.ptxas_report("raycast.cu")
+    phase("raycast", f"csrc/raycast.cu, registers and spill bytes (ptxas): {regs}")
+    cfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES, batch_size=B))
+    pipe = Pipeline(cfg, device=dev)
+    roster, caster = pipe.roster, pipe.caster
+    base = meshcast.HifiCaster(roster, grid_hw=(RES, RES)).base
+    inputs = pipe.sample_inputs(SEED, range(B))
+    world = world_mod.build_world(roster, inputs.pose)
+    cam = inputs.cam_pos.contiguous()
+    px = cam_mod.pixel_rays(pipe.intr, cam_mod.look_at_matrix(cam, inputs.target))
+    px = px.reshape(B, -1, 3).contiguous()
+    ok, errs = True, {}
+
+    # The exact cast of the pixel rays, then the shadow rays from its hits
+    # as render_frame builds them.
+    k, p = caster.cast(world, cam, px), caster.plain_cast(world, cam, px)
+    same, errs[RAYCAST_EXACT] = exact_equal(f"exact, {B} x {RES}^2 pixel rays", k, p)
+    ok = ok and same and errs[RAYCAST_EXACT] <= 1e-6
+    hits = int(torch.isfinite(p["t"]).sum())
+    sun = -inputs.lighting.sun_dir
+    shadow_o = (cam[:, None] + torch.where(torch.isfinite(p["t"]), p["t"], 0.0)[..., None] * px
+                + (sun * 1e-3)[:, None]).contiguous()
+    shadow_d = sun[:, None].expand(B, RES * RES, 3).contiguous()
+    del k, p
+    k = raycast.multi_cuda(caster.kind_table, world, shadow_o, shadow_d)
+    ok = ok and packed_equal(f"multi, {B} x {RES}^2 shadow rays", k,
+                             plain_multi_packed(caster, world, shadow_o, shadow_d)) == 0
+    lit = (raycast._unpack(k)[0] >= raycast.INF * 0.99).float().mean().item()
+    ok = ok and packed_equal(f"packed, {B} x {RES}^2 pixel rays", caster.packed(world, cam, px),
+                             caster.plain_packed(world, cam, px)) == 0
+    ok = ok and packed_equal(f"packed, masked hifi base roster ({len(base.packed_table.rows)} of "
+                             f"{roster.num_prims} rows), {B} x {RES}^2 pixel rays",
+                             base.packed(world, cam, px), base.plain_packed(world, cam, px)) == 0
+    del k
+
+    # The keypoint segments of a bench batch.
+    n = 512
+    big = Pipeline(Config(pipeline=PipelineConfig(render_width=RES, render_height=RES,
+                                                  batch_size=n)), device=dev)
+    inp = big.sample_inputs(500, range(n))
+    w = world_mod.build_world(roster, inp.pose)
+    scam = inp.cam_pos.contiguous()
+    kp = world_mod.world_keypoints(w["inst_rot"], w["inst_pos"], w["kpts_local"])
+    seg = (kp.reshape(n, -1, 3) - scam[:, None]).contiguous()
+    ok = ok and packed_equal(f"packed, {n} frames x {seg.shape[1]} keypoint segments",
+                             caster.packed(w, scam, seg), caster.plain_packed(w, scam, seg)) == 0
+    ok = ok and packed_equal(f"packed, masked hifi base roster, {n} x {seg.shape[1]} segments",
+                             base.packed(w, scam, seg), base.plain_packed(w, scam, seg)) == 0
+    same, err = exact_equal(f"exact, {n} x {seg.shape[1]} segments", caster.cast(w, scam, seg),
+                            caster.plain_cast(w, scam, seg))
+    ok = ok and same and err <= 1e-6
+    errs[RAYCAST_EXACT] = max(errs[RAYCAST_EXACT], err)
+    errs[RAYCAST_PACKED] = errs[RAYCAST_MULTI] = 0.0
+    check(ok, "raycast: a kernel mode disagrees with its plain version on the card")
+
+    # A duplicated primitive: the last box made the first box's twin. The
+    # exact cast must name the first wherever either is hit.
+    boxes = [i for i, kd in enumerate(roster.prim_kind) if kd == assets.BOX]
+    i, j = boxes[0], boxes[-1]
+    wd = {key: v.clone() for key, v in world.items()}
+    for key in ("prim_rot", "prim_pos"):
+        wd[key][:, j] = wd[key][:, i]
+    wd["prim_params"][j] = wd["prim_params"][i]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    aim = wd["prim_pos"][:, i, None] + torch.rand(B, 4096, 3, device=dev, generator=g) * 2 - 1
+    dd = (aim - cam[:, None]).contiguous()
+    kd, pd = caster.cast(wd, cam, dd)["prim"], caster.plain_cast(wd, cam, dd)["prim"]
+    tie_v, tie_i = torch.min(torch.tensor([[[1.0, 2.0], [1.0, 0.5], [2.0, 0.5]]], device=dev),
+                             dim=1)
+    # PyTorch's order of summation over three elements on the card, which
+    # the kernel's normal mirrors: (x0 + x2) + x1.
+    x = torch.rand(1 << 20, 3, device=dev, generator=g) * torch.tensor([1.0, 1e-3, 1e3],
+                                                                       device=dev)
+    s3 = torch.sum(x, -1)
+    orders = {"(x0 + x1) + x2": bool(torch.equal(s3, (x[:, 0] + x[:, 1]) + x[:, 2])),
+              "(x0 + x2) + x1": bool(torch.equal(s3, (x[:, 0] + x[:, 2]) + x[:, 1]))}
+    phase("raycast", f"torch.sum over rows of three on the card, 2^20 rows, equal to: {orders}")
+    check(orders["(x0 + x2) + x1"], "torch.sum's order over three elements is not the kernel's")
+    phase("raycast", f"duplicated primitive (box {j} made box {i}'s twin), {B} x 4096 rays at "
+          f"it: kernel names box {i} on {(kd == i).float().mean().item():.4f}, box {j} on "
+          f"{int((kd == j).sum())} rays; plain version {(pd == i).float().mean().item():.4f}, "
+          f"{int((pd == j).sum())}; equal {bool(torch.equal(kd, pd))}; torch.min(dim=1) on the "
+          f"card on ties: indices {tie_i.tolist()} of values {tie_v.tolist()} (first: [[0, 1]])")
+    check(bool(torch.equal(kd, pd)) and not bool((kd == j).any()) and bool((kd == i).any())
+          and tie_i.tolist() == [[0, 1]], "raycast: a tie did not resolve to the first index")
+    del wd, kd, pd, dd, aim
+
+    # The card against the CPU, 4 x 128^2: pixel rays then segments.
+    small = Config(pipeline=PipelineConfig(render_width=SMALL_RES, render_height=SMALL_RES,
+                                           batch_size=4))
+    sp = Pipeline(small, device="cpu")
+    inp_c = sp.sample_inputs(SEED, range(10, 14))
+    w_c = world_mod.build_world(roster, inp_c.pose)
+    px_c = cam_mod.pixel_rays(sp.intr, cam_mod.look_at_matrix(inp_c.cam_pos, inp_c.target))
+    kp_c = world_mod.world_keypoints(w_c["inst_rot"], w_c["inst_pos"], w_c["kpts_local"])
+    rays_c = torch.cat([px_c.reshape(4, -1, 3), kp_c.reshape(4, -1, 3) - inp_c.cam_pos[:, None]],
+                       dim=1).contiguous()
+    n_px = SMALL_RES * SMALL_RES
+    w_d = {key: v.to(dev) for key, v in w_c.items()}
+    cam_c, cam_d, rays_d = inp_c.cam_pos, inp_c.cam_pos.to(dev), rays_c.to(dev)
+    cpu = raycast.Raycaster(roster)
+    e_cpu = cpu.cast(w_c, cam_c, rays_c)
+    ok = casts_agree("fast", caster.fast(w_d, cam_d, rays_d), cpu.fast(w_c, cam_c, rays_c), n_px)
+    ok = casts_agree("cast", caster.cast(w_d, cam_d, rays_d), e_cpu, n_px) and ok
+    so_c = (cam_c[:, None] + torch.where(torch.isfinite(e_cpu["t"]), e_cpu["t"], 0.0)[..., None]
+            * rays_c + 1e-3 * torch.tensor([0.3, 0.2, 0.93])).contiguous()
+    sd_c = torch.tensor([0.3, 0.2, 0.93]).expand_as(rays_c).contiguous()
+    ok = casts_agree("fast_multi_origin", caster.fast_multi_origin(w_d, so_c.to(dev), sd_c.to(dev)),
+                     cpu.fast_multi_origin(w_c, so_c, sd_c), n_px) and ok
+    check(ok, "raycast: the card disagrees with the CPU")
+
+    # Times: device time, the wrapper's call and the plain version, beside
+    # the bound of the (ray, row) pairs these rays need and of brute force.
+    calls = {
+        RAYCAST_PACKED: (caster.packed_table, w, scam, seg,
+                         lambda: raycast.packed_cuda(caster.packed_table, w, scam, seg),
+                         lambda: caster.plain_packed(w, scam, seg), 4, 0),
+        RAYCAST_EXACT: (caster.kind_table, world, cam, px,
+                        lambda: raycast.exact_cuda(caster.kind_table, world, cam, px),
+                        lambda: caster.plain_cast(world, cam, px), 4 + 8 + 4 + 12, hits),
+        RAYCAST_MULTI: (caster.kind_table, world, shadow_o, shadow_d,
+                        lambda: raycast.multi_cuda(caster.kind_table, world, shadow_o, shadow_d),
+                        lambda: caster.plain_multi_origin(world, shadow_o, shadow_d), 4, 0),
+    }
+    results = {}
+    for mode, (table, wm, ro, rd, k_fn, p_fn, out_bytes, n_hits) in calls.items():
+        rays = rd.shape[0] * rd.shape[1]
+        sums = raycast.axis_sums(table, wm, ro) if mode == RAYCAST_PACKED else None
+        nbytes = ((ro.numel() + rd.numel()) * 4 + rays * out_bytes + table.rows.size * 4
+                  + (wm["prim_pos"].numel() + wm["prim_rot"].numel()
+                     + wm["prim_params"].numel()) * 4 + (0 if sums is None else sums.numel() * 4))
+        meets = row_meets(table, roster, wm, ro, rd)
+        b_ms, b_by, ops, brute_ms = raycast_bound(table, meets, rays, nbytes, mode, n_hits)
+        ms = device_ms(k_fn, RAYCAST_KERNEL[mode])
+        r = {"max_abs_err": errs[mode], "ms": ms,
+             "ms_by": "cuda_events" if RAYCAST_KERNEL[mode] in EVENTS_TIMED else "profiler",
+             "call_ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, iters=2, warmup=1),
+             "bound": (b_ms, b_by), "brute_force_bound_ms": brute_ms, "rays": rays,
+             "pairs": rays * len(table.rows), "pairs_needed": int(meets.sum()),
+             "registers": regs[RAYCAST_KERNEL[mode]]["registers"],
+             "spill_bytes": regs[RAYCAST_KERNEL[mode]]["spill_bytes"]}
+        results[mode] = r
+        phase("time", f"{mode}: kernel {r['ms']:.4f} ms (by {r['ms_by']}; the wrapper's call "
+              f"{r['call_ms']:.4f} ms, CUDA events), plain {r['plain_ms']:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}: {ops:.4e} operations, {nbytes / 1e6:.1f} MB; "
+              f"{r['pairs_needed']:.4e} of the {r['pairs']:.4e} (ray, row) pairs needed, "
+              f"{r['pairs_needed'] / rays:.2f} rows a ray; roofline share "
+              f"{100 * b_ms / r['ms']:.1f}%), brute-force bound {brute_ms:.4f} ms "
+              f"({100 * brute_ms / r['ms']:.1f}%), {r['registers']} registers, "
+              f"{r['spill_bytes']} bytes of spill stores; on {card}")
+    phase("raycast", f"lit share of the {B} x {RES}^2 shadow rays {lit:.4f}")
+
+    # Launches of one segment sweep, kernel path and plain, and of a
+    # 64-frame generate batch: in each of two windows of 3 calls after a
+    # warm-up step, the larger (the profiler drops some records).
+    counts = {}
+    for name, fn in (("segments, Raycaster.packed", lambda: caster.packed(w, scam, seg)),
+                     ("segments, plain_packed", lambda: caster.plain_packed(w, scam, seg)),
+                     (f"generate {B} x {RES}^2", lambda: pipe.make_generate_fn()(SEED, range(B)))):
+        totals = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=2),
+                     on_trace_ready=lambda p: totals.append(sum(
+                         e.count for e in p.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA))) as prof:
+            for _ in range(4):
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        check(len(totals) == 2, f"{name}: {len(totals)} profiled windows, not 2")
+        counts[name] = max(totals) / 3
+        phase("raycast", f"{name}: {totals} launches in two windows of 3 calls")
+    phase("raycast", "CUDA launches (torch.profiler): " + ", ".join(
+        f"{k} {v}" for k, v in counts.items()) + f" on {card}")
+    results[RAYCAST_PACKED]["segment_call_launches"] = counts["segments, Raycaster.packed"]
+    results[RAYCAST_PACKED]["segment_plain_launches"] = counts["segments, plain_packed"]
+    results[RAYCAST_PACKED]["generate_batch_launches"] = counts[f"generate {B} x {RES}^2"]
+    return results
 
 
 def distributed_phase(card):
@@ -2613,10 +3037,11 @@ def bench_phase(dev, card, counters, datagen):
     check(rec["vs_baseline"] == round(rec["value"] / bench.REFERENCE_FPS, 1),
           f"vs_baseline {rec['vs_baseline']} != round({rec['value']} / 0.15, 1)")
     calls = 2 * bench.STEPS
-    stray = {k: c for k, c in got.items() if k not in datagen and c}
+    once = (*datagen, RAYCAST_PACKED)
+    stray = {k: c for k, c in got.items() if k not in once and c}
     phase("bench", f"launches over {calls} generate calls (warm-up and timed): "
-          f"{ {k: got[k] for k in datagen} }; other kernels and variants: {stray or 'none'}")
-    check(all(got[k] == calls for k in datagen),
+          f"{ {k: got[k] for k in once} }; other kernels and variants: {stray or 'none'}")
+    check(all(got[k] == calls for k in once),
           f"bench: a datagen kernel did not launch once a generate call: {got}")
     check(not stray, f"bench launched another kernel or variant: {stray}")
     n, steps = res["batch"], res["steps"]
@@ -2917,6 +3342,7 @@ def main() -> int:
         rose = {k: counters[k].launches - before[k] for k in datagen}
         check(all(v > 0 for v in rose.values()), f"batch {i}: a kernel did not launch: {rose}")
     launches = {k: counters[k].launches for k in datagen}
+    gen_read = read(counters)
     phase("main", f"3 batches of {B} frames at {RES}^2; launches {launches}")
     check(read(counters)[TEXTURED] == 0, "untextured generate launched the textured variant")
 
@@ -3298,6 +3724,8 @@ def main() -> int:
           f"{stray or 'none'}")
     check(not stray, f"an RGB tier variant launched on an earlier path: {stray}")
     two_stage_launches.update(an_launches)
+    # 12b. [raycast]: the analytic caster's kernel against its plain walks.
+    raycast_results = raycast_phase(dev, card)
     for k in counters:
         for path, counts in two_stage_launches.items():
             launches[k][path] = counts[k]
@@ -3326,6 +3754,25 @@ def main() -> int:
           f" other paths: {stray or 'none'}")
     check(not stray and not unlaunched, f"mesh sweep launches: none on {unlaunched}, stray "
           f"{stray}")
+
+    # The caster's packed mode launched once a render on every path (as the
+    # pixel sweep, or the exact mode under analytic normals), the exact and
+    # per-origin modes only on the analytic tiers, the plain walks nowhere.
+    by_path = {"generate": gen_read, "eval": eval_launches, "train_eval": train_launches,
+               "generate_cli": gen_cli_launches, "train_data_dir": data_dir_launches,
+               **two_stage_launches, "bench": bench_launches}
+    caster_by_path = {m: {p: c[m] for p, c in by_path.items()} for m in RAYCAST_MODES}
+    odd = {p: {k: c[k] for k in ("pixel_sweep", *RAYCAST_MODES, PLAIN_CASTER)}
+           for p, c in by_path.items()
+           if c[RAYCAST_PACKED] != c["pixel_sweep"] or c[PLAIN_CASTER]
+           or not (c[RAYCAST_PACKED] or c[RAYCAST_EXACT])
+           or ((c[RAYCAST_EXACT] or c[RAYCAST_MULTI]) and p not in an_launches)}
+    phase("raycast", f"launches on the {len(by_path)} paths: packed "
+          f"{caster_by_path[RAYCAST_PACKED]}; exact {caster_by_path[RAYCAST_EXACT]}; multi "
+          f"{caster_by_path[RAYCAST_MULTI]}; plain walks on the card: "
+          f"{sum(c[PLAIN_CASTER] for c in by_path.values())}")
+    check(not odd, f"raycast launches: the packed mode not once a render, a plain walk on the "
+          f"card, or the exact or per-origin mode off the analytic paths: {odd}")
 
     # 15. Timing: generate frames/s (every field consumed), min of 4 regions.
     region_ms(gen, B * 10)  # the warm-up
@@ -3386,7 +3833,7 @@ def main() -> int:
 
     phase("time", f"exact caster {casters['cast_ms']:.3f} ms a batch of {B} x {RES}^2 pixel rays "
           f"(peak {casters['cast_peak_gib']:.2f} GiB), shadow sweep {casters['shadow_ms']:.3f} ms "
-          f"(peak {casters['shadow_peak_gib']:.2f} GiB), PyTorch, on {card}")
+          f"(peak {casters['shadow_peak_gib']:.2f} GiB), csrc/raycast.cu, on {card}")
     for v, r in tier_results.items():
         phase("time", f"rgb_epilogue, {v} variant: kernel {r['ms']:.4f} ms beside the default "
               f"{r['default_ms']:.4f} ms in one window, plain {r['plain_ms']:.4f} ms, bound "
@@ -3422,7 +3869,15 @@ def main() -> int:
         {"name": MESH, "route": "cuda", "source": SOURCES[MESH], "replaces": REPLACES[MESH],
          "jnp_loop": MESH_JNP_LOOP, "launches": sum(mesh_by_path[p] for p in HIFI_PATHS
                                                     if p != "hifi_eval"),
-         "launches_by_path": mesh_by_path, "library_ms": None, **mesh_result}]}
+         "launches_by_path": mesh_by_path, "library_ms": None, **mesh_result}] + [
+        {"name": m, "route": "cuda", "source": SOURCES[m], "replaces": REPLACES[m],
+         "jnp_loop": RAYCAST_JNP_LOOP[m], "launches": sum(caster_by_path[m].values()),
+         "launches_by_path": caster_by_path[m], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "call_ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+         "bound_by": r["bound"][1], "library_ms": None,
+         **{k: v for k, v in r.items() if k not in ("max_abs_err", "ms", "call_ms", "plain_ms",
+                                                      "bound")}}
+        for m, r in raycast_results.items()]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,9 @@
 // Build without --use_fast_math: depth labels come out of these kernels,
 // so sqrtf and divisions stay IEEE-exact (nvcc's default -prec-sqrt=true
 // -prec-div=true). nvcc contracts a*b+c into FMA by default, which is why
-// the kernels are held to their plain versions by a tolerance, not bits.
+// most kernels are held to their plain versions by a tolerance, not bits;
+// raycast.cu writes each operation uncontracted (__fmul_rn, __fadd_rn) and
+// is held to bits.
 #pragma once
 
 #include <cuda_runtime.h>

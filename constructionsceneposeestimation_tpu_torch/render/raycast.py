@@ -1,32 +1,43 @@
-"""Packed analytic ray casting on tensors (port of the packed fast caster
-of the JAX ``render/raycast.py``).
+"""Analytic ray casting on tensors (port of the casters of the JAX
+``render/raycast.py``): the packed sweep, the exact sweep and the packed
+sweep of rays with per-ray origins.
 
 Every scene object is a set of closed-form primitives, so a render is a
-dense [prims x rays] intersection sweep. The fast path steals the low 6
+dense [prims x rays] intersection sweep. The packed sweeps steal the low 6
 mantissa bits of t for an id payload (instance + 2), so one min-reduction
 yields depth and instance together; IEEE ordering of positive floats makes
-the packed min exact (relative depth error <= 2^-18).
+the packed min exact (relative depth error <= 2^-18). A miss is ``INF``
+(1e10), never IEEE inf, until the methods' ``hit`` masks apply.
 
-Primitives are grouped by static transform category
-(``_transform_categories``) so each formula runs on exactly its own
-primitives, as (B, g, N) planes: frames, primitives of the group, rays.
-All formulas stay valid for unnormalized directions: the keypoint-occlusion
-segments cast raw cam -> keypoint vectors. This caster is the plain version
-of the pixel-sweep kernel (render/sweep_kernel.py) and the caster of the
-occlusion segments.
+* ``Raycaster.packed`` / ``.fast`` (JAX ``cast.fast``): rays from one
+  origin a frame, primitives grouped by static transform category
+  (``_transform_categories``) so each formula runs on exactly its own
+  primitives. All formulas stay valid for unnormalized directions: the
+  keypoint-occlusion segments cast raw cam -> keypoint vectors.
+* ``Raycaster.cast`` (JAX ``cast``): the generic sweep, every primitive in
+  its own local frame, grouped by kind in ``np.unique`` order, ``argmin``
+  within a group (the first index wins a tie) and a strict ``<`` across
+  groups; then the winner's analytic normal (``_local_normal``).
+* ``Raycaster.fast_multi_origin`` (JAX ``cast_fast_multi_origin``): the
+  packed sweep of rays with per-ray origins (the sun-shadow rays) over the
+  same kind groups.
 
-The exact path (``Raycaster.cast``, JAX ``make_raycaster``'s ``cast``) is
-the generic sweep: every primitive in its own local frame, grouped by kind
-in ``np.unique`` order, ``argmin`` within a group (the first index wins a
-tie) and a strict ``<`` across groups; then the winner's analytic normal
-(``_local_normal``). ``Raycaster.fast_multi_origin`` is the packed sweep of
-rays with per-ray origins (the sun-shadow rays) over the same kind groups.
-Both are PyTorch, as in the JAX package (``jnp``, outside any Pallas
-kernel), and sweep at most ``EXACT_RAYS`` rays at once, so their
-(B, g, rays) planes stay a few hundred MB at any batch.
+Each sweep is a walk over a ``SweepTable``, built once per caster: a row
+per primitive with its operation (``OP_*``), primitive index, payload code
+and fence axis swap, in the plain version's order. The walk reads each
+row's pose and parameters from the world; it runs in ``csrc/raycast.cu``
+for rays on a CUDA device (``packed_cuda``, ``exact_cuda``,
+``multi_cuda``) and in the plain versions beside them on the CPU
+(``packed_sweep``, ``exact_sweep``, ``multi_sweep``, in (B, g, N) planes a
+group, the JAX package's f32 operation order). Both versions of the
+packed walk take the axial capsules' sums over three elements from
+``axis_sums``. The ``plain_*`` methods run the plain versions on any
+device: they are what the kernel is held to. The JAX package computes
+these sweeps in ``jnp``, outside any Pallas kernel; this caster is also
+the plain version of the pixel-sweep kernel (render/sweep_kernel.py).
 
 ``occlusion_ts`` is the generic t sweep with a per-ray excluded instance:
-the nearest hit of any other instance.
+the nearest hit of any other instance (PyTorch on every device).
 """
 
 from __future__ import annotations
@@ -37,12 +48,13 @@ import numpy as np
 import torch
 
 from ..scene import assets, world as world_mod
+from ..utils import kernels
 
 Tensor = torch.Tensor
 
 INF = np.float32(1e10)
 EPS = 1e-7
-EXACT_RAYS = 1 << 20  # rays the exact and the per-origin sweeps hold at once
+EXACT_RAYS = 1 << 20  # rays the plain exact and per-origin sweeps hold at once
 _PAYLOAD_BITS = 6
 _PAYLOAD_MASK = (1 << _PAYLOAD_BITS) - 1
 
@@ -66,7 +78,9 @@ def _safe(d):
 
 
 def _prm(params: Tensor, k: int) -> Tensor:
-    return params[:, k].reshape(1, -1, 1)
+    """Parameter k of each row of (..., g, 4) parameters, as a (..., g, 1)
+    column."""
+    return params[..., k, None]
 
 
 def _plane_t(o, d, params):
@@ -289,74 +303,163 @@ def _transform_categories(roster: world_mod.Roster):
     return out
 
 
-def _comp(v: Tensor, i: int) -> Tensor:
-    return v[..., i:i + 1]
+def _kind_groups(roster: world_mod.Roster, prim_mask=None):
+    """[(kind, prim_idx_array), ...] in ``np.unique`` order of the kinds,
+    keeping only the primitives where ``prim_mask`` holds."""
+    kinds = np.asarray(roster.prim_kind)
+    keep = np.ones(kinds.shape[0], bool) if prim_mask is None else np.asarray(prim_mask, bool)
+    groups = [(int(k), np.nonzero((kinds == k) & keep)[0]) for k in np.unique(kinds)]
+    return [(k, idx) for k, idx in groups if idx.size]
 
 
-def _to_local(rot: Tensor, v: Tensor, i: int) -> Tensor:
-    """Local component i of world vectors: sum_j rot[..., j, i] v_j, for
-    rot (B, g, 3, 3) against v (B, g, N) planes or (B, g, 1) columns given
-    as a 3-tuple."""
+def _masked_categories(cats, prim_mask):
+    """``cats`` keeping only the primitives where ``prim_mask`` (P,) holds,
+    groups left empty dropped."""
+    keep = np.asarray(prim_mask, bool)
+    return {c: [(k, idx[keep[idx]]) for k, idx in lst if keep[idx].any()]
+            for c, lst in cats.items()}
+
+
+# The operation of a table row (csrc/raycast.cu's ``Op``): a kind's own
+# number is its generic formula in the primitive's local frame (the exact
+# and per-origin sweeps, and the packed sweep's "gen" category); the packed
+# sweep's other categories have their own.
+OP_INV = {assets.PLANE: 8, assets.SPHERE: 9, assets.CYLINDER: 10, assets.CONE: 11}
+OP_AA_BOX = 12  # "aa_id", and "aa_swap" with the row's swap flag
+OP_YAW_BOX = 13
+OP_AXIS_CAPSULE = 14
+_CATEGORY_OPS = {**{("inv", k): op for k, op in OP_INV.items()},
+                 ("aa_id", assets.BOX): OP_AA_BOX, ("aa_swap", assets.BOX): OP_AA_BOX,
+                 ("yaw", assets.BOX): OP_YAW_BOX, ("axis", assets.CAPSULE): OP_AXIS_CAPSULE}
+# csrc/raycast.cu's modes.
+MODE_PACKED, MODE_EXACT, MODE_MULTI = 0, 1, 2
+
+
+class SweepTable:
+    """The rows a sweep walks: ``rows`` (S, 4) int32 [op, primitive, code
+    (inst + 2), x/y swap] and ``groups`` [(category, kind, slice of rows),
+    ...], each group's rows contiguous, in the plain version's order.
+    ``on(device)`` is ``rows`` as a tensor there (cached)."""
+
+    def __init__(self, groups, codes: np.ndarray):
+        rows, self.groups = [], []
+        for cat, kind, op, idx in groups:
+            s = len(rows)
+            rows += [[op, int(p), int(codes[p]), int(cat == "aa_swap")] for p in idx]
+            self.groups.append((cat, kind, slice(s, len(rows))))
+        self.rows = np.asarray(rows, np.int32).reshape(-1, 4)
+        self.ops = frozenset(self.rows[:, 0].tolist())
+        self._on = {}
+
+    def on(self, device) -> Tensor:
+        key = str(device)
+        if key not in self._on:
+            self._on[key] = torch.as_tensor(self.rows, device=device)
+        return self._on[key]
+
+
+def packed_table(cats, codes: np.ndarray) -> SweepTable:
+    """The packed sweep's table: categories in ``CATEGORIES`` order, kinds
+    in ``np.unique`` order within each, ascending primitive index."""
+    groups = []
+    for cat in CATEGORIES:
+        for kind, idx in cats[cat]:
+            op = kind if cat == "gen" else _CATEGORY_OPS.get((cat, kind))
+            if op is None:
+                raise ValueError(f"no packed-sweep operation for {assets.KIND_NAMES[kind]} in "
+                                 f"category {cat!r}")
+            groups.append((cat, kind, op, idx))
+    return SweepTable(groups, codes)
+
+
+def kind_table(groups, codes: np.ndarray) -> SweepTable:
+    """The exact and per-origin sweeps' table: ``_kind_groups`` order, each
+    row its kind's generic operation."""
+    return SweepTable([("kind", k, k, idx) for k, idx in groups], codes)
+
+
+def axis_sums(table: SweepTable, world, ray_o: Tensor) -> Tensor | None:
+    """(B, S, 2) f32: each (frame, row)'s c_2 . (ray_o - p) and |ray_o -
+    p|^2 for ray_o (B, 3), the axial capsule's sums over three elements, by
+    ``torch.sum``; None where the table has no axial capsule. Both versions
+    of the packed walk take them as computed here, so that their order of
+    summation is PyTorch's on either device."""
+    if OP_AXIS_CAPSULE not in table.ops:
+        return None
+    prim = table.on(ray_o.device)[:, 1].long()
+    rel = ray_o[:, None, :] - world["prim_pos"][:, prim]
+    return torch.stack([torch.sum(rel * world["prim_rot"][:, prim, :, 2], -1),
+                        torch.sum(rel * rel, -1)], dim=-1)
+
+
+def _group(table: SweepTable, world, s: slice):
+    """The rotations (B, g, 3, 3), positions (B, g, 3) and parameters (g,
+    4) of the rows ``s``."""
+    prim = table.on(world["prim_pos"].device)[s, 1].long()
+    return world["prim_rot"][:, prim], world["prim_pos"][:, prim], world["prim_params"][prim]
+
+
+def _split(v: Tensor):
+    """(B, g, 3) -> its three (B, g, 1) components."""
+    return tuple(v[..., j:j + 1] for j in range(3))
+
+
+def _rotate(rot: Tensor, v, i: int) -> Tensor:
+    """Local component i, c_i . v with c_i = R[:, i], of world vectors ``v``
+    (three planes) in the frames of ``rot`` (B, g, 3, 3), summed as
+    ``(R[0][i] v_0 + R[1][i] v_1) + R[2][i] v_2``."""
     return (rot[..., 0, i, None] * v[0] + rot[..., 1, i, None] * v[1]
             + rot[..., 2, i, None] * v[2])
 
 
-def _sweep_packed_fast(cats, world, prim_codes: Tensor, ray_o: Tensor, ray_d: Tensor) -> Tensor:
-    """Packed min over every primitive: ray_o (B, 3), ray_d (B, N, 3) ->
-    (B, N) packed (t | inst + 2); INF-valued where nothing is hit."""
-    prim_rot, prim_pos, params = world["prim_rot"], world["prim_pos"], world["prim_params"]
+def packed_sweep(table: SweepTable, world, ray_o: Tensor, ray_d: Tensor,
+                 sums: Tensor | None) -> Tensor:
+    """Plain packed walk of ``table``: rays from ray_o (B, 3) along ray_d
+    (B, N, 3) -> (B, N) packed (t | inst + 2), INF-valued where nothing is
+    hit; ``sums`` is ``axis_sums(table, world, ray_o)``. Each group as
+    (B, g, N) planes."""
+    packed_sweep.card_calls += int(ray_d.is_cuda)
     B, N = ray_d.shape[:2]
-    d0, d1, d2 = (ray_d[..., i][:, None, :] for i in range(3))  # (B, 1, N)
+    d = d0, d1, d2 = tuple(ray_d[..., i][:, None, :] for i in range(3))  # (B, 1, N)
+    codes = table.on(ray_d.device)[:, 2]
     best = torch.full((B, N), INF, device=ray_d.device)
-
-    def merge(best, t, idx):
-        return torch.minimum(best, torch.amin(_pack(t, prim_codes[idx][None, :, None]), dim=1))
-
-    if cats["aa_id"] or cats["aa_swap"]:
-        rinv = tuple(1.0 / _safe(dc) for dc in (d0, d1, d2))
-        for cat_name, perm in (("aa_id", (0, 1, 2)), ("aa_swap", (1, 0, 2))):
-            for kind, idx in cats[cat_name]:
-                rel = ray_o[:, None, :] - prim_pos[:, idx]  # (B, g, 3)
-                prm = params[idx]
-                tmin = tmax = None
-                for la in range(3):
-                    wa = perm[la]
-                    h = _prm(prm, la)
-                    t1 = (-h - _comp(rel, wa)) * rinv[wa]
-                    t2 = (h - _comp(rel, wa)) * rinv[wa]
-                    lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
-                    tmin = lo if tmin is None else torch.maximum(tmin, lo)
-                    tmax = hi if tmax is None else torch.minimum(tmax, hi)
-                best = merge(best, _valid_t(tmin, (tmax >= tmin) & (tmax > 0)), idx)
-    if cats["inv"]:
-        sh = _inv_shared((d0, d1, d2))
-        for kind, idx in cats["inv"]:
-            rel = ray_o[:, None, :] - prim_pos[:, idx]
-            o = (_comp(rel, 0), _comp(rel, 1), _comp(rel, 2))
-            best = merge(best, _KIND_FNS_INV[kind](o, (d0, d1, d2), params[idx], sh), idx)
-    for kind, idx in cats["yaw"]:
-        rot = prim_rot[:, idx]
-        c = rot[..., 0, 0][..., None]  # cos(yaw)
-        s = rot[..., 1, 0][..., None]  # sin(yaw)
-        rel = ray_o[:, None, :] - prim_pos[:, idx]
-        o = (c * _comp(rel, 0) + s * _comp(rel, 1), -s * _comp(rel, 0) + c * _comp(rel, 1),
-             _comp(rel, 2))
-        d = (c * d0 + s * d1, -s * d0 + c * d1, d2)
-        best = merge(best, _KIND_FNS[kind](o, d, params[idx]), idx)
-    if cats["axis"]:
+    if OP_AA_BOX in table.ops:
+        rinv = tuple(1.0 / _safe(dc) for dc in d)
+    if table.ops & set(OP_INV.values()):
+        sh = _inv_shared(d)
+    if OP_AXIS_CAPSULE in table.ops:
         dd = d0 * d0 + d1 * d1 + d2 * d2  # |d|^2, shared
         rdd = 1.0 / torch.clamp_min(dd, EPS)
         rod = ray_o[:, 0, None, None] * d0 + ray_o[:, 1, None, None] * d1 \
             + ray_o[:, 2, None, None] * d2
-        for kind, idx in cats["axis"]:
-            ax = prim_rot[:, idx][..., :, 2]  # (B, g, 3) capsule axis
-            cc = prim_pos[:, idx]
-            rel = ray_o[:, None, :] - cc
-            r, hh = _prm(params[idx], 0), _prm(params[idx], 1)
-            oz = torch.sum(rel * ax, -1, keepdim=True)
-            oo = torch.sum(rel * rel, -1, keepdim=True)
-            dz = _comp(ax, 0) * d0 + _comp(ax, 1) * d1 + _comp(ax, 2) * d2
-            od = rod - (_comp(cc, 0) * d0 + _comp(cc, 1) * d1 + _comp(cc, 2) * d2)
+    for cat, kind, s in table.groups:
+        rot, pos, prm = _group(table, world, s)
+        rel = _split(ray_o[:, None, :] - pos)  # ray_o - p, (B, g, 1) each
+        if cat in ("aa_id", "aa_swap"):
+            perm = (0, 1, 2) if cat == "aa_id" else (1, 0, 2)
+            tmin = tmax = None
+            for la in range(3):
+                wa = perm[la]
+                h = _prm(prm, la)
+                t1 = (-h - rel[wa]) * rinv[wa]
+                t2 = (h - rel[wa]) * rinv[wa]
+                lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
+                tmin = lo if tmin is None else torch.maximum(tmin, lo)
+                tmax = hi if tmax is None else torch.minimum(tmax, hi)
+            t = _valid_t(tmin, (tmax >= tmin) & (tmax > 0))
+        elif cat == "inv":
+            t = _KIND_FNS_INV[kind](rel, d, prm, sh)
+        elif cat == "yaw":
+            c, sn = rot[..., 0, 0, None], rot[..., 1, 0, None]  # cos, sin of the yaw
+            o = (c * rel[0] + sn * rel[1], -sn * rel[0] + c * rel[1], rel[2])
+            t = _KIND_FNS[kind](o, (c * d0 + sn * d1, -sn * d0 + c * d1, d2), prm)
+        elif cat == "axis":
+            ax = tuple(rot[..., j, 2, None] for j in range(3))  # c_2, the capsule axis
+            cc = _split(pos)
+            oz, oo = sums[:, s, 0, None], sums[:, s, 1, None]
+            r, hh = _prm(prm, 0), _prm(prm, 1)
+            dz = ax[0] * d0 + ax[1] * d1 + ax[2] * d2
+            od = rod - (cc[0] * d0 + cc[1] * d1 + cc[2] * d2)
             a2 = dd - dz * dz
             b2 = od - oz * dz
             c2 = oo - oz * oz - r * r
@@ -372,54 +475,62 @@ def _sweep_packed_fast(cats, world, prim_codes: Tensor, ray_o: Tensor, ray_d: Te
                 disc = bs * bs - dd * cs
                 sq = torch.sqrt(torch.clamp_min(disc, 0.0))
                 t = torch.minimum(t, _valid_t((-bs - sq) * rdd, disc > 0))
-            best = merge(best, t, idx)
-    for kind, idx in cats["gen"]:
-        rot = prim_rot[:, idx]  # (B, g, 3, 3)
-        rel = ray_o[:, None, :] - prim_pos[:, idx]
-        rel = tuple(rel[..., j:j + 1] for j in range(3))
-        o = tuple(_to_local(rot, rel, i) for i in range(3))
-        d = tuple(_to_local(rot, (d0, d1, d2), i) for i in range(3))
-        best = merge(best, _KIND_FNS[kind](o, d, params[idx]), idx)
+        else:  # gen
+            o = tuple(_rotate(rot, rel, i) for i in range(3))
+            t = _KIND_FNS[kind](o, tuple(_rotate(rot, d, i) for i in range(3)), prm)
+        best = torch.minimum(best, torch.amin(_pack(t, codes[s][None, :, None]), dim=1))
     return best
 
 
-def _kind_groups(roster: world_mod.Roster, prim_mask=None):
-    """[(kind, prim_idx_array), ...] in ``np.unique`` order of the kinds,
-    keeping only the primitives where ``prim_mask`` holds."""
-    kinds = np.asarray(roster.prim_kind)
-    keep = np.ones(kinds.shape[0], bool) if prim_mask is None else np.asarray(prim_mask, bool)
-    groups = [(int(k), np.nonzero((kinds == k) & keep)[0]) for k in np.unique(kinds)]
-    return [(k, idx) for k, idx in groups if idx.size]
-
-
-def _sweep(groups, world, ray_o: Tensor, ray_d: Tensor, exclude_inst: Tensor | None = None,
-           prim_inst: Tensor | None = None):
-    """The generic sweep of rays from ray_o (B, 3) along ray_d (B, N, 3):
-    (t (B, N), prim index (B, N), -1 and ``INF`` where nothing is hit).
-    Each kind group in its own frames; ``argmin`` within a group (first
-    index on a tie), a strict ``<`` across groups. ``exclude_inst`` (B, N)
-    leaves out the primitives of each ray's instance."""
-    rot, pos, params = world["prim_rot"], world["prim_pos"], world["prim_params"]
+def exact_sweep(table: SweepTable, world, ray_o: Tensor, ray_d: Tensor,
+                exclude_inst: Tensor | None = None):
+    """Plain exact walk of ``table`` for rays from ray_o (B, 3) along ray_d
+    (B, N, 3): (t (B, N), prim index (B, N) int64), ``INF`` and -1 where
+    nothing is hit. ``argmin`` within a kind group (first index on a tie),
+    a strict ``<`` across groups. ``exclude_inst`` (B, N) leaves out the
+    primitives of each ray's instance."""
+    exact_sweep.card_calls += int(ray_d.is_cuda)
     B, N = ray_d.shape[:2]
     dev = ray_d.device
     d = tuple(ray_d[..., i][:, None, :] for i in range(3))  # (B, 1, N)
+    rows = table.on(dev)
     t_best = torch.full((B, N), INF, device=dev)
     idx_best = torch.full((B, N), -1, dtype=torch.int64, device=dev)
-    for kind, idx in groups:
-        r = rot[:, idx]  # (B, g, 3, 3)
-        rel = ray_o[:, None, :] - pos[:, idx]  # (B, g, 3)
-        rel = tuple(rel[..., j:j + 1] for j in range(3))
-        o = tuple(_to_local(r, rel, i) for i in range(3))  # (B, g, 1)
-        dl = tuple(_to_local(r, d, i) for i in range(3))  # (B, g, N)
-        t = _KIND_FNS[kind](o, dl, params[idx])
+    for _, kind, s in table.groups:
+        rot, pos, prm = _group(table, world, s)
+        rel = _split(ray_o[:, None, :] - pos)
+        o = tuple(_rotate(rot, rel, i) for i in range(3))
+        t = _KIND_FNS[kind](o, tuple(_rotate(rot, d, i) for i in range(3)), prm)
         if exclude_inst is not None:
-            same = prim_inst[idx][None, :, None] == exclude_inst[:, None, :]
+            same = (rows[s, 2] - 2)[None, :, None] == exclude_inst[:, None, :]
             t = torch.where(same, float(INF), t)
         g_min, g_arg = torch.min(t, dim=1)
         better = g_min < t_best
         t_best = torch.where(better, g_min, t_best)
-        idx_best = torch.where(better, torch.as_tensor(idx, device=dev)[g_arg], idx_best)
+        idx_best = torch.where(better, rows[s, 1].long()[g_arg], idx_best)
     return t_best, idx_best
+
+
+def multi_sweep(table: SweepTable, world, ray_o: Tensor, ray_d: Tensor) -> Tensor:
+    """Plain packed walk of ``table`` for rays with per-ray origins ray_o
+    (B, N, 3) along ray_d (B, N, 3): (B, N) packed (t | inst + 2).
+    Origins and directions both become (B, g, N) local planes."""
+    multi_sweep.card_calls += int(ray_d.is_cuda)
+    o_w = tuple(ray_o[..., i][:, None, :] for i in range(3))  # (B, 1, N)
+    d = tuple(ray_d[..., i][:, None, :] for i in range(3))
+    codes = table.on(ray_d.device)[:, 2]
+    best = torch.full(ray_d.shape[:2], INF, device=ray_d.device)
+    for _, kind, s in table.groups:
+        rot, pos, prm = _group(table, world, s)
+        rel = tuple(o_w[j] - pos[..., j, None] for j in range(3))  # (B, g, N)
+        o = tuple(_rotate(rot, rel, i) for i in range(3))
+        t = _KIND_FNS[kind](o, tuple(_rotate(rot, d, i) for i in range(3)), prm)
+        best = torch.minimum(best, torch.amin(_pack(t, codes[s][None, :, None]), dim=1))
+    return best
+
+
+# Calls of each plain walk on CUDA tensors: 0 wherever a kernel serves.
+packed_sweep.card_calls = exact_sweep.card_calls = multi_sweep.card_calls = 0
 
 
 def _norm(v: Tensor) -> Tensor:
@@ -462,48 +573,90 @@ def _local_normal(kind: Tensor, ol: Tensor, dl: Tensor, t: Tensor, params: Tenso
     return torch.where(flip, -n, n)
 
 
-def _sweep_packed_multi(groups, world, prim_codes: Tensor, ray_o: Tensor,
-                        ray_d: Tensor) -> Tensor:
-    """Packed min over the kind groups of rays with per-ray origins:
-    ray_o, ray_d (B, N, 3) -> (B, N) packed (t | inst + 2). Origins and
-    directions both become (B, g, N) local planes, in the JAX package's
-    f32 operation order."""
-    rot, pos, params = world["prim_rot"], world["prim_pos"], world["prim_params"]
-    o_w = tuple(ray_o[..., i][:, None, :] for i in range(3))  # (B, 1, N)
-    d = tuple(ray_d[..., i][:, None, :] for i in range(3))
-    best = torch.full(ray_d.shape[:2], INF, device=ray_d.device)
-    for kind, idx in groups:
-        r = rot[:, idx]
-        rel = tuple(o_w[j] - pos[:, idx, j, None] for j in range(3))  # (B, g, N)
-        o = tuple(_to_local(r, rel, i) for i in range(3))
-        dl = tuple(_to_local(r, d, i) for i in range(3))
-        t = _KIND_FNS[kind](o, dl, params[idx])
-        best = torch.minimum(best, torch.amin(_pack(t, prim_codes[idx][None, :, None]), dim=1))
-    return best
-
-
 def _blocks(n_frames: int, n_rays: int):
     """Ray slices of at most ``EXACT_RAYS`` rays over all frames."""
     step = max(1, EXACT_RAYS // max(n_frames, 1))
     return [slice(s, s + step) for s in range(0, n_rays, step)]
 
 
-def _masked_categories(cats, prim_mask):
-    """``cats`` keeping only the primitives where ``prim_mask`` (P,) holds,
-    groups left empty dropped."""
-    keep = np.asarray(prim_mask, bool)
-    return {c: [(k, idx[keep[idx]]) for k, idx in lst if keep[idx].any()]
-            for c, lst in cats.items()}
+def _hits(packed: Tensor) -> Dict[str, Tensor]:
+    """{t (B, N) with +inf on a miss, inst (B, N): -1 ground, -2 miss} of
+    a packed sweep."""
+    t, code = _unpack(packed)
+    hit = t < INF * 0.99
+    return {"t": torch.where(hit, t, torch.full_like(t, float("inf"))),
+            "inst": torch.where(hit, code, torch.zeros_like(code)) - 2}
+
+
+def _launch(mode: int, name: str, table: SweepTable, world, ray_o: Tensor, ray_d: Tensor,
+            sums: Tensor | None, out: Tensor, exact_out=(None, None, None)):
+    """Check the kernel's inputs and launch it in ``mode``."""
+    kernels.check_cuda(f"{name} ray_d", ray_d, torch.float32)
+    if ray_d.dim() != 3 or ray_d.shape[2] != 3:
+        raise ValueError(f"{name}: ray_d must be (B, N, 3), got {tuple(ray_d.shape)}")
+    B, N = ray_d.shape[:2]
+    P = world["prim_params"].shape[0]
+    rows = table.on(ray_d.device)
+    S = rows.shape[0]
+    kernels.check_cuda(f"{name} ray_o", ray_o, torch.float32,
+                       (B, N, 3) if mode == MODE_MULTI else (B, 3))
+    kernels.check_cuda(f"{name} rows", rows, torch.int32, (S, 4))
+    kernels.check_cuda(f"{name} prim_pos", world["prim_pos"], torch.float32, (B, P, 3))
+    kernels.check_cuda(f"{name} prim_rot", world["prim_rot"], torch.float32, (B, P, 3, 3))
+    kernels.check_cuda(f"{name} prim_params", world["prim_params"], torch.float32, (P, 4))
+    if sums is not None:
+        kernels.check_cuda(f"{name} sums", sums, torch.float32, (B, S, 2))
+    kernels.launch("cspe_raycast", mode, rows, world["prim_pos"], world["prim_rot"],
+                   world["prim_params"], sums, ray_o, ray_d, S, P, B, N, out, *exact_out)
+
+
+def packed_cuda(table: SweepTable, world, ray_o: Tensor, ray_d: Tensor) -> Tensor:
+    """Launch csrc/raycast.cu's packed walk: ``packed_sweep``'s (B, N)
+    packed f32 for ray_o (B, 3) and ray_d (B, N, 3)."""
+    out = torch.empty(ray_d.shape[:2], dtype=torch.float32, device=ray_d.device)
+    _launch(MODE_PACKED, "raycast packed", table, world, ray_o, ray_d,
+            axis_sums(table, world, ray_o), out)
+    packed_cuda.launches += 1
+    return out
+
+
+def exact_cuda(table: SweepTable, world, ray_o: Tensor, ray_d: Tensor) -> Dict[str, Tensor]:
+    """Launch csrc/raycast.cu's exact walk and normal: ``Raycaster.cast``'s
+    dict for ray_o (B, 3) and ray_d (B, N, 3)."""
+    B, N = ray_d.shape[:2]
+    dev = ray_d.device
+    out = {"t": torch.empty(B, N, dtype=torch.float32, device=dev),
+           "prim": torch.empty(B, N, dtype=torch.int64, device=dev),
+           "inst": torch.empty(B, N, dtype=torch.int32, device=dev),
+           "normal": torch.empty(B, N, 3, dtype=torch.float32, device=dev)}
+    _launch(MODE_EXACT, "raycast exact", table, world, ray_o, ray_d, None, out["t"],
+            (out["prim"], out["inst"], out["normal"]))
+    exact_cuda.launches += 1
+    return out
+
+
+def multi_cuda(table: SweepTable, world, ray_o: Tensor, ray_d: Tensor) -> Tensor:
+    """Launch csrc/raycast.cu's per-origin walk: ``multi_sweep``'s (B, N)
+    packed f32 for ray_o and ray_d (B, N, 3)."""
+    out = torch.empty(ray_d.shape[:2], dtype=torch.float32, device=ray_d.device)
+    _launch(MODE_MULTI, "raycast multi", table, world, ray_o, ray_d, None, out)
+    multi_cuda.launches += 1
+    return out
+
+
+packed_cuda.launches = exact_cuda.launches = multi_cuda.launches = 0
 
 
 class Raycaster:
     """The casters of a fixed roster (``make_raycaster`` in the JAX
-    package): ``fast`` (the packed sweep over the transform categories),
-    ``cast`` (the exact sweep with analytic normals) and
-    ``fast_multi_origin`` (packed, per-ray origins). ``chunk`` bounds the
-    rays a frame sweeps at once in ``fast``; ``prim_mask`` (P,) bool keeps
-    only the primitives where it holds (the hifi tier leaves out the
-    proxies its meshes replace)."""
+    package): ``fast`` / ``packed`` (the packed sweep over the transform
+    categories), ``cast`` (the exact sweep with analytic normals) and
+    ``fast_multi_origin`` (packed, per-ray origins). Each launches its
+    kernel for rays on a CUDA device and runs its plain version
+    (``plain_packed``, ``plain_cast``, ``plain_multi_origin``) otherwise.
+    ``chunk`` bounds the rays a frame sweeps at once in ``plain_packed``;
+    ``prim_mask`` (P,) bool keeps only the primitives where it holds (the
+    hifi tier leaves out the proxies its meshes replace)."""
 
     def __init__(self, roster: world_mod.Roster, chunk: int = 65536,
                  prim_mask: np.ndarray | None = None):
@@ -518,32 +671,45 @@ class Raycaster:
             raise ValueError(f"{codes.max()} instance codes exceed the {_PAYLOAD_BITS}-bit "
                              "payload; split the roster")
         self.prim_codes = codes.astype(np.int32)
+        self.packed_table = packed_table(self.cats, self.prim_codes)
+        self.kind_table = kind_table(self.groups, self.prim_codes)
 
     def packed(self, world: Dict[str, Tensor], ray_o: Tensor, ray_d: Tensor) -> Tensor:
         """(B, N) packed nearest hit of rays from ray_o (B, 3) along ray_d
         (B, N, 3)."""
-        codes = torch.as_tensor(self.prim_codes, device=ray_d.device)
-        parts = [_sweep_packed_fast(self.cats, world, codes, ray_o, ray_d[:, s:s + self.chunk])
-                 for s in range(0, ray_d.shape[1], self.chunk)]
-        return torch.cat(parts, dim=1)
+        if not ray_d.is_cuda:
+            return self.plain_packed(world, ray_o, ray_d)
+        return packed_cuda(self.packed_table, world, ray_o.contiguous(), ray_d.contiguous())
+
+    def plain_packed(self, world: Dict[str, Tensor], ray_o: Tensor, ray_d: Tensor) -> Tensor:
+        """``packed`` by its plain version, on any device."""
+        sums = axis_sums(self.packed_table, world, ray_o)
+        return torch.cat([packed_sweep(self.packed_table, world, ray_o,
+                                       ray_d[:, s:s + self.chunk], sums)
+                          for s in range(0, ray_d.shape[1], self.chunk)], dim=1)
 
     def fast(self, world: Dict[str, Tensor], ray_o: Tensor, ray_d: Tensor) -> Dict[str, Tensor]:
         """{t (B, N) with +inf on a miss, inst (B, N): -1 ground, -2 miss}."""
-        t, code = _unpack(self.packed(world, ray_o, ray_d))
-        hit = t < INF * 0.99
-        return {"t": torch.where(hit, t, torch.full_like(t, float("inf"))),
-                "inst": torch.where(hit, code, torch.zeros_like(code)) - 2}
+        return _hits(self.packed(world, ray_o, ray_d))
 
     def cast(self, world: Dict[str, Tensor], ray_o: Tensor, ray_d: Tensor) -> Dict[str, Tensor]:
         """The exact sweep of rays from ray_o (B, 3) along ray_d (B, N, 3):
         {t (B, N) exact, +inf on a miss; prim (B, N), -1 on a miss; inst
         (B, N), -2 on a miss; normal (B, N, 3) world frame, 0 on a miss}."""
+        if not ray_d.is_cuda:
+            return self.plain_cast(world, ray_o, ray_d)
+        return exact_cuda(self.kind_table, world, ray_o.contiguous(), ray_d.contiguous())
+
+    def plain_cast(self, world: Dict[str, Tensor], ray_o: Tensor,
+                   ray_d: Tensor) -> Dict[str, Tensor]:
+        """``cast`` by its plain version, on any device, ``EXACT_RAYS`` rays
+        at a time."""
         prim_inst = self.roster.tensor("prim_inst", ray_d.device).long()
         kinds = self.roster.tensor("prim_kind", ray_d.device)
         out = {"t": [], "prim": [], "inst": [], "normal": []}
         for s in _blocks(*ray_d.shape[:2]):
             rd = ray_d[:, s]
-            t, idx = _sweep(self.groups, world, ray_o, rd)
+            t, idx = exact_sweep(self.kind_table, world, ray_o, rd)
             hit = t < INF
             safe = torch.clamp_min(idx, 0)
             frame = torch.arange(rd.shape[0], device=rd.device)[:, None]
@@ -567,14 +733,16 @@ class Raycaster:
         """Packed sweep of rays with per-ray origins ray_o (B, N, 3) along
         ray_d (B, N, 3) over the kind groups: {t (B, N) with +inf on a
         miss, inst (B, N): -1 ground, -2 miss}."""
-        codes = torch.as_tensor(self.prim_codes, device=ray_d.device)
-        packed = torch.cat([_sweep_packed_multi(self.groups, world, codes, ray_o[:, s],
-                                                ray_d[:, s])
-                            for s in _blocks(*ray_d.shape[:2])], dim=1)
-        t, code = _unpack(packed)
-        hit = t < INF * 0.99
-        return {"t": torch.where(hit, t, torch.full_like(t, float("inf"))),
-                "inst": torch.where(hit, code, torch.zeros_like(code)) - 2}
+        if not ray_d.is_cuda:
+            return self.plain_multi_origin(world, ray_o, ray_d)
+        return _hits(multi_cuda(self.kind_table, world, ray_o.contiguous(), ray_d.contiguous()))
+
+    def plain_multi_origin(self, world: Dict[str, Tensor], ray_o: Tensor,
+                           ray_d: Tensor) -> Dict[str, Tensor]:
+        """``fast_multi_origin`` by its plain version, on any device,
+        ``EXACT_RAYS`` rays at a time."""
+        return _hits(torch.cat([multi_sweep(self.kind_table, world, ray_o[:, s], ray_d[:, s])
+                                for s in _blocks(*ray_d.shape[:2])], dim=1))
 
 
 def occlusion_ts(world: Dict[str, Tensor], roster: world_mod.Roster, ray_o: Tensor,
@@ -583,6 +751,6 @@ def occlusion_ts(world: Dict[str, Tensor], roster: world_mod.Roster, ray_o: Tens
     (B, N, 3), ignoring the primitives of instance ``exclude_inst`` (B, N)
     of each ray; ``INF`` where nothing else is hit. ``ray_d`` need not be
     unit: pass keypoint - camera, and t is in units of it (a keypoint is
-    occluded iff t < 1)."""
-    prim_inst = torch.as_tensor(np.asarray(roster.prim_inst), device=ray_d.device)
-    return _sweep(_kind_groups(roster), world, ray_o, ray_d, exclude_inst, prim_inst)[0]
+    occluded iff t < 1). PyTorch on every device."""
+    table = kind_table(_kind_groups(roster), np.asarray(roster.prim_inst) + 2)
+    return exact_sweep(table, world, ray_o, ray_d, exclude_inst)[0]

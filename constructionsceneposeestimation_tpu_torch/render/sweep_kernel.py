@@ -3,9 +3,9 @@ primitive, as one packed (t | instance code) f32 per pixel.
 
 Kernel: ``csrc/sweep.cu`` (replaces the Pallas TPU kernel of the JAX
 ``render/sweep_kernel.py``). Plain version: ``plain_pixel_sweep``, the
-packed caster on ``camera.pixel_rays``. ``PixelSweeper`` dispatches on the
-device of its inputs: CUDA tensors launch the kernel, CPU tensors take the
-plain version.
+packed caster's plain version on ``camera.pixel_rays``. ``PixelSweeper``
+dispatches on the device of its inputs: CUDA tensors launch the kernel,
+CPU tensors take the plain version.
 
 The kernel reads a static schedule built here once per roster: one row per
 primitive with its operation (transform category x kind), pose row,
@@ -157,9 +157,10 @@ def needed_pairs(sched_i: Tensor, radii: Tensor, world, cam_pos: Tensor, M: Tens
 
 def plain_pixel_sweep(caster: raycast.Raycaster, world, cam_pos: Tensor, M: Tensor,
                       intr: cam_mod.Intrinsics) -> Tensor:
-    """Plain version: (B, H*W) packed sweep of ``pixel_rays``."""
+    """Plain version: (B, H*W) packed sweep of ``pixel_rays`` by the
+    caster's plain version (never a kernel, on any device)."""
     dirs = cam_mod.pixel_rays(intr, M)
-    return caster.packed(world, cam_pos, dirs.reshape(M.shape[0], -1, 3))
+    return caster.plain_packed(world, cam_pos, dirs.reshape(M.shape[0], -1, 3))
 
 
 def sweep_cuda(sched_i: Tensor, sched_f: Tensor, world, cam_pos: Tensor, M: Tensor,

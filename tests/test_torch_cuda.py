@@ -121,6 +121,82 @@ def test_sweep_kernel_refuses_oversize_schedule(scene):
     assert sweep_kernel.sweep_cuda.launches == before
 
 
+def _caster_rays(w, cam, tgt, size=(256, 192)):
+    """Each frame's pixel rays, then its keypoint segments."""
+    intr = camera.intrinsics_from_apertures(12.0, 25.0, *size)
+    px = camera.pixel_rays(intr, camera.look_at_matrix(cam, tgt)).reshape(cam.shape[0], -1, 3)
+    kp = world.world_keypoints(w["inst_rot"], w["inst_pos"], w["kpts_local"])
+    return torch.cat([px, kp.reshape(cam.shape[0], -1, 3) - cam[:, None]], dim=1).contiguous()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_raycast_kernel_matches_plain(scene, masked):
+    """csrc/raycast.cu against the plain walks on the same card: every
+    packed value of the packed and per-origin modes and the exact mode's
+    t, prim and inst bit for bit, its normals within 1e-6; the full roster
+    and the hifi tier's masked one, pixel rays, keypoint segments and the
+    shadow rays from the hits."""
+    roster, w, cam, tgt = scene
+    mask = ~meshcast.make_mesh_caster(roster).covered_prims if masked else None
+    c = raycast.Raycaster(roster, prim_mask=mask)
+    rays = _caster_rays(w, cam, tgt)
+    wrappers = (raycast.packed_cuda, raycast.exact_cuda, raycast.multi_cuda)
+    before = [f.launches for f in wrappers]
+    bits = lambda x: x.view(torch.int32)
+    assert torch.equal(bits(c.packed(w, cam, rays)), bits(c.plain_packed(w, cam, rays)))
+    e, p = c.cast(w, cam, rays), c.plain_cast(w, cam, rays)
+    assert torch.equal(bits(e["t"]), bits(p["t"]))
+    assert torch.equal(e["prim"], p["prim"]) and torch.equal(e["inst"], p["inst"])
+    assert e["prim"].dtype == torch.int64 and e["inst"].dtype == torch.int32
+    assert float(torch.abs(e["normal"] - p["normal"]).max()) <= 1e-6
+    hit = torch.isfinite(p["t"])
+    assert 0.3 < float(hit.float().mean()) < 1.0
+    sun = torch.tensor([0.45, 0.3, 0.84], device=cam.device)
+    so = (cam[:, None] + torch.where(hit, p["t"], 0.0)[..., None] * rays + 1e-3 * sun).contiguous()
+    sd = sun.expand_as(rays).contiguous()
+    assert torch.equal(bits(raycast.multi_cuda(c.kind_table, w, so, sd)),
+                       bits(raycast.multi_sweep(c.kind_table, w, so, sd)))
+    assert [f.launches for f in wrappers] == [n + 1 for n in before]
+
+
+def test_raycast_exact_tie_resolves_to_the_first_index(scene):
+    """The last box made the first box's twin: the kernel names the first
+    wherever either is hit, as the plain version's argmin does."""
+    roster, w, cam, tgt = scene
+    boxes = np.nonzero(np.asarray(roster.prim_kind) == 2)[0]
+    i, j = int(boxes[0]), int(boxes[-1])
+    wd = {k: v.clone() for k, v in w.items()}
+    for k in ("prim_rot", "prim_pos"):
+        wd[k][:, j] = wd[k][:, i]
+    wd["prim_params"][j] = wd["prim_params"][i]
+    g = torch.Generator(device=cam.device).manual_seed(3)
+    aim = wd["prim_pos"][:, i, None] + torch.rand(3, 2000, 3, device=cam.device, generator=g) - 0.5
+    d = (aim - cam[:, None]).contiguous()
+    c = raycast.Raycaster(roster)
+    k, p = c.cast(wd, cam, d)["prim"], c.plain_cast(wd, cam, d)["prim"]
+    assert torch.equal(k, p) and bool((k == i).any()) and not bool((k == j).any())
+
+
+def test_raycast_kernel_refuses_oversize_table(scene):
+    """A table whose rows overflow a block's shared memory raises without a
+    launch."""
+    roster, w, cam, tgt = scene
+    c = raycast.Raycaster(roster)
+    big = raycast.SweepTable([("kind", k, k, np.tile(idx, 6)) for k, idx in c.groups],
+                             c.prim_codes)
+    before = raycast.exact_cuda.launches
+    with pytest.raises(RuntimeError, match="shared memory"):
+        raycast.exact_cuda(big, w, cam, _caster_rays(w, cam, tgt))
+    assert raycast.exact_cuda.launches == before
+
+
+def test_raycast_kernel_has_no_spills(dev):
+    from constructionsceneposeestimation_tpu_torch.utils import kernels
+    report = kernels.ptxas_report("raycast.cu")
+    assert set(report) == {f"raycast_kernel<{m}>" for m in range(3)}, report
+    assert all(r["spill_bytes"] == 0 for r in report.values()), report
+
+
 MESH_SCENES = {"default": SceneConfig(), "two_dumpers": SceneConfig(n_dumpers=2, n_humans=3)}
 
 
