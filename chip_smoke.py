@@ -185,8 +185,13 @@ Run from the root of a checkout. Phases, each reported on its own line:
    printed), the shadow rays from its hits (every packed value
    bit-equal), the packed sweep of those pixel rays, of the keypoint
    segments of a 512-frame ``bench`` batch (and their exact cast) and of
-   both on the hifi tier's masked ``base`` roster (bit-equal); a
-   duplicated primitive resolving to the first index in the kernel and
+   both on the hifi tier's masked ``base`` roster (bit-equal); the
+   exclusion of ``occlusion_ts`` (pixel rays past their first instance,
+   segments past their own, the masked roster's: t bit-equal); each
+   mode's bundle cull (no needed (ray, row) pair dropped, its kept sets
+   against ``raycast.bundle_cull_plain``'s, rows kept a ray beside those
+   needed, the warps keeping every row, the shadow warps mixing sky and
+   surface origins); a duplicated primitive resolving to the first index in the kernel and
    the plain version, and ``torch.min``'s tie rule on the card; the card
    against the CPU at 4 x 128^2 (the CPU tests' tolerances); each mode's
    device time, its wrapper's call and the plain version beside its bound
@@ -2531,38 +2536,75 @@ def analytic_phase(dev, card, counters):
     return launches, variants, casters
 
 
-def row_meets(table, roster, world, ray_o, ray_d):
+def row_meets(table, world, ray_o, ray_d):
     """(S,) int64: for each row of ``table`` (a ``raycast.SweepTable``) the
     rays of ray_d (B, N, 3), from ray_o (B, 3) or per ray (B, N, 3), whose
-    half-line meets the row's bounding sphere (``sweep_kernel``'s
-    ``bounding_radii`` of its kind; the ground plane always): the pairs a
-    walk needs, whatever it culls. Directions need not be unit length.
-    Frame by frame on the card."""
-    import numpy as np
+    half-line meets the row's bounding sphere (``raycast.needed_rows``, on
+    ``table.radii``): the pairs a walk needs, whatever it culls. Frame by
+    frame on the card."""
     import torch
-    from constructionsceneposeestimation_tpu_torch.render import sweep_kernel
-    from constructionsceneposeestimation_tpu_torch.scene import assets
-    prim = table.rows[:, 1]
-    op = {assets.PLANE: 0, assets.SPHERE: 1, assets.CYLINDER: 2, assets.CONE: 3,
-          assets.BOX: 4, assets.CAPSULE: 6}
-    kinds = np.asarray(roster.prim_kind)[prim]
-    sched_i = np.stack([np.asarray([op[int(k)] for k in kinds]), prim], -1)
-    radii = torch.as_tensor(sweep_kernel.bounding_radii(
-        sched_i, np.asarray(roster.prim_params)[prim]), device=ray_d.device)
-    plane = radii < 0
-    idx = torch.as_tensor(prim, device=ray_d.device).long()
-    meets = torch.zeros(len(prim), dtype=torch.int64, device=ray_d.device)
+    from constructionsceneposeestimation_tpu_torch.render import raycast
+    meets = torch.zeros(len(table.rows), dtype=torch.int64, device=ray_d.device)
     for b in range(ray_d.shape[0]):
-        d = ray_d[b]  # (N, 3)
-        v = world["prim_pos"][b, idx][None] - (ray_o[b][:, None] if ray_o.dim() == 3
-                                                else ray_o[b][None, None])  # (N or 1, S, 3)
-        dd = torch.sum(d * d, -1, keepdim=True)  # (N, 1)
-        tc = torch.sum(d[:, None] * v, -1)  # (N, S)
-        vv = torch.sum(v * v, -1)
-        r2 = radii * radii
-        meet = ((tc > 0) & (vv * dd - tc * tc <= r2 * dd)) | (vv <= r2) | plane
-        meets += meet.sum(0)
+        meets += raycast.needed_rows(table, {"prim_pos": world["prim_pos"][b:b + 1]},
+                                     ray_o[b:b + 1], ray_d[b:b + 1])[0].sum(0)
     return meets
+
+
+def cull_report(tag, wrapper, table, world, ray_o, ray_d, sky=None):
+    """The kernel's bundle cull on one call of ``wrapper`` (a caster
+    wrapper, its ``kept`` output filled): every warp must keep each row that
+    one of its rays needs (``raycast.needed_rows``); its kept sets against
+    ``raycast.bundle_cull_plain``'s (equal on > 0.99 of the warps: the
+    mirror's sums and transcendentals round otherwise at the margins); rows
+    kept a ray, beside those a ray needs; the share of warps that keep
+    every row, and with ``sky`` (B, N) bool, of the warps that mix rays
+    from the camera (sky pixels) with rays from surfaces. Printed;
+    returns the numbers and whether the cull held."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.render import raycast
+    B, N = ray_d.shape[:2]
+    S = len(table.rows)
+    kept = raycast.kept_buffer(table, ray_d)
+    wrapper(table, world, ray_o, ray_d, kept=kept)
+    keep = raycast.kept_rows(kept, S)  # (B, W, S)
+    W = keep.shape[1]
+    lanes = torch.full((W,), raycast.WARP, device=ray_d.device)
+    lanes[-1] = N - (W - 1) * raycast.WARP
+    radii = table.radii_on(ray_d.device)
+    missing = needed = same = 0
+    for b in range(B):
+        wb = {"prim_pos": world["prim_pos"][b:b + 1]}
+        ro = ray_o[b:b + 1]
+        rd = ray_d[b:b + 1]
+        need = raycast.needed_rows(table, wb, ro, rd)
+        needed += int(need.sum())
+        need_w = raycast._warps(need, W).any(2)[0]  # (W, S)
+        missing += int((need_w & ~keep[b]).sum())
+        same += int((raycast.bundle_cull_plain(table, radii, wb, ro, rd)[0] == keep[b])
+                    .all(-1).sum())
+    rows = keep.sum(-1)  # (B, W)
+    kept_a_ray = float((rows * lanes).sum()) / (B * N)
+    every = float((rows == S).float().mean())
+    r = {"rows_kept_a_ray": kept_a_ray, "rows_needed_a_ray": needed / (B * N),
+         "warps_keeping_every_row": every, "cull_equal_to_mirror": same / (B * W),
+         "needed_rows_dropped": missing}
+    line = (f"{tag}: bundle cull keeps {kept_a_ray:.3f} rows a ray of {S} (needs "
+            f"{r['rows_needed_a_ray']:.3f}); {100 * every:.3f}% of the {B * W} warps keep every "
+            f"row")
+    if sky is not None:
+        s_w = raycast._warps(sky, W)
+        mixed = s_w.any(2) & ~s_w.all(2)
+        r["mixed_warps"] = float(mixed.float().mean())
+        r["rows_kept_mixed_warp"] = float(rows[mixed].float().mean()) if mixed.any() else 0.0
+        r["rows_kept_other_warp"] = float(rows[~mixed].float().mean())
+        line += (f"; {100 * r['mixed_warps']:.3f}% of the warps mix camera and surface origins "
+                 f"and keep {r['rows_kept_mixed_warp']:.2f} rows, the others "
+                 f"{r['rows_kept_other_warp']:.2f}")
+    phase("raycast", line + f"; needed (ray, row) pairs the cull dropped: {missing} (0); kept "
+          f"sets equal to raycast.bundle_cull_plain's on {r['cull_equal_to_mirror']:.6f} of the "
+          f"warps (> 0.99)")
+    return r, missing == 0 and r["cull_equal_to_mirror"] > 0.99
 
 
 def raycast_bound(table, meets, n_rays, nbytes, mode, hits=0):
@@ -2585,11 +2627,11 @@ def raycast_bound(table, meets, n_rays, nbytes, mode, hits=0):
 
 
 def packed_equal(tag, k, p):
-    """Two packed (B, N) sweeps, bit for bit: printed; returns the share of
-    values that differ."""
+    """Two (B, N) f32 sweeps (packed, or t), bit for bit: printed; returns
+    the share of values that differ."""
     import torch
     differ = (k.view(torch.int32) != p.view(torch.int32)).float().mean().item()
-    phase("raycast", f"{tag}: {k.numel()} packed values, bit-equal to the plain version on "
+    phase("raycast", f"{tag}: {k.numel()} values, bit-equal to the plain version on "
           f"{1.0 - differ:.6f} (all)")
     return differ
 
@@ -2653,12 +2695,19 @@ def casts_agree(tag, a, b, n_px):
 
 def raycast_phase(dev, card):
     """``[raycast]``: csrc/raycast.cu in its three modes against the plain
-    walks on the card, on the same inputs: the exact cast of 64 x 512^2
+    walks on the card, on the same inputs: its instantiations' registers,
+    none spilling; the exact cast of 64 x 512^2
     pixel rays (t, prim and inst bit-equal, normals within 1e-6), the
     shadow rays from its hits toward the sun (every packed value
     bit-equal), the packed sweep of those pixel rays, of the keypoint
     segments of a 512-frame ``bench`` batch (and their exact cast) and of
-    both on the hifi tier's masked ``base`` roster; a duplicated primitive
+    both on the hifi tier's masked ``base`` roster; the exclusion
+    (``occlusion_ts``: the pixel rays past their first instance, the
+    segments past their own, t bit-equal, one exact launch each; the
+    masked roster's too); the bundle cull of each mode and of the masked
+    segments (``cull_report``: no needed row dropped, the mirror's sets,
+    rows kept a ray beside those needed, warps keeping every row, the
+    shadow warps mixing sky and surface); a duplicated primitive
     resolving to the first index in the kernel and in the plain version
     (and ``torch.min``'s own tie rule); the card against the CPU at 4 x
     128^2; each mode's device time, its wrapper's call and the plain
@@ -2676,6 +2725,9 @@ def raycast_phase(dev, card):
 
     regs = kernels.ptxas_report("raycast.cu")
     phase("raycast", f"csrc/raycast.cu, registers and spill bytes (ptxas): {regs}")
+    check(set(regs) == set(RAYCAST_KERNEL.values())
+          and all(r["spill_bytes"] == 0 for r in regs.values()),
+          f"raycast.cu: an instantiation missing or spilling: {regs}")
     cfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES, batch_size=B))
     pipe = Pipeline(cfg, device=dev)
     roster, caster = pipe.roster, pipe.caster
@@ -2693,14 +2745,34 @@ def raycast_phase(dev, card):
     same, errs[RAYCAST_EXACT] = exact_equal(f"exact, {B} x {RES}^2 pixel rays", k, p)
     ok = ok and same and errs[RAYCAST_EXACT] <= 1e-6
     hits = int(torch.isfinite(p["t"]).sum())
+    sky = ~torch.isfinite(p["t"])
+    first_inst = p["inst"]
     sun = -inputs.lighting.sun_dir
     shadow_o = (cam[:, None] + torch.where(torch.isfinite(p["t"]), p["t"], 0.0)[..., None] * px
                 + (sun * 1e-3)[:, None]).contiguous()
     shadow_d = sun[:, None].expand(B, RES * RES, 3).contiguous()
     del k, p
+    culls = {}
+    culls[RAYCAST_EXACT], held = cull_report(f"exact, {B} x {RES}^2 pixel rays", raycast.exact_cuda,
+                                             caster.kind_table, world, cam, px)
+    ok = ok and held
+    # The exclusion (occlusion_ts): each pixel ray past the instance it
+    # hits first, against the plain exact walk with the same exclusion.
+    before = raycast.exact_cuda.launches
+    k = raycast.occlusion_ts(world, roster, cam, px, first_inst)
+    p = torch.cat([raycast.exact_sweep(caster.kind_table, world, cam, px[:, sl], first_inst[:, sl])[0]
+                   for sl in raycast._blocks(B, RES * RES)], dim=1)
+    ok = ok and packed_equal(f"exclusion (occlusion_ts), {B} x {RES}^2 pixel rays past their "
+                             f"first instance, t", k, p) == 0
+    ok = ok and raycast.exact_cuda.launches == before + 1
+    del k, p
     k = raycast.multi_cuda(caster.kind_table, world, shadow_o, shadow_d)
     ok = ok and packed_equal(f"multi, {B} x {RES}^2 shadow rays", k,
                              plain_multi_packed(caster, world, shadow_o, shadow_d)) == 0
+    culls[RAYCAST_MULTI], held = cull_report(f"multi, {B} x {RES}^2 shadow rays",
+                                             raycast.multi_cuda, caster.kind_table, world,
+                                             shadow_o, shadow_d, sky)
+    ok = ok and held
     lit = (raycast._unpack(k)[0] >= raycast.INF * 0.99).float().mean().item()
     ok = ok and packed_equal(f"packed, {B} x {RES}^2 pixel rays", caster.packed(world, cam, px),
                              caster.plain_packed(world, cam, px)) == 0
@@ -2727,6 +2799,26 @@ def raycast_phase(dev, card):
     ok = ok and same and err <= 1e-6
     errs[RAYCAST_EXACT] = max(errs[RAYCAST_EXACT], err)
     errs[RAYCAST_PACKED] = errs[RAYCAST_MULTI] = 0.0
+    culls[RAYCAST_PACKED], held = cull_report(f"packed, {n} x {seg.shape[1]} segments",
+                                              raycast.packed_cuda, caster.packed_table, w, scam,
+                                              seg)
+    ok = ok and held
+    _, held = cull_report(f"packed, masked hifi base roster, {n} x {seg.shape[1]} segments",
+                          raycast.packed_cuda, base.packed_table, w, scam, seg)
+    ok = ok and held
+    # The exclusion on the segments (each past its own instance, as the
+    # keypoint occlusion test casts them) and on the masked roster.
+    own = (torch.arange(seg.shape[1], device=dev) // kp.shape[2]).to(torch.int32).expand(n, -1)
+    own = own.contiguous()
+    before = raycast.exact_cuda.launches
+    ok = ok and packed_equal(f"exclusion (occlusion_ts), {n} x {seg.shape[1]} segments past "
+                             f"their own instance, t", raycast.occlusion_ts(w, roster, scam, seg, own),
+                             raycast.exact_sweep(caster.kind_table, w, scam, seg, own)[0]) == 0
+    ok = ok and raycast.exact_cuda.launches == before + 1
+    t_plain = raycast.exact_sweep(base.kind_table, w, scam, seg, own)[0]
+    ok = ok and packed_equal(f"exclusion, masked hifi base roster, {n} x {seg.shape[1]} segments, "
+                             f"t", raycast.exact_cuda(base.kind_table, w, scam, seg, own)["t"],
+                             torch.where(t_plain < raycast.INF, t_plain, float("inf"))) == 0
     check(ok, "raycast: a kernel mode disagrees with its plain version on the card")
 
     # A duplicated primitive: the last box made the first box's twin. The
@@ -2805,7 +2897,7 @@ def raycast_phase(dev, card):
         nbytes = ((ro.numel() + rd.numel()) * 4 + rays * out_bytes + table.rows.size * 4
                   + (wm["prim_pos"].numel() + wm["prim_rot"].numel()
                      + wm["prim_params"].numel()) * 4 + (0 if sums is None else sums.numel() * 4))
-        meets = row_meets(table, roster, wm, ro, rd)
+        meets = row_meets(table, wm, ro, rd)
         b_ms, b_by, ops, brute_ms = raycast_bound(table, meets, rays, nbytes, mode, n_hits)
         ms = device_ms(k_fn, RAYCAST_KERNEL[mode])
         r = {"max_abs_err": errs[mode], "ms": ms,
@@ -2814,7 +2906,7 @@ def raycast_phase(dev, card):
              "bound": (b_ms, b_by), "brute_force_bound_ms": brute_ms, "rays": rays,
              "pairs": rays * len(table.rows), "pairs_needed": int(meets.sum()),
              "registers": regs[RAYCAST_KERNEL[mode]]["registers"],
-             "spill_bytes": regs[RAYCAST_KERNEL[mode]]["spill_bytes"]}
+             "spill_bytes": regs[RAYCAST_KERNEL[mode]]["spill_bytes"], **culls[mode]}
         results[mode] = r
         phase("time", f"{mode}: kernel {r['ms']:.4f} ms (by {r['ms_by']}; the wrapper's call "
               f"{r['call_ms']:.4f} ms, CUDA events), plain {r['plain_ms']:.3f} ms, bound "

@@ -54,18 +54,49 @@
 // IEEE divides and square roots among them), a packed ray's own terms and
 // an exact hit's normal; the bytes are the rays in (12 bytes, 24 with an
 // origin), the outputs (4 bytes a packed ray, 28 an exact one) and the
-// world. This walk tests every pair (brute force: 680 x 76 a frame for the
-// segments, 512^2 x 76 for pixel and shadow rays), far more than it needs.
+// world. A ray meets 1.4 to 4.6 of the default roster's 76 rows, so a walk
+// over every row spends nearly all its operations on pairs that miss.
 //
-// Design: brute force, one walk a ray. A CUDA block of 256 threads owns a
-// range of one frame's rays (grid: ray ranges x frames, enough ranges to
-// put ~16 blocks on each SM); its prologue gathers the frame's terms and
-// the table (128 bytes a row, ~10 KB for 76 rows) into shared memory, and
-// each thread walks every row for its rays, the whole warp on the same row, so
-// the switch on the row's op is uniform and its terms are a broadcast. The
-// gain over the plain version is launches: one where the plain packed walk
-// issues hundreds of elementwise kernels a call, and no (B, g, N) planes in
-// device memory.
+// Design: a warp-level bundle cull before each walk.
+// - Blocks. A CUDA block of 256 threads owns ranges of one frame's rays
+//   (grid: ray ranges x frames, enough ranges to put ~16 blocks on each
+//   SM); its prologue gathers the frame's terms and the table (128 bytes a
+//   row, ~10 KB for 76 rows) into shared memory, each row's widened
+//   bounding radius R' = (1 + kCullRel) R among them (-1 for the plane).
+// - Bundles. Each warp takes 32 consecutive rays of the frame. The callers
+//   pass coherent runs: a pixel row's 32-pixel strip, the shadow rays of
+//   those pixels' hits along one sun direction, keypoint segments instance
+//   by instance. With shuffles the warp builds a cone: its apex (the
+//   camera, or in MODE_MULTI the mean of the lanes' origins with r_o the
+//   largest distance of an origin from it, widened by kCullRel), its axis
+//   (the normalised sum of the lanes' unit directions) and its half-angle
+//   alpha (the largest angle from the axis), widened as csrc/sweep.cu
+//   widens a tile's: (1 + kCullRel) alpha + kCullAbs. A half-line from an
+//   origin that meets a ball of radius R' is, moved to the apex, a
+//   half-line of the cone that meets the ball of radius R' + r_o about the
+//   same centre. A warp keeps every row if the angle reaches pi / 2, or if
+//   a lane's direction is zero or not finite, or its origin not finite.
+// - Cull. The rows go to the lanes 32 at a time; a lane keeps its row if
+//   it is the plane, if the apex lies within R' + r_o of its centre, or if
+//   that ball meets the cone (csrc/sweep.cu's test, without
+//   transcendentals). One __ballot_sync gives the warp's word of kept rows,
+//   which stays in a register (warp-uniform) while the warp walks its set
+//   bits in ascending row order, then the next 32 rows: no bitmask array,
+//   in registers or in shared memory.
+// - Walk. Every lane walks the warp's kept rows, so the switch on the
+//   row's op stays uniform and its terms are a broadcast; the table's
+//   order is kept, so the exact walk's strict `<` still picks the first
+//   row on a tie.
+// - Bit-equality. A culled row can only miss: its pair's value in the
+//   plain walk is pack(INF, code) (t = INF in MODE_EXACT, which never wins
+//   the strict `<`). The packed modes fold each word's culled rows'
+//   pack(INF, code) in with one __reduce_min_sync, so the packed min is the
+//   plain walk's whatever the cull drops. render/raycast.bundle_cull_plain
+//   mirrors the cull on tensors; the walks' plain versions stay brute
+//   force.
+// MODE_EXACT takes an optional excluded instance a ray (exclude (B, N),
+// render/raycast.occlusion_ts): a row of that instance counts as a miss.
+// An optional output `kept` receives each warp's words of kept rows.
 #include "common.cuh"
 
 namespace cspe {
@@ -94,10 +125,15 @@ enum Mode : int { MODE_PACKED = 0, MODE_EXACT = 1, MODE_MULTI = 2 };
 // A row's terms in shared memory, a float4 each: the rotation columns c_i
 // = R[:, i], each with the local origin o_i = c_i . (ray_o - p) in .w (0
 // with per-ray origins); the parameters; ray_o - p with the capsule's
-// c_2 . (ray_o - p); p with |ray_o - p|^2; the yaw box's local origin x, y.
+// c_2 . (ray_o - p); p with |ray_o - p|^2; the yaw box's local origin x, y
+// with the widened bounding radius R' in .z.
 enum Slot : int { kCol0 = 0, kCol1, kCol2, kParams, kRel, kPos, kYaw, kSlots };
 constexpr int kThreads = 256;
 constexpr int kFillBlocks = 132 * 16;  // blocks a launch aims for on the H100
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kCullRel = 1e-3f;    // render/raycast.CULL_REL (csrc/sweep.cu's)
+constexpr float kCullAbs = 1e-6f;    // render/raycast.CULL_ABS
+constexpr float kHalfPi = 1.5707963f;
 
 struct V3 {
   float x, y, z;
@@ -128,6 +164,81 @@ __device__ __forceinline__ float valid(float t, bool cond) { return cond && t > 
 __device__ __forceinline__ float sgn(float x) { return (float)((0.0f < x) - (x < 0.0f)); }
 __device__ __forceinline__ float pack(float t, int code) {
   return __int_as_float((__float_as_int(t) & ~kPayloadMask) | code);
+}
+
+// --- the warp's bundle and its cull (render/raycast.bundle_cull_plain)
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1) x += __shfl_xor_sync(kFull, x, k);
+  return x;
+}
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, k));
+  return x;
+}
+
+// A warp's cone: apex, unit axis, cos and sin of the widened half-angle,
+// the origins' spread r_o; `all` keeps every row. The butterfly sums and
+// maxima give every lane the same bits.
+struct Bundle {
+  V3 apex, axis;
+  float ca, sa, r_o;
+  bool all;
+};
+
+template <int kMode>
+__device__ __forceinline__ Bundle make_bundle(bool active, V3 o, V3 d) {
+  Bundle c;
+  const float dd = d.x * d.x + d.y * d.y + d.z * d.z;
+  const float nd = sqrtf(dd);
+  const bool origin_ok =
+      kMode != MODE_MULTI || (isfinite(o.x) && isfinite(o.y) && isfinite(o.z));
+  const bool bad = active && !(dd > 0.0f && isfinite(nd) && origin_ok);
+  const bool use = active && !bad;
+  const V3 u = use ? V3{d.x / nd, d.y / nd, d.z / nd} : V3{0.0f, 0.0f, 0.0f};
+  const V3 s = {warp_sum(u.x), warp_sum(u.y), warp_sum(u.z)};
+  const float ns = sqrtf(s.x * s.x + s.y * s.y + s.z * s.z);
+  c.axis = {s.x / ns, s.y / ns, s.z / ns};
+  // The angle from the axis, accurate at small angles (csrc/sweep.cu's).
+  const float cx = c.axis.y * u.z - c.axis.z * u.y;
+  const float cy = c.axis.z * u.x - c.axis.x * u.z;
+  const float cz = c.axis.x * u.y - c.axis.y * u.x;
+  const float ang = use ? atan2f(sqrtf(cx * cx + cy * cy + cz * cz),
+                                 c.axis.x * u.x + c.axis.y * u.y + c.axis.z * u.z)
+                        : 0.0f;
+  const float alpha = warp_max(ang) * (1.0f + kCullRel) + kCullAbs;
+  c.r_o = 0.0f;
+  c.apex = o;
+  if (kMode == MODE_MULTI) {
+    const float n = (float)__popc(__ballot_sync(kFull, use));
+    c.apex = {warp_sum(use ? o.x : 0.0f) / n, warp_sum(use ? o.y : 0.0f) / n,
+              warp_sum(use ? o.z : 0.0f) / n};
+    const V3 e = {o.x - c.apex.x, o.y - c.apex.y, o.z - c.apex.z};
+    c.r_o = warp_max(use ? sqrtf(e.x * e.x + e.y * e.y + e.z * e.z) : 0.0f) * (1.0f + kCullRel);
+  }
+  c.all = __any_sync(kFull, bad) || !(ns > 0.0f) || !(alpha < kHalfPi) || !isfinite(c.r_o);
+  c.ca = cosf(alpha);
+  c.sa = sinf(alpha);
+  return c;
+}
+
+// Whether the bundle keeps the row of terms T: the plane always; else the
+// ball of radius R' + r_o about its centre p holding the apex, or meeting
+// the cone: the angle from the axis to v = p - apex within alpha' +
+// asin(R / |v|), as a.v >= cos(alpha') sqrt(|v|^2 - R^2) - sin(alpha') R.
+template <int kMode>
+__device__ __forceinline__ bool keeps(const Bundle& c, const float4* T) {
+  const float rad = T[kYaw].z;
+  if (c.all || rad < 0.0f) return true;
+  const V3 v = kMode != MODE_MULTI
+                   ? V3{-T[kRel].x, -T[kRel].y, -T[kRel].z}  // p - camera
+                   : V3{T[kPos].x - c.apex.x, T[kPos].y - c.apex.y, T[kPos].z - c.apex.z};
+  const float r = rad + c.r_o;
+  const float d2 = v.x * v.x + v.y * v.y + v.z * v.z;
+  const float av = c.axis.x * v.x + c.axis.y * v.y + c.axis.z * v.z;
+  return d2 <= r * r || av >= c.ca * sqrtf(d2 - r * r) - c.sa * r;
 }
 
 // --- generic formulas in the primitive's local frame (render/raycast._KIND_FNS)
@@ -442,11 +553,12 @@ __device__ V3 local_normal(int kind, V3 p, V3 dl, float4 prm) {
 // The terms of row `row` of frame b (Slot) from the world's pose of its
 // primitive, in render/raycast's plain operations: ray_o - p, c_i . (ray_o
 // - p) as (R[0][i] r_0 + R[1][i] r_1) + R[2][i] r_2, the yaw box's (c r_0 +
-// s r_1, -s r_0 + c r_1); `sums` (or zeros) the axial capsule's.
+// s r_1, -s r_0 + c r_1); `sums` (or zeros) the axial capsule's; the
+// widened bounding radius.
 template <int kMode>
-__device__ __forceinline__ void gather_terms(float4* T, int4 row, const float* prim_pos,
-                                             const float* prim_rot, const float* params,
-                                             const float* sums, V3 cam) {
+__device__ __forceinline__ void gather_terms(float4* T, int4 row, float radius,
+                                             const float* prim_pos, const float* prim_rot,
+                                             const float* params, const float* sums, V3 cam) {
   const float* R = prim_rot + (size_t)row.y * 9;  // row-major: R[j][i] = R[3 j + i]
   const V3 pos = {prim_pos[3 * row.y], prim_pos[3 * row.y + 1], prim_pos[3 * row.y + 2]};
   V3 rel = {0.0f, 0.0f, 0.0f};
@@ -461,17 +573,20 @@ __device__ __forceinline__ void gather_terms(float4* T, int4 row, const float* p
   T[kRel] = {rel.x, rel.y, rel.z, sums ? sums[0] : 0.0f};
   T[kPos] = {pos.x, pos.y, pos.z, sums ? sums[1] : 0.0f};
   const float c = R[0], s = R[3];
-  T[kYaw] = {add(mul(c, rel.x), mul(s, rel.y)), add(mul(-s, rel.x), mul(c, rel.y)), 0.0f, 0.0f};
+  T[kYaw] = {add(mul(c, rel.x), mul(s, rel.y)), add(mul(-s, rel.x), mul(c, rel.y)),
+             radius < 0.0f ? -1.0f : radius * (1.0f + kCullRel), 0.0f};
 }
 
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
-raycast_kernel(const int4* __restrict__ rows, const float* __restrict__ prim_pos,
-               const float* __restrict__ prim_rot, const float* __restrict__ params,
-               const float* __restrict__ sums, const float* __restrict__ ray_o,
-               const float* __restrict__ ray_d, int n_rows, int n_prims, int n_rays,
+raycast_kernel(const int4* __restrict__ rows, const float* __restrict__ radii,
+               const float* __restrict__ prim_pos, const float* __restrict__ prim_rot,
+               const float* __restrict__ params, const float* __restrict__ sums,
+               const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+               const int* __restrict__ exclude, int n_rows, int n_prims, int n_rays,
                float* __restrict__ out, long long* __restrict__ prim_out,
-               int* __restrict__ inst_out, float* __restrict__ normal_out) {
+               int* __restrict__ inst_out, float* __restrict__ normal_out,
+               int* __restrict__ kept) {
   extern __shared__ float4 s_terms[];  // n_rows x kSlots
   int4* s_rows = reinterpret_cast<int4*>(s_terms + n_rows * kSlots);
   const int b = blockIdx.y;
@@ -480,100 +595,122 @@ raycast_kernel(const int4* __restrict__ rows, const float* __restrict__ prim_pos
   for (int i = threadIdx.x; i < n_rows; i += kThreads) {
     const int4 row = rows[i];
     s_rows[i] = row;
-    gather_terms<kMode>(s_terms + i * kSlots, row, prim_pos + (size_t)b * n_prims * 3,
+    gather_terms<kMode>(s_terms + i * kSlots, row, radii[i], prim_pos + (size_t)b * n_prims * 3,
                         prim_rot + (size_t)b * n_prims * 9, params,
                         sums ? sums + ((size_t)b * n_rows + i) * 2 : nullptr, cam);
   }
   __syncthreads();
 
+  const int lane = threadIdx.x & 31;
+  const int n_words = (n_rows + 31) >> 5;
+  const int n_warps = (n_rays + 31) >> 5;
+  const int inf_bits = __float_as_int(kInf);
 #pragma unroll 1
-  for (int n = blockIdx.x * kThreads + threadIdx.x; n < n_rays; n += gridDim.x * kThreads) {
-    const size_t r = (size_t)b * n_rays + n;
+  for (int base = blockIdx.x * kThreads + (threadIdx.x & ~31); base < n_rays;
+       base += gridDim.x * kThreads) {
+    const bool active = base + lane < n_rays;
+    const size_t r = (size_t)b * n_rays + (active ? base + lane : base);
     const V3 d = {ray_d[3 * r], ray_d[3 * r + 1], ray_d[3 * r + 2]};
-    if (kMode == MODE_PACKED) {
-      const RayTerms rt = ray_terms(cam, d);
-      float best = kInf;
+    const V3 ow = kMode == MODE_MULTI ? V3{ray_o[3 * r], ray_o[3 * r + 1], ray_o[3 * r + 2]} : cam;
+    const Bundle bundle = make_bundle<kMode>(active, ow, d);
+    RayTerms rt;
+    if (kMode == MODE_PACKED) rt = ray_terms(cam, d);
+    const int ex = kMode == MODE_EXACT && exclude ? exclude[r] : -3;  // -3: no instance
+    float best = kInf;
+    int win = -1;
 #pragma unroll 1
-      for (int s = 0; s < n_rows; ++s) {
-        const int4 row = s_rows[s];
-        best = fminf(best, pack(packed_row(row.x, row.w, s_terms + s * kSlots, d, rt), row.z));
+    for (int w = 0; w < n_words; ++w) {
+      const int mine = (w << 5) + lane;
+      const bool keep = mine < n_rows && keeps<kMode>(bundle, s_terms + mine * kSlots);
+      unsigned m = __ballot_sync(kFull, keep);
+      if (kept != nullptr && lane == 0) kept[((size_t)b * n_warps + (base >> 5)) * n_words + w] = m;
+      if (kMode != MODE_EXACT) {
+        // The culled rows' misses, pack(INF, code), as the plain walk has them.
+        const int miss = mine < n_rows && !keep ? __float_as_int(pack(kInf, s_rows[mine].z))
+                                                : inf_bits;
+        best = fminf(best, __int_as_float(__reduce_min_sync(kFull, miss)));
       }
-      out[r] = best;
-    } else if (kMode == MODE_MULTI) {
-      const V3 ow = {ray_o[3 * r], ray_o[3 * r + 1], ray_o[3 * r + 2]};
-      float best = kInf;
 #pragma unroll 1
-      for (int s = 0; s < n_rows; ++s) {
+      while (m != 0) {
+        const int s = (w << 5) + __ffs(m) - 1;
+        m &= m - 1;
         const int4 row = s_rows[s];
         const float4* T = s_terms + s * kSlots;
-        const V3 rel = {sub(ow.x, T[kPos].x), sub(ow.y, T[kPos].y), sub(ow.z, T[kPos].z)};
-        const V3 o = {dot3(T[kCol0], rel), dot3(T[kCol1], rel), dot3(T[kCol2], rel)};
-        best = fminf(best, pack(generic_t(row.x, o, local_dir(T, d), T[kParams]), row.z));
-      }
-      out[r] = best;
-    } else {
-      float best = kInf;
-      int win = -1;
-#pragma unroll 1
-      for (int s = 0; s < n_rows; ++s) {
-        const float4* T = s_terms + s * kSlots;
-        const float t = generic_t(s_rows[s].x, local_origin(T), local_dir(T, d), T[kParams]);
-        if (t < best) {
-          best = t;
-          win = s;
+        if (kMode == MODE_PACKED) {
+          best = fminf(best, pack(packed_row(row.x, row.w, T, d, rt), row.z));
+        } else if (kMode == MODE_MULTI) {
+          const V3 rel = {sub(ow.x, T[kPos].x), sub(ow.y, T[kPos].y), sub(ow.z, T[kPos].z)};
+          const V3 o = {dot3(T[kCol0], rel), dot3(T[kCol1], rel), dot3(T[kCol2], rel)};
+          best = fminf(best, pack(generic_t(row.x, o, local_dir(T, d), T[kParams]), row.z));
+        } else {
+          const float t = generic_t(row.x, local_origin(T), local_dir(T, d), T[kParams]);
+          if (t < best && row.z - 2 != ex) {
+            best = t;
+            win = s;
+          }
         }
       }
-      V3 nw = {0.0f, 0.0f, 0.0f};
-      if (win >= 0) {
-        const int4 row = s_rows[win];
-        const float4* T = s_terms + win * kSlots;
-        const V3 ol = local_origin(T);
-        const V3 dl = local_dir(T, d);
-        const V3 p = {add(ol.x, mul(best, dl.x)), add(ol.y, mul(best, dl.y)),
-                      add(ol.z, mul(best, dl.z))};
-        const V3 nl = local_normal(row.x, p, dl, T[kParams]);
-        // World axes: normal_j = (R[j][0] n_0 + R[j][1] n_1) + R[j][2] n_2.
-        const float4 c0 = T[kCol0], c1 = T[kCol1], c2 = T[kCol2];
-        nw = {dot3(c0.x, c1.x, c2.x, nl.x, nl.y, nl.z), dot3(c0.y, c1.y, c2.y, nl.x, nl.y, nl.z),
-              dot3(c0.z, c1.z, c2.z, nl.x, nl.y, nl.z)};
-        prim_out[r] = row.y;
-        inst_out[r] = row.z - 2;
-        out[r] = best;
-      } else {
-        prim_out[r] = -1;
-        inst_out[r] = -2;
-        out[r] = __int_as_float(0x7f800000);  // +inf
-      }
-      normal_out[3 * r] = nw.x;
-      normal_out[3 * r + 1] = nw.y;
-      normal_out[3 * r + 2] = nw.z;
     }
+    if (!active) continue;  // the last range's idle lanes; the warp's last iteration
+    if (kMode != MODE_EXACT) {
+      out[r] = best;
+      continue;
+    }
+    V3 nw = {0.0f, 0.0f, 0.0f};
+    if (win >= 0) {
+      const int4 row = s_rows[win];
+      const float4* T = s_terms + win * kSlots;
+      const V3 ol = local_origin(T);
+      const V3 dl = local_dir(T, d);
+      const V3 p = {add(ol.x, mul(best, dl.x)), add(ol.y, mul(best, dl.y)),
+                    add(ol.z, mul(best, dl.z))};
+      const V3 nl = local_normal(row.x, p, dl, T[kParams]);
+      // World axes: normal_j = (R[j][0] n_0 + R[j][1] n_1) + R[j][2] n_2.
+      const float4 c0 = T[kCol0], c1 = T[kCol1], c2 = T[kCol2];
+      nw = {dot3(c0.x, c1.x, c2.x, nl.x, nl.y, nl.z), dot3(c0.y, c1.y, c2.y, nl.x, nl.y, nl.z),
+            dot3(c0.z, c1.z, c2.z, nl.x, nl.y, nl.z)};
+      prim_out[r] = row.y;
+      inst_out[r] = row.z - 2;
+      out[r] = best;
+    } else {
+      prim_out[r] = -1;
+      inst_out[r] = -2;
+      out[r] = __int_as_float(0x7f800000);  // +inf
+    }
+    normal_out[3 * r] = nw.x;
+    normal_out[3 * r + 1] = nw.y;
+    normal_out[3 * r + 2] = nw.z;
   }
 }
 
 }  // namespace
 }  // namespace cspe
 
-// rows (S, 4) int32: op, primitive, code, swap. prim_pos (B, P, 3),
-// prim_rot (B, P, 3, 3), params (P, 4) f32: the world. sums (B, S, 2) f32
-// (render/raycast.axis_sums), or null where the table has no axial capsule;
-// MODE_PACKED only. ray_o (B, 3), or (B, N, 3) in MODE_MULTI; ray_d (B, N,
-// 3). out (B, N) f32: packed in MODE_PACKED and MODE_MULTI, t in
-// MODE_EXACT, which also writes prim (B, N) int64, inst (B, N) int32 and
-// normal (B, N, 3) f32 (null in the other modes). Returns
-// kErrSharedMemory, launching nothing, if the rows exceed kSmemLimit (~380
-// rows), and kErrArgument for an unknown mode or outputs or sums that do
-// not match it.
-CSPE_API int cspe_raycast(int mode, const int* rows, const float* prim_pos, const float* prim_rot,
-                          const float* params, const float* sums, const float* ray_o,
-                          const float* ray_d, int n_rows, int n_prims, int batch, int n_rays,
-                          float* out, long long* prim, int* inst, float* normal, void* stream) {
+// rows (S, 4) int32: op, primitive, code, swap; radii (S,) f32: each row's
+// bounding radius about its primitive's position (render/raycast.row_radii,
+// < 0 for the plane). prim_pos (B, P, 3), prim_rot (B, P, 3, 3), params (P,
+// 4) f32: the world. sums (B, S, 2) f32 (render/raycast.axis_sums), or null
+// where the table has no axial capsule; MODE_PACKED only. ray_o (B, 3), or
+// (B, N, 3) in MODE_MULTI; ray_d (B, N, 3). exclude (B, N) int32, an
+// instance a ray whose rows count as misses, or null; MODE_EXACT only. out
+// (B, N) f32: packed in MODE_PACKED and MODE_MULTI, t in MODE_EXACT, which
+// also writes prim (B, N) int64, inst (B, N) int32 and normal (B, N, 3) f32
+// (null in the other modes). kept (B, ceil(N / 32), ceil(S / 32)) int32, or
+// null: each warp's words of kept rows, bit s % 32 of word s / 32 for row
+// s. Returns kErrSharedMemory, launching nothing, if the rows exceed
+// kSmemLimit (~380 rows), and kErrArgument for an unknown mode, no radii,
+// or outputs, sums or exclusions that do not match it.
+CSPE_API int cspe_raycast(int mode, const int* rows, const float* radii, const float* prim_pos,
+                          const float* prim_rot, const float* params, const float* sums,
+                          const float* ray_o, const float* ray_d, const int* exclude, int n_rows,
+                          int n_prims, int batch, int n_rays, float* out, long long* prim,
+                          int* inst, float* normal, int* kept, void* stream) {
   using namespace cspe;
   const bool exact_outputs = prim != nullptr && inst != nullptr && normal != nullptr;
   const bool no_outputs = prim == nullptr && inst == nullptr && normal == nullptr;
-  if (mode < MODE_PACKED || mode > MODE_MULTI || out == nullptr ||
+  if (mode < MODE_PACKED || mode > MODE_MULTI || out == nullptr || radii == nullptr ||
       (mode == MODE_EXACT ? !exact_outputs : !no_outputs) ||
-      (sums != nullptr && mode != MODE_PACKED))
+      (sums != nullptr && mode != MODE_PACKED) || (exclude != nullptr && mode != MODE_EXACT))
     return kErrArgument;
   const size_t smem = (size_t)n_rows * (kSlots * sizeof(float4) + sizeof(int4));
   if (smem > kSmemLimit) return kErrSharedMemory;
@@ -583,10 +720,10 @@ CSPE_API int cspe_raycast(int mode, const int* rows, const float* prim_pos, cons
   const dim3 grid(ranges < fill ? ranges : fill, batch);
   const auto* r4 = reinterpret_cast<const int4*>(rows);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CSPE_RAYCAST_LAUNCH(M)                                                          \
-  raycast_kernel<M><<<grid, kThreads, smem, s>>>(r4, prim_pos, prim_rot, params, sums, ray_o, \
-                                                 ray_d, n_rows, n_prims, n_rays, out, prim,   \
-                                                 inst, normal)
+#define CSPE_RAYCAST_LAUNCH(M)                                                                  \
+  raycast_kernel<M><<<grid, kThreads, smem, s>>>(r4, radii, prim_pos, prim_rot, params, sums,   \
+                                                 ray_o, ray_d, exclude, n_rows, n_prims, n_rays, \
+                                                 out, prim, inst, normal, kept)
   if (mode == MODE_PACKED)
     CSPE_RAYCAST_LAUNCH(MODE_PACKED);
   else if (mode == MODE_EXACT)

@@ -24,20 +24,27 @@ the packed min exact (relative depth error <= 2^-18). A miss is ``INF``
 
 Each sweep is a walk over a ``SweepTable``, built once per caster: a row
 per primitive with its operation (``OP_*``), primitive index, payload code
-and fence axis swap, in the plain version's order. The walk reads each
-row's pose and parameters from the world; it runs in ``csrc/raycast.cu``
-for rays on a CUDA device (``packed_cuda``, ``exact_cuda``,
-``multi_cuda``) and in the plain versions beside them on the CPU
-(``packed_sweep``, ``exact_sweep``, ``multi_sweep``, in (B, g, N) planes a
-group, the JAX package's f32 operation order). Both versions of the
-packed walk take the axial capsules' sums over three elements from
-``axis_sums``. The ``plain_*`` methods run the plain versions on any
-device: they are what the kernel is held to. The JAX package computes
-these sweeps in ``jnp``, outside any Pallas kernel; this caster is also
-the plain version of the pixel-sweep kernel (render/sweep_kernel.py).
+and fence axis swap, in the plain version's order, and its bounding radius
+(``row_radii``). The walk reads each row's pose and parameters from the
+world; it runs in ``csrc/raycast.cu`` for rays on a CUDA device
+(``packed_cuda``, ``exact_cuda``, ``multi_cuda``) and in the plain
+versions beside them on the CPU (``packed_sweep``, ``exact_sweep``,
+``multi_sweep``, in (B, g, N) planes a group, the JAX package's f32
+operation order). Both versions of the packed walk take the axial
+capsules' sums over three elements from ``axis_sums``. The ``plain_*``
+methods run the plain versions on any device: they are what the kernel is
+held to. The JAX package computes these sweeps in ``jnp``, outside any
+Pallas kernel; this caster is also the plain version of the pixel-sweep
+kernel (render/sweep_kernel.py).
+
+The kernel first culls, for each warp of 32 consecutive rays, the rows
+whose bounding sphere no ray of the warp can meet (``bundle_cull_plain``
+mirrors the test); a culled row can only miss, so the kernel stays
+bit-equal to the brute-force plain walks.
 
 ``occlusion_ts`` is the generic t sweep with a per-ray excluded instance:
-the nearest hit of any other instance (PyTorch on every device).
+the nearest hit of any other instance (the exact mode's kernel on CUDA
+rays, ``exact_sweep`` on the CPU).
 """
 
 from __future__ import annotations
@@ -331,34 +338,82 @@ OP_AXIS_CAPSULE = 14
 _CATEGORY_OPS = {**{("inv", k): op for k, op in OP_INV.items()},
                  ("aa_id", assets.BOX): OP_AA_BOX, ("aa_swap", assets.BOX): OP_AA_BOX,
                  ("yaw", assets.BOX): OP_YAW_BOX, ("axis", assets.CAPSULE): OP_AXIS_CAPSULE}
+# The assets kind of each operation, for the rows' bounding radii.
+_OP_KIND = {**{k: k for k in _KIND_FNS}, **{op: k for k, op in OP_INV.items()},
+            OP_AA_BOX: assets.BOX, OP_YAW_BOX: assets.BOX, OP_AXIS_CAPSULE: assets.CAPSULE}
 # csrc/raycast.cu's modes.
 MODE_PACKED, MODE_EXACT, MODE_MULTI = 0, 1, 2
+# The kernel's bundle: a warp of WARP consecutive rays of a frame. Its cull
+# widens the bundle's half-angle to (1 + CULL_REL) alpha + CULL_ABS rad and
+# each bounding radius to (1 + CULL_REL) R, as render/sweep_kernel's tile
+# cull does (csrc/raycast.cu kCullRel, kCullAbs).
+WARP = 32
+CULL_REL = 1e-3
+CULL_ABS = 1e-6
+HALF_PI = 1.5707963
+
+
+def kind_radii(kinds: np.ndarray, params: np.ndarray) -> np.ndarray:
+    """(n,) f32: the radius of the bounding sphere about its position of a
+    primitive of each kind (``assets`` numbering) with its parameters (n,
+    4); every kind is centred there, with half-height hh along its axis.
+    -1 for a plane, which a cull always keeps. Widened by 1e-6 relative so
+    that the f32 value is not below the exact one."""
+    kinds, f = np.asarray(kinds), np.asarray(params, np.float64).reshape(-1, 4)
+    rad = np.full(len(kinds), -1.0)
+    sph, box = kinds == assets.SPHERE, kinds == assets.BOX
+    cyl, cone, cap = kinds == assets.CYLINDER, kinds == assets.CONE, kinds == assets.CAPSULE
+    rad[sph] = f[sph, 0]
+    rad[cyl] = np.hypot(f[cyl, 0], f[cyl, 1])
+    rad[cone] = np.hypot(np.maximum(f[cone, 0], f[cone, 1]), f[cone, 2])
+    rad[box] = np.linalg.norm(f[box, :3], axis=1)
+    rad[cap] = f[cap, 0] + f[cap, 1]
+    return np.where(rad > 0, rad * (1.0 + 1e-6), rad).astype(np.float32)
+
+
+def row_radii(rows: np.ndarray, prim_params: np.ndarray) -> np.ndarray:
+    """(S,) f32: ``kind_radii`` of each table row (``rows`` (S, 4): op,
+    primitive, ...) from the kind of its operation and its primitive's
+    parameters (``prim_params`` (P, 4))."""
+    rows = np.asarray(rows).reshape(-1, 4)
+    kinds = np.asarray([_OP_KIND[int(op)] for op in rows[:, 0]], np.int64)
+    return kind_radii(kinds, np.asarray(prim_params)[rows[:, 1]])
 
 
 class SweepTable:
     """The rows a sweep walks: ``rows`` (S, 4) int32 [op, primitive, code
-    (inst + 2), x/y swap] and ``groups`` [(category, kind, slice of rows),
-    ...], each group's rows contiguous, in the plain version's order.
-    ``on(device)`` is ``rows`` as a tensor there (cached)."""
+    (inst + 2), x/y swap], ``groups`` [(category, kind, slice of rows),
+    ...], each group's rows contiguous, in the plain version's order, and
+    ``radii`` (S,) f32, each row's ``row_radii`` from the primitives'
+    parameters ``prim_params`` (P, 4). ``on(device)`` and
+    ``radii_on(device)`` are ``rows`` and ``radii`` as tensors there
+    (cached)."""
 
-    def __init__(self, groups, codes: np.ndarray):
+    def __init__(self, groups, codes: np.ndarray, prim_params: np.ndarray):
         rows, self.groups = [], []
         for cat, kind, op, idx in groups:
             s = len(rows)
             rows += [[op, int(p), int(codes[p]), int(cat == "aa_swap")] for p in idx]
             self.groups.append((cat, kind, slice(s, len(rows))))
         self.rows = np.asarray(rows, np.int32).reshape(-1, 4)
+        self.radii = row_radii(self.rows, prim_params)
         self.ops = frozenset(self.rows[:, 0].tolist())
         self._on = {}
 
-    def on(self, device) -> Tensor:
-        key = str(device)
+    def _tensor(self, name: str, device) -> Tensor:
+        key = (name, str(device))
         if key not in self._on:
-            self._on[key] = torch.as_tensor(self.rows, device=device)
+            self._on[key] = torch.as_tensor(getattr(self, name), device=device)
         return self._on[key]
 
+    def on(self, device) -> Tensor:
+        return self._tensor("rows", device)
 
-def packed_table(cats, codes: np.ndarray) -> SweepTable:
+    def radii_on(self, device) -> Tensor:
+        return self._tensor("radii", device)
+
+
+def packed_table(cats, codes: np.ndarray, prim_params: np.ndarray) -> SweepTable:
     """The packed sweep's table: categories in ``CATEGORIES`` order, kinds
     in ``np.unique`` order within each, ascending primitive index."""
     groups = []
@@ -369,13 +424,13 @@ def packed_table(cats, codes: np.ndarray) -> SweepTable:
                 raise ValueError(f"no packed-sweep operation for {assets.KIND_NAMES[kind]} in "
                                  f"category {cat!r}")
             groups.append((cat, kind, op, idx))
-    return SweepTable(groups, codes)
+    return SweepTable(groups, codes, prim_params)
 
 
-def kind_table(groups, codes: np.ndarray) -> SweepTable:
+def kind_table(groups, codes: np.ndarray, prim_params: np.ndarray) -> SweepTable:
     """The exact and per-origin sweeps' table: ``_kind_groups`` order, each
     row its kind's generic operation."""
-    return SweepTable([("kind", k, k, idx) for k, idx in groups], codes)
+    return SweepTable([("kind", k, k, idx) for k, idx in groups], codes, prim_params)
 
 
 def axis_sums(table: SweepTable, world, ray_o: Tensor) -> Tensor | None:
@@ -533,6 +588,94 @@ def multi_sweep(table: SweepTable, world, ray_o: Tensor, ray_d: Tensor) -> Tenso
 packed_sweep.card_calls = exact_sweep.card_calls = multi_sweep.card_calls = 0
 
 
+def _warps(x: Tensor, n_warps: int) -> Tensor:
+    """(B, N, ...) -> (B, n_warps, WARP, ...), zero-padded at the end."""
+    B, N = x.shape[:2]
+    pad = torch.zeros(B, n_warps * WARP - N, *x.shape[2:], dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], 1).reshape(B, n_warps, WARP, *x.shape[2:])
+
+
+def bundle_cull_plain(table: SweepTable, radii: Tensor, world, ray_o: Tensor,
+                      ray_d: Tensor) -> Tensor:
+    """csrc/raycast.cu's bundle cull on tensors: (B, ceil(N / WARP), S) bool,
+    True where warp w (rays WARP w to WARP w + WARP - 1 of a frame) keeps
+    row s, for rays from ray_o (B, 3), or (B, N, 3) per ray, along ray_d
+    (B, N, 3); ``radii`` (S,) are the rows' bounding radii
+    (``table.radii``, < 0 for the plane). The bundle's cone: its apex (the
+    camera, or the mean of the origins with their spread r_o), the
+    normalised sum of the unit directions, their widened largest angle from
+    it; a row is kept if the ball of radius (1 + CULL_REL) R + r_o about
+    its primitive holds the apex or meets the cone."""
+    B, N = ray_d.shape[:2]
+    n_warps = -(-N // WARP)
+    dev = ray_d.device
+    active = _warps(torch.ones(B, N, dtype=torch.bool, device=dev), n_warps)
+    d = _warps(ray_d, n_warps)  # (B, W, WARP, 3)
+    dd = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    nd = torch.sqrt(dd)
+    ok = (dd > 0) & torch.isfinite(nd)
+    if ray_o.dim() == 3:
+        o = _warps(ray_o, n_warps)
+        ok = ok & torch.isfinite(o).all(-1)
+    use = active & ok
+    u = torch.where(use[..., None], d / nd[..., None], 0.0)
+    s = u.sum(2)  # (B, W, 3)
+    ns = torch.sqrt(torch.sum(s * s, -1))
+    axis = s / ns[..., None]
+    cross = torch.linalg.cross(axis[:, :, None].expand_as(u), u, dim=-1)
+    ang = torch.atan2(torch.sqrt(torch.sum(cross * cross, -1)),
+                      torch.sum(axis[:, :, None] * u, -1))
+    alpha = torch.where(use, ang, 0.0).amax(2) * (1.0 + CULL_REL) + CULL_ABS
+    if ray_o.dim() == 3:
+        apex = torch.where(use[..., None], o, 0.0).sum(2) / use.sum(2, keepdim=True)
+        e = o - apex[:, :, None]
+        r_o = torch.where(use, torch.sqrt(torch.sum(e * e, -1)), 0.0).amax(2) * (1.0 + CULL_REL)
+    else:
+        apex = ray_o[:, None, :].expand(B, n_warps, 3)
+        r_o = torch.zeros(B, n_warps, device=dev)
+    every = (active & ~ok).any(2) | ~(ns > 0) | ~(alpha < HALF_PI) | ~torch.isfinite(r_o)
+    ca, sa = torch.cos(alpha)[..., None], torch.sin(alpha)[..., None]
+    pos = world["prim_pos"][:, table.on(dev)[:, 1].long()]  # (B, S, 3)
+    v = pos[:, None] - apex[:, :, None]  # (B, W, S, 3)
+    r = radii * (1.0 + CULL_REL) + r_o[..., None]
+    d2 = torch.sum(v * v, -1)
+    av = torch.sum(axis[:, :, None] * v, -1)
+    keep = (d2 <= r * r) | (av >= ca * torch.sqrt(torch.clamp_min(d2 - r * r, 0.0)) - sa * r)
+    return keep | (radii < 0) | every[..., None]
+
+
+def needed_rows(table: SweepTable, world, ray_o: Tensor, ray_d: Tensor) -> Tensor:
+    """(B, N, S) bool: the half-line of each ray from ray_o (B, 3), or (B,
+    N, 3) per ray, along ray_d (B, N, 3) meets the row's bounding sphere
+    (``table.radii``; the ground plane always): the (ray, row) pairs any
+    cull must keep, the work a walk needs. Directions need not be unit
+    length."""
+    dev = ray_d.device
+    radii = table.radii_on(dev)
+    o = ray_o[:, :, None] if ray_o.dim() == 3 else ray_o[:, None, None]
+    v = world["prim_pos"][:, table.on(dev)[:, 1].long()][:, None] - o  # (B, N, S, 3)
+    dd = torch.sum(ray_d * ray_d, -1, keepdim=True)
+    tc = torch.sum(ray_d[:, :, None] * v, -1)
+    vv = torch.sum(v * v, -1)
+    r2 = radii * radii
+    return ((tc > 0) & (vv * dd - tc * tc <= r2 * dd)) | (vv <= r2) | (radii < 0)
+
+
+def kept_buffer(table: SweepTable, ray_d: Tensor) -> Tensor:
+    """An int32 (B, ceil(N / WARP), ceil(S / WARP)) tensor beside ray_d (B,
+    N, 3) for a kernel wrapper's ``kept`` output."""
+    return torch.zeros(ray_d.shape[0], -(-ray_d.shape[1] // WARP), -(-len(table.rows) // WARP),
+                       dtype=torch.int32, device=ray_d.device)
+
+
+def kept_rows(words: Tensor, n_rows: int) -> Tensor:
+    """(B, W, S) bool from the kernel's ``kept`` words (B, W, ceil(S /
+    WARP)) int32: bit s % WARP of word s // WARP is row s."""
+    shift = torch.arange(WARP, dtype=torch.int32, device=words.device)
+    bits = (words[..., None] >> shift) & 1
+    return bits.reshape(*words.shape[:2], -1)[..., :n_rows].bool()
+
+
 def _norm(v: Tensor) -> Tensor:
     return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
 
@@ -589,40 +732,55 @@ def _hits(packed: Tensor) -> Dict[str, Tensor]:
 
 
 def _launch(mode: int, name: str, table: SweepTable, world, ray_o: Tensor, ray_d: Tensor,
-            sums: Tensor | None, out: Tensor, exact_out=(None, None, None)):
+            sums: Tensor | None, out: Tensor, exact_out=(None, None, None),
+            exclude: Tensor | None = None, kept: Tensor | None = None):
     """Check the kernel's inputs and launch it in ``mode``."""
     kernels.check_cuda(f"{name} ray_d", ray_d, torch.float32)
     if ray_d.dim() != 3 or ray_d.shape[2] != 3:
         raise ValueError(f"{name}: ray_d must be (B, N, 3), got {tuple(ray_d.shape)}")
     B, N = ray_d.shape[:2]
     P = world["prim_params"].shape[0]
-    rows = table.on(ray_d.device)
+    rows, radii = table.on(ray_d.device), table.radii_on(ray_d.device)
     S = rows.shape[0]
     kernels.check_cuda(f"{name} ray_o", ray_o, torch.float32,
                        (B, N, 3) if mode == MODE_MULTI else (B, 3))
     kernels.check_cuda(f"{name} rows", rows, torch.int32, (S, 4))
+    kernels.check_cuda(f"{name} radii", radii, torch.float32, (S,))
     kernels.check_cuda(f"{name} prim_pos", world["prim_pos"], torch.float32, (B, P, 3))
     kernels.check_cuda(f"{name} prim_rot", world["prim_rot"], torch.float32, (B, P, 3, 3))
     kernels.check_cuda(f"{name} prim_params", world["prim_params"], torch.float32, (P, 4))
     if sums is not None:
         kernels.check_cuda(f"{name} sums", sums, torch.float32, (B, S, 2))
-    kernels.launch("cspe_raycast", mode, rows, world["prim_pos"], world["prim_rot"],
-                   world["prim_params"], sums, ray_o, ray_d, S, P, B, N, out, *exact_out)
+    if exclude is not None:
+        kernels.check_cuda(f"{name} exclude", exclude, torch.int32, (B, N))
+    if kept is not None:
+        kernels.check_cuda(f"{name} kept", kept, torch.int32, (B, -(-N // WARP), -(-S // WARP)))
+    kernels.launch("cspe_raycast", mode, rows, radii, world["prim_pos"], world["prim_rot"],
+                   world["prim_params"], sums, ray_o, ray_d, exclude, S, P, B, N, out,
+                   *exact_out, kept)
 
 
-def packed_cuda(table: SweepTable, world, ray_o: Tensor, ray_d: Tensor) -> Tensor:
+# Each wrapper's optional ``kept`` (``kept_buffer``) receives every warp's
+# kept rows (``kept_rows`` unpacks them); no path passes one.
+
+
+def packed_cuda(table: SweepTable, world, ray_o: Tensor, ray_d: Tensor,
+                kept: Tensor | None = None) -> Tensor:
     """Launch csrc/raycast.cu's packed walk: ``packed_sweep``'s (B, N)
     packed f32 for ray_o (B, 3) and ray_d (B, N, 3)."""
     out = torch.empty(ray_d.shape[:2], dtype=torch.float32, device=ray_d.device)
     _launch(MODE_PACKED, "raycast packed", table, world, ray_o, ray_d,
-            axis_sums(table, world, ray_o), out)
+            axis_sums(table, world, ray_o), out, kept=kept)
     packed_cuda.launches += 1
     return out
 
 
-def exact_cuda(table: SweepTable, world, ray_o: Tensor, ray_d: Tensor) -> Dict[str, Tensor]:
+def exact_cuda(table: SweepTable, world, ray_o: Tensor, ray_d: Tensor,
+               exclude: Tensor | None = None, kept: Tensor | None = None) -> Dict[str, Tensor]:
     """Launch csrc/raycast.cu's exact walk and normal: ``Raycaster.cast``'s
-    dict for ray_o (B, 3) and ray_d (B, N, 3)."""
+    dict for ray_o (B, 3) and ray_d (B, N, 3); with ``exclude`` (B, N)
+    int32, the rows of each ray's instance count as misses
+    (``exact_sweep``'s ``exclude_inst``)."""
     B, N = ray_d.shape[:2]
     dev = ray_d.device
     out = {"t": torch.empty(B, N, dtype=torch.float32, device=dev),
@@ -630,16 +788,17 @@ def exact_cuda(table: SweepTable, world, ray_o: Tensor, ray_d: Tensor) -> Dict[s
            "inst": torch.empty(B, N, dtype=torch.int32, device=dev),
            "normal": torch.empty(B, N, 3, dtype=torch.float32, device=dev)}
     _launch(MODE_EXACT, "raycast exact", table, world, ray_o, ray_d, None, out["t"],
-            (out["prim"], out["inst"], out["normal"]))
+            (out["prim"], out["inst"], out["normal"]), exclude, kept)
     exact_cuda.launches += 1
     return out
 
 
-def multi_cuda(table: SweepTable, world, ray_o: Tensor, ray_d: Tensor) -> Tensor:
+def multi_cuda(table: SweepTable, world, ray_o: Tensor, ray_d: Tensor,
+               kept: Tensor | None = None) -> Tensor:
     """Launch csrc/raycast.cu's per-origin walk: ``multi_sweep``'s (B, N)
     packed f32 for ray_o and ray_d (B, N, 3)."""
     out = torch.empty(ray_d.shape[:2], dtype=torch.float32, device=ray_d.device)
-    _launch(MODE_MULTI, "raycast multi", table, world, ray_o, ray_d, None, out)
+    _launch(MODE_MULTI, "raycast multi", table, world, ray_o, ray_d, None, out, kept=kept)
     multi_cuda.launches += 1
     return out
 
@@ -671,8 +830,9 @@ class Raycaster:
             raise ValueError(f"{codes.max()} instance codes exceed the {_PAYLOAD_BITS}-bit "
                              "payload; split the roster")
         self.prim_codes = codes.astype(np.int32)
-        self.packed_table = packed_table(self.cats, self.prim_codes)
-        self.kind_table = kind_table(self.groups, self.prim_codes)
+        params = np.asarray(roster.prim_params)
+        self.packed_table = packed_table(self.cats, self.prim_codes, params)
+        self.kind_table = kind_table(self.groups, self.prim_codes, params)
 
     def packed(self, world: Dict[str, Tensor], ray_o: Tensor, ray_d: Tensor) -> Tensor:
         """(B, N) packed nearest hit of rays from ray_o (B, 3) along ray_d
@@ -751,6 +911,12 @@ def occlusion_ts(world: Dict[str, Tensor], roster: world_mod.Roster, ray_o: Tens
     (B, N, 3), ignoring the primitives of instance ``exclude_inst`` (B, N)
     of each ray; ``INF`` where nothing else is hit. ``ray_d`` need not be
     unit: pass keypoint - camera, and t is in units of it (a keypoint is
-    occluded iff t < 1). PyTorch on every device."""
-    table = kind_table(_kind_groups(roster), np.asarray(roster.prim_inst) + 2)
-    return exact_sweep(table, world, ray_o, ray_d, exclude_inst)[0]
+    occluded iff t < 1). The exact mode's kernel (``exact_cuda`` with
+    ``exclude``) for CUDA rays, ``exact_sweep`` otherwise."""
+    table = kind_table(_kind_groups(roster), np.asarray(roster.prim_inst) + 2,
+                       np.asarray(roster.prim_params))
+    if not ray_d.is_cuda:
+        return exact_sweep(table, world, ray_o, ray_d, exclude_inst)[0]
+    t = exact_cuda(table, world, ray_o.contiguous(), ray_d.contiguous(),
+                   exclude_inst.to(torch.int32).contiguous())["t"]
+    return torch.where(torch.isfinite(t), t, float(INF))

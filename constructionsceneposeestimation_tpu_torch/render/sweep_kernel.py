@@ -75,20 +75,11 @@ def build_schedule(roster: world_mod.Roster, prim_mask: np.ndarray | None = None
 
 def bounding_radii(sched_i: np.ndarray, sched_f: np.ndarray) -> np.ndarray:
     """(S,) f32: the radius of each schedule row's bounding sphere about its
-    primitive's position (every kind is centred there, with half-height hh
-    along its axis); -1 for the plane, which the cull always keeps. Widened
-    by 1e-6 relative so that the f32 value is not below the exact one."""
-    op, f = sched_i[:, 0], sched_f.astype(np.float64)
-    rad = np.full(len(op), -1.0)
-    box = np.isin(op, (4, 5, 7))
-    cyl = np.isin(op, (2, 8))
-    rad[op == 1] = f[op == 1, 0]
-    rad[cyl] = np.hypot(f[cyl, 0], f[cyl, 1])
-    cone = op == 3
-    rad[cone] = np.hypot(np.maximum(f[cone, 0], f[cone, 1]), f[cone, 2])
-    rad[box] = np.linalg.norm(f[box, :3], axis=1)
-    rad[op == 6] = f[op == 6, 0] + f[op == 6, 1]
-    return np.where(rad > 0, rad * (1.0 + 1e-6), rad).astype(np.float32)
+    primitive's position, ``raycast.kind_radii`` of its operation's kind;
+    -1 for the plane, which the cull always keeps."""
+    kind = {op: k for (_, k), op in OPS.items()}
+    kinds = np.asarray([kind[int(op)] for op in sched_i[:, 0]], np.int64)
+    return raycast.kind_radii(kinds, sched_f)
 
 
 def _rays(basis: Tensor, intr: cam_mod.Intrinsics, cols: Tensor, rows: Tensor) -> Tensor:

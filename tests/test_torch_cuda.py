@@ -159,6 +159,67 @@ def test_raycast_kernel_matches_plain(scene, masked):
     assert [f.launches for f in wrappers] == [n + 1 for n in before]
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_raycast_exclusion_matches_plain(scene, masked):
+    """The exact mode with an excluded instance a ray (each segment's own,
+    each pixel ray's first hit): t, prim and inst bit-equal to
+    ``exact_sweep`` with the same exclusion; ``occlusion_ts`` on CUDA rays
+    launches the kernel once and equals its plain version bit for bit."""
+    roster, w, cam, tgt = scene
+    mask = ~meshcast.make_mesh_caster(roster).covered_prims if masked else None
+    c = raycast.Raycaster(roster, prim_mask=mask)
+    rays = _caster_rays(w, cam, tgt)
+    n_px = 256 * 192  # then each instance's keypoint segments
+    first = c.plain_cast(w, cam, rays)["inst"][:, :n_px]
+    own = torch.arange(rays.shape[1] - n_px, device=cam.device) // (
+        (rays.shape[1] - n_px) // roster.num_instances)
+    excl = torch.cat([first, own.to(torch.int32).expand(cam.shape[0], -1)], 1).contiguous()
+    k = raycast.exact_cuda(c.kind_table, w, cam, rays, excl)
+    t, prim = raycast.exact_sweep(c.kind_table, w, cam, rays, excl)
+    hit = t < raycast.INF
+    assert torch.equal(k["t"].view(torch.int32),
+                       torch.where(hit, t, float("inf")).view(torch.int32))
+    assert torch.equal(k["prim"], prim)
+    inst = torch.as_tensor(roster.prim_inst, device=cam.device)[torch.clamp_min(prim, 0)]
+    assert torch.equal(k["inst"], torch.where(hit, inst, -2).to(torch.int32))
+    assert bool(hit.any()) and not bool(hit.all())
+    if not masked:
+        before = raycast.exact_cuda.launches
+        got = raycast.occlusion_ts(w, roster, cam, rays, excl)
+        assert raycast.exact_cuda.launches == before + 1
+        assert torch.equal(got.view(torch.int32), t.view(torch.int32))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_raycast_kept_rows_cover_the_needed_rows(scene, masked):
+    """Each warp of each mode keeps every row that one of its rays needs
+    (``raycast.needed_rows``: its half-line meets the row's bounding
+    sphere), and far fewer than all on the pixel rays; the kept sets equal
+    ``bundle_cull_plain``'s on > 0.99 of the warps."""
+    roster, w, cam, tgt = scene
+    mask = ~meshcast.make_mesh_caster(roster).covered_prims if masked else None
+    c = raycast.Raycaster(roster, prim_mask=mask)
+    rays = _caster_rays(w, cam, tgt)
+    t = c.plain_cast(w, cam, rays)["t"]
+    sun = torch.tensor([0.45, 0.3, 0.84], device=cam.device)
+    so = (cam[:, None] + torch.where(torch.isfinite(t), t, 0.0)[..., None] * rays
+          + 1e-3 * sun).contiguous()
+    sd = sun.expand_as(rays).contiguous()
+    for wrapper, table, o, d in ((raycast.packed_cuda, c.packed_table, cam, rays),
+                                 (raycast.exact_cuda, c.kind_table, cam, rays),
+                                 (raycast.multi_cuda, c.kind_table, so, sd)):
+        kept = raycast.kept_buffer(table, d)
+        wrapper(table, w, o, d, kept=kept)
+        keep = raycast.kept_rows(kept, len(table.rows))
+        need = raycast._warps(raycast.needed_rows(table, w, o, d), keep.shape[1]).any(2)
+        assert not bool((need & ~keep).any()), wrapper.__name__
+        assert bool((keep.sum(-1) >= need.sum(-1)).all())
+        mirror = raycast.bundle_cull_plain(table, table.radii_on(cam.device), w, o, d)
+        assert (mirror == keep).all(-1).float().mean().item() > 0.99, wrapper.__name__
+        if not masked and wrapper is raycast.exact_cuda:
+            assert keep.float().mean().item() < 0.25
+
+
 def test_raycast_exact_tie_resolves_to_the_first_index(scene):
     """The last box made the first box's twin: the kernel names the first
     wherever either is hit, as the plain version's argmin does."""
@@ -183,7 +244,7 @@ def test_raycast_kernel_refuses_oversize_table(scene):
     roster, w, cam, tgt = scene
     c = raycast.Raycaster(roster)
     big = raycast.SweepTable([("kind", k, k, np.tile(idx, 6)) for k, idx in c.groups],
-                             c.prim_codes)
+                             c.prim_codes, np.asarray(roster.prim_params))
     before = raycast.exact_cuda.launches
     with pytest.raises(RuntimeError, match="shared memory"):
         raycast.exact_cuda(big, w, cam, _caster_rays(w, cam, tgt))
