@@ -129,14 +129,20 @@ Run from the root of a checkout. Phases, each reported on its own line:
    steps 0, 4, 8, 12, 16 and for the evaluation), ``infer --hifi`` of 32
    frames, the mesh sweep kernel (``csrc/meshsweep.cu``) launched twice a
    hifi batch on each; ``[mesh]`` lines for the triangle sweep on 32 x
-   512^2, pixels and segments: the kernel's registers and spills, the
-   kernel against ``plain_mesh_sweep`` on the same terms and rays (pixels:
-   the ``[sweep]`` bars; segments: the same without the edge test), its
-   visit counts equal to ``visited()``, two calls bit-equal; its device
-   time, its wrapper's call and ``MeshCaster.packed`` beside the plain
-   version's time and launches, the bound (each visited pair's 22
-   operations of the kernel's division-free test, 4 more on each pair that
-   passes it; the plain test's 30 a pair beside) and the brute force; the hifi frames' ``kpt_visible`` with the kernel
+   512^2, pixels and segments: the kernel's registers and spills (none),
+   the kernel against ``plain_mesh_sweep`` on the same terms and rays
+   (pixels: the ``[sweep]`` bars; segments: the same without the edge
+   test), its visit counts equal to ``visited()``, two calls and every
+   walk bit-equal; the boxes the tile cone keeps (all the visited among
+   them); the patch walk's triangles kept a pixel ray beside those
+   visited and needed, no pair that passes the widened test lost, kept
+   sets equal to ``patch_cull_plain``'s on > 0.99; each walk's device
+   time; its device time,
+   its wrapper's call and ``MeshCaster.packed`` beside the plain version's
+   time and launches, the bound (each needed pair's 22 operations of the
+   kernel's division-free test, 4 more on each pair that passes it; the
+   visited pairs' and the plain test's 30 a pair beside) and the brute
+   force; the hifi frames' ``kpt_visible`` with the kernel
    against the plain sweep (>= 0.99); the mesh sweep's share of a hifi
    batch, and the detector step with hifi batches beside the proxy step;
    after ``[bench]``, the kernel's launches on every hifi path (> 0, the
@@ -325,6 +331,18 @@ DIST_CASES = {"gloo": "ddp-focal,fsdp-focal", "nccl": "ddp-focal,fsdp-focal"}
 MESH_PAIR_OPS = 22
 MESH_PASS_OPS = 4
 MESH_PLAIN_PAIR_OPS = 30
+# csrc/meshsweep.cu's instantiations, by walk (render/meshcast.WALKS), as
+# kernels.ptxas_report names them.
+MESH_INSTANTIATIONS = {"split": "mesh_sweep_kernel<64, 1, 4>",
+                       "4x8": "mesh_sweep_patch_kernel"}
+# The mesh sweep's cull check: every pair that passes the division-free
+# test widened by MESH_WIDEN_ULPS ulps of its dots' terms (which the
+# kernel's own rounding may pass) must be kept; the kept sets are held
+# against the mirror's on the first MESH_MIRROR_FRAMES frames, and the
+# kernel writes them MESH_KEPT_FRAMES frames a call.
+MESH_WIDEN_ULPS = 8.0
+MESH_MIRROR_FRAMES = 4
+MESH_KEPT_FRAMES = 4
 # The mesh sweep kernel (csrc/meshsweep.cu) replaces the JAX sweep's
 # `tile_fn`, a jnp loop that XLA fuses (not a Pallas kernel); its launches
 # count under this key, on the paths that render hifi batches.
@@ -614,31 +632,121 @@ def segment_agreement(tag, packed_k, packed_p):
     return tk, ck, tp, cp, both & (ck == cp)
 
 
-def mesh_pair_passes(terms, lo, hi, ray_o, ray_d, lay) -> int:
+def mesh_triples(m, ray_o, ray_d, lay):
+    """The visited (frame, group, block) triples of the mesh sweep (V, 3),
+    in chunks of ``plain_mesh_sweep``'s size: [(b, g, k), ...]."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.render import meshcast
+    rays = meshcast.group_rays(ray_d, lay)
+    triples = torch.nonzero(meshcast.block_hits(ray_o, rays, m.lo, m.hi))
+    step = max(1, meshcast.MAX_PAIRS // (lay.rays * m.terms.shape[-1]))
+    return rays, [triples[c:c + step].unbind(1) for c in range(0, triples.shape[0], step)]
+
+
+def mesh_pair_passes(m, ray_o, ray_d, lay) -> int:
     """The (ray, triangle) pairs of the visited blocks that pass the mesh
     sweep kernel's division-free test (u_num and v_num of det's sign,
     |u_num + v_num| <= |det|, |det| >= EPS): the pairs that take its
-    reciprocal, t and min. The test in PyTorch, chunked as
-    ``plain_mesh_sweep`` chunks its own; its dots are summed in the plain
-    version's order, so a pair within an ulp of an edge may count
+    reciprocal, t and min. The test in PyTorch (``meshcast.pair_passes``),
+    chunked as ``plain_mesh_sweep`` chunks its own; its dots are summed in
+    the plain version's order, so a pair within an ulp of an edge may count
     otherwise than in the kernel."""
+    from constructionsceneposeestimation_tpu_torch.render import meshcast
+    W, _ = meshcast.block_matrices(m.terms)
+    rays, chunks = mesh_triples(m, ray_o, ray_d, lay)
+    return sum(int(meshcast.pair_passes(W[b, k], rays[b, g]).sum()) for b, g, k in chunks)
+
+
+def mesh_needed_pairs(m, ray_o, ray_d, lay) -> int:
+    """The (ray, triangle) pairs of the visited blocks whose ray (a
+    half-line from the frame's origin) meets the triangle's bounding sphere
+    (``m.spheres``, as ``mesh_terms`` widens them; a padding triangle
+    never): the pairs any cull must still test, the work the mesh sweep's
+    bound charges. Chunked as ``mesh_pair_passes``."""
     import torch
-    from constructionsceneposeestimation_tpu_torch.render import meshcast, raycast
-    T = terms.shape[-1]
-    W, _ = meshcast.block_matrices(terms)
-    rays = meshcast.group_rays(ray_d, lay)
-    triples = torch.nonzero(meshcast.block_hits(ray_o, rays, lo, hi))
-    step = max(1, meshcast.MAX_PAIRS // (lay.rays * T))
-    passes = 0
-    for c in range(0, triples.shape[0], step):
-        b, g, k = triples[c:c + step].unbind(1)
-        det, un, vn = torch.bmm(rays[b, g], W[b, k]).unflatten(-1, (3, T)).unbind(2)
-        bits = det.view(torch.int32)
-        sign = (un.view(torch.int32) ^ bits) | (vn.view(torch.int32) ^ bits)
-        ok = ((sign >= 0) & (torch.abs(un + vn) <= torch.abs(det))
-              & (torch.abs(det) >= raycast.EPS))
-        passes += int(ok.sum())
-    return passes
+    rays, chunks = mesh_triples(m, ray_o, ray_d, lay)
+    sph = m.spheres.transpose(2, 3)  # (B, nb, T, 4)
+    needed = 0
+    for b, g, k in chunks:
+        d, s = rays[b, g], sph[b, k]  # (P, R, 3), (P, T, 4)
+        v, r = s[..., :3], s[..., 3]
+        tc = torch.bmm(d, v.transpose(1, 2))  # (P, R, T)
+        dd = torch.sum(d * d, -1)[..., None]
+        vv, r2 = torch.sum(v * v, -1)[:, None], (r * r)[:, None]
+        meets = ((tc > 0) & (vv * dd - tc * tc <= r2 * dd)) | (vv <= r2)
+        needed += int((meets & (r >= 0)[:, None]).sum())
+    return needed
+
+
+def mesh_cull_report(m, codes, ray_o, ray_d, lay) -> dict:
+    """The mesh sweep kernel's patch cull (``meshcast.PATCH``) on the pixel
+    rays: its ``kept`` words, MESH_KEPT_FRAMES frames a call, as
+    triangles kept a ray (``kept``: the (ray, triangle) pairs it tests);
+    the (patch, triangle) pairs of the visited blocks where some ray of
+    the patch passes the test widened by MESH_WIDEN_ULPS (``widened``) and
+    those of them the patch did not keep (``lost``, which must be 0); on the first
+    MESH_MIRROR_FRAMES frames, the share of (visited triple, patch) rows
+    whose kept set equals ``patch_cull_plain``'s (``mirror_agree`` of
+    ``mirror_rows``)."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.render import meshcast
+    ph, pw = meshcast.PATCH_SHAPE
+    res = {"kept": 0, "widened": 0, "lost": 0, "mirror_agree": 0, "mirror_rows": 0}
+    for f0 in range(0, ray_d.shape[0], MESH_KEPT_FRAMES):
+        sl = slice(f0, f0 + MESH_KEPT_FRAMES)
+        sub, o, d = meshcast.MeshTerms(*(t[sl] for t in m)), ray_o[sl], ray_d[sl]
+        kept = torch.zeros(meshcast.kept_shape(d.shape[0], lay, m.lo.shape[1]),
+                           dtype=torch.int32, device=d.device)
+        meshcast.mesh_sweep_cuda(sub.terms, sub.lo, sub.hi, sub.spheres, codes, o, d, lay,
+                                 kept=kept, walk=meshcast.PATCH)
+        mirror = (meshcast.patch_cull_plain(sub.lo, sub.hi, sub.spheres, o, d, lay)[1]
+                  if f0 < MESH_MIRROR_FRAMES else None)
+        W, _ = meshcast.block_matrices(sub.terms)
+        rays, chunks = mesh_triples(sub, o, d, lay)
+        for b, g, k in chunks:
+            mine = meshcast.kept_triangles(kept[b, g, :, k])  # (V, patches, T)
+            need = meshcast.patch_passes(W[b, k], rays[b, g], MESH_WIDEN_ULPS)
+            res["kept"] += int(mine.sum()) * ph * pw
+            res["widened"] += int(need.sum())
+            lost = torch.nonzero(need & ~mine)
+            res["lost"] += lost.shape[0]
+            for v, p, i in lost[:4].tolist():
+                res.setdefault("lost_pairs", []).append(
+                    {"frame": f0 + int(b[v]), **mesh_lost_pair(
+                        sub, W, rays, int(b[v]), int(g[v]), int(k[v]), p, i)})
+            if mirror is not None:
+                res["mirror_agree"] += int((mirror[b, g, :, k] == mine).all(-1).sum())
+                res["mirror_rows"] += mine.shape[0] * mine.shape[1]
+        del kept, mirror
+    res["mirror_agree"] /= max(res["mirror_rows"], 1)
+    return res
+
+
+def mesh_lost_pair(m, W, rays, b, g, k, p, i) -> dict:
+    """A (patch, triangle) pair that the patch cull dropped although a ray
+    of the patch passes the widened test: tile g, block k, patch p,
+    triangle i of frame b of ``m`` (W, rays: ``block_matrices`` and
+    ``group_rays`` of it); for the first such ray, det beside EPS and its
+    widened tolerance, the barycentrics u_num / det and v_num / det, and
+    the ray's distance from the sphere's centre over its radius."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.render import meshcast
+    ph, pw = meshcast.PATCH_SHAPE
+    side, T = meshcast.PATCH_SIDE, W.shape[-1] // 3
+    Wk, d_all = W[b, k], rays[b, g]
+    ok = meshcast.pair_passes(Wk[None], d_all[None], MESH_WIDEN_ULPS)[0, :, i]
+    rows = (p // (side // pw)) * ph + torch.arange(ph)
+    cols = (p % (side // pw)) * pw + torch.arange(pw)
+    in_patch = (rows[:, None] * side + cols[None]).reshape(-1).to(d_all.device)
+    r = int(in_patch[ok[in_patch]][0])
+    d = d_all[r]
+    det, un, vn = (d @ Wk).unflatten(-1, (3, T))[:, i].tolist()
+    t_det = float((torch.abs(d) @ torch.abs(Wk))[i]) * MESH_WIDEN_ULPS * 2.0 ** -23
+    c, rad = m.spheres[b, k, :3, i], float(m.spheres[b, k, 3, i])
+    tc = float(d @ c) / float(d @ d)
+    return {"tile": g, "block": k, "patch": p, "triangle": i, "ray": r, "det": det,
+            "t_det": t_det, "u": un / det, "v": vn / det, "t_along": tc,
+            "miss_over_radius": float(torch.linalg.norm(c - tc * d)) / rad}
 
 
 def bound(nbytes: float, nops: float):
@@ -1755,13 +1863,19 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
     # and keypoint segments (one group a frame): csrc/meshsweep.cu against
     # plain_mesh_sweep on the same terms and rays (pixels: the [sweep] bars;
     # segments, not a grid: the same bars without the edge test), its visits
-    # equal to visited(), two calls bit-equal; the kernel's device time
-    # against its bound, the visited (ray, triangle) pairs x MESH_PAIR_OPS
-    # and the pairs that pass x MESH_PASS_OPS at the FP32 rate (the terms'
-    # and rays' bytes beside; the plain test's MESH_PLAIN_PAIR_OPS a pair
-    # printed apart), and the brute-force count of every ray against every
-    # triangle; the plain version's time and launches a call;
-    # MeshCaster.packed (the terms and the kernel) by CUDA events.
+    # equal to visited(), two calls bit-equal, every walk bit-equal to the
+    # split walk (every triangle of each visited block); the culls
+    # (mesh_cull_report): the boxes the cone pre-test keeps beside the
+    # visits, the triangles each patch keeps, no widened-passing pair lost;
+    # the kernel's device time against its bound, the needed (ray,
+    # triangle) pairs (mesh_needed_pairs) x MESH_PAIR_OPS and the pairs
+    # that pass x MESH_PASS_OPS at the FP32 rate against the terms' and
+    # rays' bytes, with the visited pairs' bound (the JAX function's grain),
+    # the plain test's MESH_PLAIN_PAIR_OPS a visited pair and the
+    # brute-force count of every ray against every triangle printed beside;
+    # the split and patch walks' times in one window; the plain version's
+    # time and launches a call; MeshCaster.packed (the terms and the
+    # kernel) by CUDA events.
     n = HIFI_FRAMES
     inp = hpipe.sample_inputs(SEED + 3000, range(n))
     w = world_mod.build_world(hpipe.roster, inp.pose)
@@ -1771,27 +1885,42 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
     px = cam_mod.pixel_rays(intr, Mh).reshape(n, -1, 3)
     kp = world_mod.world_keypoints(w["inst_rot"], w["inst_pos"], w["kpts_local"])
     seg = (kp.reshape(n, -1, 3) - inp.cam_pos[:, None]).contiguous()
-    phase("mesh", f"csrc/meshsweep.cu, registers and spill bytes (ptxas): "
-          f"{kernels.ptxas_report('meshsweep.cu')}")
-    terms, lo, hi = mesh.mesh_terms(w, o)
+    report = kernels.ptxas_report("meshsweep.cu")
+    phase("mesh", f"csrc/meshsweep.cu, registers and spill bytes (ptxas): {report}")
+    check(set(report) == set(MESH_INSTANTIATIONS.values())
+          and all(r["spill_bytes"] == 0 for r in report.values()),
+          f"mesh sweep: an instantiation is missing or spills: {report}")
+    m = mesh.mesh_terms(w, o)
     codes = mesh._on(dev)["codes"]
     mesh_r = {}
     for name, d in (("pixels", px), ("segments", seg)):
         lay = mesh.layout(d.shape[1])
-        k_fn = lambda d=d, lay=lay: meshcast.mesh_sweep_cuda(terms, lo, hi, codes, o, d, lay)
-        p_fn = lambda d=d, lay=lay: meshcast.plain_mesh_sweep(terms, lo, hi, codes, o, d, lay)
+        walk = meshcast.mesh_walk(n, lay)
+        k_fn = lambda d=d, lay=lay, walk=None: meshcast.mesh_sweep_cuda(
+            m.terms, m.lo, m.hi, m.spheres, codes, o, d, lay, walk=walk)
+        p_fn = lambda d=d, lay=lay: meshcast.plain_mesh_sweep(m.terms, m.lo, m.hi, codes, o, d,
+                                                              lay)
         visits = torch.full((n, lay.groups), -1, dtype=torch.int32, device=dev)
-        out = meshcast.mesh_sweep_cuda(terms, lo, hi, codes, o, d, lay, visits)
+        out = meshcast.mesh_sweep_cuda(m.terms, m.lo, m.hi, m.spheres, codes, o, d, lay, visits)
         again, plain = k_fn(), p_fn()
-        visited = mesh.visited(w, o, d).sum(-1)
+        walks = list(meshcast.WALKS) if walk != "split" else ["split"]
+        same_walks = {v: torch.equal(out.view(torch.int32), k_fn(walk=v).view(torch.int32))
+                      for v in walks}
+        visited = mesh.visited(w, o, d)
+        boxes, _ = meshcast.patch_cull_plain(m.lo, m.hi, m.spheres, o, d, lay, "split")
         torch.cuda.synchronize()
         bit_equal = torch.equal(out.view(torch.int32), again.view(torch.int32))
-        visits_equal = torch.equal(visits, visited.int())
+        visits_equal = torch.equal(visits, visited.sum(-1).int())
+        pre_ok = not bool((visited & ~boxes).any())
         phase("mesh", f"{name}, {n} x {RES}^2, {d.shape[1]} rays a frame in {lay.groups} "
-              f"group(s) of {lay.rays}: two calls bit-equal: {bit_equal}; visits equal to "
-              f"visited(): {visits_equal}")
-        check(bit_equal and visits_equal, f"mesh sweep {name}: two calls differ, or its visits "
-              f"differ from visited()")
+              f"group(s) of {lay.rays}, the {walk} walk: two calls bit-equal: {bit_equal}; "
+              f"visits equal to visited(): {visits_equal}; bit-equal to the walks {same_walks}; "
+              f"(frame, group, box) triples the cone pre-test keeps (the mirror) "
+              f"{int(boxes.sum())} of {boxes.numel()}, all the {int(visited.sum())} visited "
+              f"among them: {pre_ok}")
+        check(bit_equal and visits_equal and all(same_walks.values()) and pre_ok,
+              f"mesh sweep {name}: two calls differ, its visits differ from visited(), a walk "
+              f"differs from the split walk, or the box pre-test's mirror dropped a visited box")
         agreement = sweep_agreement if name == "pixels" else segment_agreement
         tk, ck, tp, cp, same = agreement("mesh", out, plain)
         err = torch.abs(tk - tp)[same].max().item()
@@ -1801,33 +1930,62 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
             torch.cuda.synchronize()
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        rays = n * d.shape[1]
         pairs = int(visited.sum()) * lay.rays * mesh.tri_block
-        passes = mesh_pair_passes(terms, lo, hi, o, d, lay)
-        nbytes = (terms.numel() + lo.numel() + hi.numel() + codes.numel() + o.numel()
-                  + d.numel() + d.shape[0] * d.shape[1]) * 4
-        mesh_r[name] = {"ms": device_ms(k_fn, "mesh_sweep_kernel"), "call_ms": cuda_ms(k_fn),
-                        "packed_ms": cuda_ms(lambda d=d: mesh.packed(w, o, d), iters=3, warmup=1),
-                        "plain_ms": cuda_ms(p_fn, iters=2, warmup=1),
-                        "plain_launches": sum(e.count for e in kern),
-                        "plain_device_ms": sum(e.self_device_time_total for e in kern) / 1e3,
-                        "max_abs_err": err, "visits": int(visited.sum()), "pairs": pairs,
-                        "passes": passes, "brute": n * d.shape[1] * mesh.n_triangles,
-                        "bytes": nbytes, "ops": pairs * MESH_PAIR_OPS + passes * MESH_PASS_OPS,
-                        "bound": bound(nbytes, pairs * MESH_PAIR_OPS + passes * MESH_PASS_OPS),
-                        "plain_test_bound_ms": bound(nbytes, pairs * MESH_PLAIN_PAIR_OPS)[0]}
-    for name, r in mesh_r.items():
+        passes = mesh_pair_passes(m, o, d, lay)
+        needed = mesh_needed_pairs(m, o, d, lay)
+        nbytes = (m.terms.numel() + m.lo.numel() + m.hi.numel() + codes.numel() + o.numel()
+                  + d.numel() + rays) * 4
+        ops = needed * MESH_PAIR_OPS + passes * MESH_PASS_OPS
+        r = mesh_r[name] = {
+            "ms": device_ms(k_fn, "mesh_sweep"), "call_ms": cuda_ms(k_fn),
+            "packed_ms": cuda_ms(lambda d=d: mesh.packed(w, o, d), iters=3, warmup=1),
+            "plain_ms": cuda_ms(p_fn, iters=2, warmup=1),
+            "plain_launches": sum(e.count for e in kern),
+            "plain_device_ms": sum(e.self_device_time_total for e in kern) / 1e3,
+            "max_abs_err": err, "walk": walk, "visits": int(visited.sum()),
+            "boxes_pretest": int(boxes.sum()), "pairs": pairs, "needed": needed,
+            "passes": passes, "brute": rays * mesh.n_triangles, "bytes": nbytes, "ops": ops,
+            "bound": bound(nbytes, ops),
+            "visited_bound": bound(nbytes, pairs * MESH_PAIR_OPS + passes * MESH_PASS_OPS),
+            "plain_test_bound_ms": bound(nbytes, pairs * MESH_PLAIN_PAIR_OPS)[0]}
+        if walk != "split":
+            r["walk_ms"] = dict(zip(walks, device_ms_window(
+                [(lambda v=v: k_fn(walk=v), MESH_INSTANTIATIONS[v]) for v in walks])))
+            r["cull"] = mesh_cull_report(m, codes, o, d, lay)
         phase("mesh", f"{name}, {n} x {RES}^2: kernel {r['ms']:.4f} ms (device time; the "
               f"wrapper's call {r['call_ms']:.4f} ms, MeshCaster.packed with its terms "
               f"{r['packed_ms']:.4f} ms, CUDA events) in 1 launch; plain {r['plain_ms']:.3f} ms "
               f"(device time {r['plain_device_ms']:.3f} ms in {r['plain_launches']} launches); "
-              f"{r['visits']} (frame, ray group, block) visits = {r['pairs']:.4e} (ray, "
-              f"triangle) pairs, {r['passes']} of them passing the test, brute force "
-              f"{r['brute']:.4e}; bound {r['bound'][0]:.4f} ms ({r['bound'][1]}: "
-              f"{MESH_PAIR_OPS} a pair and {MESH_PASS_OPS} more a passing pair at 67 TFLOP/s, "
-              f"{r['bytes'] / 1e6:.1f} MB at 3.35 TB/s), {100 * r['bound'][0] / r['ms']:.1f}% of "
-              f"the kernel; the plain test's bound ({MESH_PLAIN_PAIR_OPS} a pair) "
-              f"{r['plain_test_bound_ms']:.4f} ms; brute-force bound "
-              f"{bound(0.0, r['brute'] * MESH_PAIR_OPS)[0]:.4f} ms; on {card}")
+              f"{r['visits']} (frame, ray group, block) visits = {pairs:.4e} (ray, triangle) "
+              f"pairs, {pairs / rays:.2f} a ray; needed pairs (the ray meets the triangle's "
+              f"sphere) {needed} = {needed / rays:.3f} a ray; {passes} pairs pass the test; "
+              f"brute force {r['brute']:.4e}; bound {r['bound'][0]:.4f} ms ({r['bound'][1]}: "
+              f"{MESH_PAIR_OPS} a needed pair and {MESH_PASS_OPS} more a passing pair at 67 "
+              f"TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s), {100 * r['bound'][0] / r['ms']:.2f}% "
+              f"of the kernel; the visited pairs' bound (the JAX function's grain) "
+              f"{r['visited_bound'][0]:.4f} ms ({r['visited_bound'][1]}), "
+              f"{100 * r['visited_bound'][0] / r['ms']:.1f}%; the plain test's bound "
+              f"({MESH_PLAIN_PAIR_OPS} a visited pair) {r['plain_test_bound_ms']:.4f} ms; "
+              f"brute-force bound {bound(0.0, r['brute'] * MESH_PAIR_OPS)[0]:.4f} ms; on {card}")
+        if walk != "split":
+            phase("mesh", f"{name}: device time of each walk in one window (every walk "
+                  f"bit-equal): " + ", ".join(f"{v} {t:.4f} ms" for v, t in r["walk_ms"].items())
+                  + f"; the {walk} walk is the default; on {card}")
+            c = r["cull"]
+            phase("mesh", f"{name}, the {walk} patch cull: triangles kept a ray "
+                  f"{c['kept'] / rays:.3f} (visited {pairs / rays:.2f}, needed "
+                  f"{needed / rays:.3f}); (patch, triangle) pairs with a ray passing the test "
+                  f"widened by {MESH_WIDEN_ULPS} ulps {c['widened']}, lost by the cull on the "
+                  f"{n} frames {c['lost']} (must be 0); the (visited block, patch) kept sets "
+                  f"equal to the mirror's (patch_cull_plain) on {c['mirror_agree']:.6f} of "
+                  f"{c['mirror_rows']} on the first {MESH_MIRROR_FRAMES} frames (> 0.99)")
+            if c["lost"]:
+                phase("mesh", f"{name}, the {walk} patch cull's first lost pairs: "
+                      f"{c['lost_pairs']}")
+            check(c["lost"] == 0 and c["mirror_agree"] > 0.99,
+                  f"mesh sweep {name}: the cull lost {c['lost']} widened-passing pairs, "
+                  f"or its kept sets differ from the mirror's ({c['mirror_agree']:.6f})")
 
     # The hifi frames' labels with the kernel against those with the plain
     # sweep on the card: kpt_visible, which the segments decide, on >= 0.99
@@ -1835,8 +1993,8 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
     packed_fn = meshcast.MeshCaster.packed
 
     def plain_packed(self, world, ray_o, ray_d):
-        terms, lo, hi = self.mesh_terms(world, ray_o)
-        return meshcast.plain_mesh_sweep(terms, lo, hi, self._on(ray_d.device)["codes"],
+        t = self.mesh_terms(world, ray_o)
+        return meshcast.plain_mesh_sweep(t.terms, t.lo, t.hi, self._on(ray_d.device)["codes"],
                                          ray_o.contiguous(), ray_d.contiguous(),
                                          self.layout(ray_d.shape[1]))
 
@@ -1881,15 +2039,19 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
                     train_loop.create_train_state(dcfg, det), ", stride-2 maps, 2 dumpers, "
                     "3 workers", f"detector step, {tag} batches")
     # The kernels line's entry: a hifi batch's two calls, pixels and segments.
-    bytes_, ops, pairs = (sum(r[k] for r in mesh_r.values()) for k in ("bytes", "ops", "pairs"))
+    bytes_, ops, pairs, passes = (sum(r[k] for r in mesh_r.values())
+                                  for k in ("bytes", "ops", "pairs", "passes"))
     total = {k: sum(r[k] for r in mesh_r.values())
              for k in ("ms", "call_ms", "plain_ms", "packed_ms")}
     return launches, {**total, "max_abs_err": max(r["max_abs_err"] for r in mesh_r.values()),
                       "bound": bound(bytes_, ops), "hifi_eval": eval_mesh,
+                      "visited_bound_ms": bound(bytes_, pairs * MESH_PAIR_OPS
+                                                + passes * MESH_PASS_OPS)[0],
                       "plain_test_bound_ms": bound(bytes_, pairs * MESH_PLAIN_PAIR_OPS)[0],
                       "hifi_batch_ms": hifi_ms, **{k: {f: r[f] for f in (
-                          "ms", "call_ms", "packed_ms", "plain_ms", "plain_launches", "pairs",
-                          "passes")} for k, r in mesh_r.items()}}
+                          "ms", "call_ms", "packed_ms", "plain_ms", "plain_launches", "walk",
+                          "visits", "boxes_pretest", "pairs", "needed", "passes", "walk_ms",
+                          "cull") if f in r} for k, r in mesh_r.items()}}
 
 
 def textured_rgb_inputs(pipe, sweeper, world, inputs, M):
@@ -3937,9 +4099,12 @@ def main() -> int:
           f"{RES}^2, pixels and segments (device time; the wrapper's calls "
           f"{mesh_result['call_ms']:.4f} ms, MeshCaster.packed {mesh_result['packed_ms']:.4f} ms "
           f"by CUDA events), plain {mesh_result['plain_ms']:.4f} ms, bound "
-          f"{mesh_result['bound_ms']:.4f} ms ({mesh_result['bound_by']}; roofline share "
-          f"{100 * mesh_result['bound_ms'] / mesh_result['ms']:.1f}%; the plain test's bound "
-          f"{mesh_result['plain_test_bound_ms']:.4f} ms), launches {mesh_by_path} on {card}")
+          f"{mesh_result['bound_ms']:.4f} ms ({mesh_result['bound_by']}, the needed pairs; "
+          f"roofline share {100 * mesh_result['bound_ms'] / mesh_result['ms']:.2f}%; the "
+          f"visited pairs' bound {mesh_result['visited_bound_ms']:.4f} ms, "
+          f"{100 * mesh_result['visited_bound_ms'] / mesh_result['ms']:.1f}%; the plain test's "
+          f"bound {mesh_result['plain_test_bound_ms']:.4f} ms), launches {mesh_by_path} on "
+          f"{card}")
     paths = ("train_crop", "train_detect", "infer", "generate_sequence", "infer_sequence",
              "generate_hifi", "train_detect_hifi", "infer_hifi", *textured_by_path, *an_launches,
              "bench")

@@ -41,4 +41,16 @@ __device__ __forceinline__ float safe_den(float d) {
   return fabsf(d) < kEps ? kEps : d;
 }
 
+// Butterfly sum and max over a full warp: every lane gets the same bits.
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1) x += __shfl_xor_sync(0xffffffffu, x, k);
+  return x;
+}
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, k));
+  return x;
+}
+
 }  // namespace cspe

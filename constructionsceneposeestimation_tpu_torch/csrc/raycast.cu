@@ -168,17 +168,6 @@ __device__ __forceinline__ float pack(float t, int code) {
 
 // --- the warp's bundle and its cull (render/raycast.bundle_cull_plain)
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int k = 16; k > 0; k >>= 1) x += __shfl_xor_sync(kFull, x, k);
-  return x;
-}
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int k = 16; k > 0; k >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, k));
-  return x;
-}
-
 // A warp's cone: apex, unit axis, cos and sin of the widened half-angle,
 // the origins' spread r_o; `all` keeps every row. The butterfly sums and
 // maxima give every lane the same bits.

@@ -110,6 +110,10 @@ def render_frame(roster: world_mod.Roster, caster: raycast.Raycaster,
         inst = px["inst"].reshape(B, H, W)
         normal = px["normal"].reshape(B, H, W, 3)
     else:
+        # The pixel sweep and the keypoint segments' below sweep from the
+        # camera: the world the caster prepares for it holds what both need
+        # (the hifi tier's mesh terms, built once a render).
+        world = caster.frame_world(world, cam_pos)
         # Pixel sweep: packed (t | inst + 2), INF-valued on a miss.
         t_px, code = raycast._unpack(sweeper(world, cam_pos, M))
         hit = t_px < raycast.INF * 0.99

@@ -26,15 +26,19 @@ of its rays meets.
 
 Kernel: ``csrc/meshsweep.cu`` (``mesh_sweep_cuda``), which replaces the JAX
 sweep's ``tile_fn``, a ``jnp`` loop that XLA fuses: a CUDA block a slice of
-a group's rays, its slab test, and the visited blocks' triangles staged in
-shared memory. Plain version: ``plain_mesh_sweep``, where every (frame,
-group, block) slab test runs at once, the visited triples are gathered
-with one ``nonzero``, and the test runs on fixed-size chunks of triples as
-a batched (R, 3) @ (3, 3T) product, each (P, tile, tri_block), reduced into
-(B, groups, tile) with ``scatter_reduce(amin)``. The packed min does not
-depend on the order of visits, so both give the JAX sweep's result.
-``MeshCaster.packed`` dispatches on the device of the rays: CUDA tensors
-launch the kernel, CPU tensors take the plain version.
+a group's rays; the group's cone pre-tests the blocks' boxes before their
+slab test; on 32 x 32 pixel tiles each warp's compact patch of rays keeps
+only the triangles whose bounding sphere its cone meets (the patch walk,
+``WALKS``), and walks those in the visited blocks' triangles staged in
+shared memory. ``patch_cull_plain`` mirrors both culls on tensors. Plain
+version: ``plain_mesh_sweep``, brute force over the visited blocks, where
+every (frame, group, block) slab test runs at once, the visited triples
+are gathered with one ``nonzero``, and the test runs on fixed-size chunks
+of triples as a batched (R, 3) @ (3, 3T) product, each (P, tile,
+tri_block), reduced into (B, groups, tile) with ``scatter_reduce(amin)``.
+The packed min does not depend on the order of visits, so both give the
+JAX sweep's result. ``MeshCaster.packed`` dispatches on the device of the
+rays: CUDA tensors launch the kernel, CPU tensors take the plain version.
 """
 
 from __future__ import annotations
@@ -67,6 +71,26 @@ MAX_PAIRS = 1 << 25
 # terms a block (cr 3, au 3, qv 3, tn).
 KERNEL_TRI_BLOCK = 512
 N_TERMS = 10
+# The kernel's walks (csrc/meshsweep.cu Walk): "split", a slice of 64 rays
+# with 4 lanes a ray over every triangle of each visited block; or PATCH,
+# the patch walk of a 32 x 32 pixel tile, each warp's patches of
+# PATCH_SHAPE (rows, cols) pixels culling the triangles by their spheres.
+PATCH = "4x8"
+WALKS = {"split": 0, PATCH: 1}
+PATCH_SHAPE = (4, 8)
+PATCH_SIDE = 32
+# Groups of 1024 rays that fill the card: two CUDA blocks a streaming
+# multiprocessor of the H100 (132). Fewer take the split walk.
+FILL_GROUPS = 264
+# The culls' margins: a cone's half-angle widened to (1 + CULL_REL) alpha +
+# CULL_ABS rad (the caster's and the pixel sweep's, raycast.CULL_REL and
+# CULL_ABS); a triangle's bounding sphere widened as the boxes are,
+# SPHERE_REL of its radius, plus SPHERE_ABS m, which holds a hit found
+# within a few ulps of an edge; a box's sphere is its half diagonal widened
+# by CULL_REL, plus SPHERE_ABS.
+SPHERE_REL = 1e-5
+SPHERE_ABS = 1e-4
+WORDS = KERNEL_TRI_BLOCK // 32  # kept words a (patch, block)
 
 
 def load_skin(path=SKIN_NPZ) -> Dict[str, np.ndarray]:
@@ -196,6 +220,160 @@ def block_hits(ray_o: Tensor, rays: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
                                     hi[b:b + step]) for b in range(0, B, step)])
 
 
+class MeshTerms(NamedTuple):
+    """The sweep's inputs for a frame's one origin (``MeshCaster.mesh_terms``)."""
+
+    terms: Tensor  # (B, n_blocks, N_TERMS, T): cr 3, au 3, qv 3, tn
+    lo: Tensor  # (B, n_blocks, 3) each block's inflated AABB
+    hi: Tensor  # (B, n_blocks, 3)
+    spheres: Tensor  # (B, n_blocks, 4, T): centre - origin 3, radius (-1: never passes)
+    origin: Tensor  # (B, 3) the origin the terms and spheres were built for
+
+
+def triangle_spheres(c0: Tensor, c1: Tensor, c2: Tensor, cr: Tensor, ray_o: Tensor) -> Tensor:
+    """Each triangle's bounding sphere for the kernel's cull, (B, n_blocks,
+    4, T): its centroid minus the frame's origin ``ray_o`` (B, 3), and the
+    distance to its farthest corner widened to (1 + SPHERE_REL) r +
+    SPHERE_ABS; -1 where cr = e2 x e1 is exactly 0 (the padding), a
+    triangle whose det is 0 for every ray, which no ray passes. Corners
+    (B, n_blocks, T, 3) and cr as ``mesh_terms`` computes them."""
+    c = (c0 + c1 + c2) / 3.0
+    r = torch.stack([torch.linalg.norm(x - c, dim=-1) for x in (c0, c1, c2)]).amax(0)
+    r = torch.where((cr == 0).all(-1), -1.0, r * (1.0 + SPHERE_REL) + SPHERE_ABS)
+    return torch.cat([c - ray_o[:, None, None], r[..., None]], -1).transpose(2, 3).contiguous()
+
+
+def box_spheres(lo: Tensor, hi: Tensor, ray_o: Tensor) -> Tensor:
+    """(B, n_blocks, 4): each box's bounding sphere, as csrc/meshsweep.cu
+    builds it: its centre minus ``ray_o`` (B, 3), its half diagonal widened
+    to (1 + CULL_REL) h + SPHERE_ABS."""
+    c = 0.5 * (lo + hi) - ray_o[:, None]
+    h = 0.5 * torch.linalg.norm(hi - lo, dim=-1) * (1.0 + raycast.CULL_REL) + SPHERE_ABS
+    return torch.cat([c, h[..., None]], -1)
+
+
+def _cone(d: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The cone from the camera of the rays d (..., R, 3), as
+    csrc/meshsweep.cu builds it: unit axis (..., 3), the normalised sum of
+    the unit directions; cos^2 and sin of the half-angle (...), the largest
+    angle from the axis widened to (1 + CULL_REL) alpha + CULL_ABS; and
+    ``every`` (...), where the cone meets every ball: past pi / 2, or with a
+    zero or non-finite direction."""
+    dd = torch.sum(d * d, -1)
+    nd = torch.sqrt(dd)
+    ok = (dd > 0) & torch.isfinite(nd)
+    u = torch.where(ok[..., None], d / nd[..., None], 0.0)
+    s = u.sum(-2)
+    axis = s / torch.sqrt(torch.sum(s * s, -1, keepdim=True))
+    cross = torch.linalg.cross(axis[..., None, :].expand_as(u), u, dim=-1)
+    ang = torch.atan2(torch.sqrt(torch.sum(cross * cross, -1)),
+                      torch.sum(axis[..., None, :] * u, -1))
+    alpha = torch.where(ok, ang, 0.0).amax(-1) * (1.0 + raycast.CULL_REL) + raycast.CULL_ABS
+    every = (~ok).any(-1) | ~torch.isfinite(axis).all(-1) | ~(alpha < raycast.HALF_PI)
+    return axis, torch.cos(alpha) ** 2, torch.sin(alpha), every
+
+
+def _meets(cone, ball: Tensor) -> Tensor:
+    """Whether the cone (``_cone``'s, broadcast against ``ball``'s leading
+    dims) meets the ball (..., 4) (centre - camera, radius >= 0): the camera
+    inside it, or a.v + sin(alpha) r >= cos(alpha) sqrt(|v|^2 - r^2),
+    squared."""
+    axis, ca2, sa, every = cone
+    v, r = ball[..., :3], ball[..., 3]
+    d2, r2 = torch.sum(v * v, -1), r * r
+    w = torch.sum(axis * v, -1) + sa * r
+    return every | (d2 <= r2) | ((w >= 0) & (w * w >= ca2 * (d2 - r2)))
+
+
+def patch_cull_plain(lo: Tensor, hi: Tensor, spheres: Tensor, ray_o: Tensor, ray_d: Tensor,
+                     lay: RayLayout, walk: str = PATCH) -> Tuple[Tensor, Tensor | None]:
+    """csrc/meshsweep.cu's culls on tensors. ``boxes`` (B, groups,
+    n_blocks) bool: the blocks whose box sphere (``box_spheres``) the
+    group's cone meets, the only ones that take the slab test; every block
+    for groups that are not pixel tiles (a frame's keypoint segments,
+    whose cone would keep nearly every box). ``kept``
+    (B, groups, patches, n_blocks, T) bool for the patch walk (PATCH; None
+    for "split"): the triangles with a sphere (``spheres``,
+    radius >= 0) that both the tile's cone and the cone of patch p of the
+    32 x 32 tile meet (the patches row-major over the tile, their rays
+    row-major); the kernel tests only those, in the blocks it visits."""
+    rays = group_rays(ray_d, lay)  # (B, G, R, 3)
+    axis, ca2, sa, every = _cone(rays)
+    group = (axis[:, :, None], ca2[..., None], sa[..., None], every[..., None])
+    boxes = _meets(group, box_spheres(lo, hi, ray_o)[:, None])
+    if not lay.grid_w:
+        boxes = torch.ones_like(boxes)
+    if walk == "split":
+        return boxes, None
+    if not (lay.grid_w and lay.side == PATCH_SIDE):
+        raise ValueError(f"mesh sweep: the patch walk takes {PATCH_SIDE} x {PATCH_SIDE} pixel "
+                         f"tiles, not {lay}")
+    (ph, pw), n = PATCH_SHAPE, PATCH_SIDE
+    B, G = rays.shape[:2]
+    patches = (rays.reshape(B, G, n // ph, ph, n // pw, pw, 3).transpose(3, 4)
+               .reshape(B, G, -1, ph * pw, 3))
+    axis, ca2, sa, every = _cone(patches)  # (B, G, P, ...)
+    cone = (axis[:, :, :, None], ca2[..., None], sa[..., None], every[..., None])
+    sph = spheres.transpose(2, 3)  # (B, n_blocks, T, 4)
+    tile = tuple(x[:, :, None] for x in group)  # against (B, 1, 1, T, 4)
+    kept = torch.stack([_meets(cone, sph[:, None, None, k]) & _meets(tile, sph[:, None, None, k])
+                        & (sph[:, None, None, k, :, 3] >= 0) for k in range(sph.shape[1])], 3)
+    return boxes, kept
+
+
+def kept_shape(B: int, lay: RayLayout, n_blocks: int) -> Tuple[int, ...]:
+    """The shape of ``mesh_sweep_cuda``'s ``kept`` with the patch walk: (B,
+    groups, patches, n_blocks, WORDS). Pass it zeroed: the kernel writes
+    only the blocks each group visits."""
+    ph, pw = PATCH_SHAPE
+    return (B, lay.groups, lay.rays // (ph * pw), n_blocks, WORDS)
+
+
+def kept_triangles(words: Tensor) -> Tensor:
+    """(..., WORDS * 32) bool from kept words (..., WORDS) int32: bit i % 32
+    of word i // 32 is triangle i."""
+    shift = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[..., None] >> shift) & 1).reshape(*words.shape[:-1], -1).bool()
+
+
+def pair_passes(W: Tensor, rays: Tensor, widen: float = 0.0) -> Tensor:
+    """(P, R, T) bool: the pairs of rays (P, R, 3) and triangles of the
+    block matrices W (P, 3, 3T) (``block_matrices``) that pass the kernel's
+    division-free test: u_num and v_num of det's sign, |u_num + v_num| <=
+    |det|, |det| >= EPS; its dots summed in PyTorch's order. With ``widen``
+    > 0 also the pairs that pass with each dot moved by ``widen`` ulps of
+    its terms' magnitude (det's sum_i |d_i cr_i|, u_num's sum_i |d_i au_i|,
+    v_num's sum_i |d_i qv_i|): those the kernel's own rounding may pass."""
+    T = W.shape[-1] // 3
+    det, un, vn = torch.bmm(rays, W).unflatten(-1, (3, T)).unbind(2)
+    if not widen:
+        bits = det.view(torch.int32)
+        sign = (un.view(torch.int32) ^ bits) | (vn.view(torch.int32) ^ bits)
+        return ((sign >= 0) & (torch.abs(un + vn) <= torch.abs(det))
+                & (torch.abs(det) >= raycast.EPS))
+    tol = torch.bmm(torch.abs(rays), torch.abs(W)).mul_(widen * 2.0 ** -23)
+    t_det, t_u, t_v = tol.unflatten(-1, (3, T)).unbind(2)
+    sd = torch.where(det < 0, -1.0, 1.0)
+    u, v, a = un * sd, vn * sd, det * sd
+    ok = (u >= -t_u) & (v >= -t_v)
+    ok &= u.add_(v).abs_() <= (t_u + t_v).add_(t_det).add_(a)
+    ok &= a >= raycast.EPS - t_det
+    return ok
+
+
+def patch_passes(W: Tensor, rays: Tensor, widen: float = 0.0) -> Tensor:
+    """(P, patches, T) bool: for the block matrices W (P, 3, 3T) of P
+    visited (frame, tile, block) triples and their 32 x 32 tiles' rays (P,
+    1024, 3) (``group_rays`` order), whether some ray of each patch of
+    the patch walk passes ``pair_passes(..., widen)`` with the triangle:
+    the pairs a patch cull must keep."""
+    ok = pair_passes(W, rays, widen)
+    (ph, pw), n = PATCH_SHAPE, PATCH_SIDE
+    P, T = ok.shape[0], ok.shape[-1]
+    return (ok.reshape(P, n // ph, ph, n // pw, pw, T).transpose(2, 3)
+            .reshape(P, -1, ph * pw, T).any(2))
+
+
 def block_matrices(terms: Tensor) -> Tuple[Tensor, Tensor]:
     """``terms`` (B, n_blocks, N_TERMS, T) as one matrix a block, W (B,
     n_blocks, 3, 3T), whose columns are the vectors cr, au and qv of each
@@ -238,14 +416,27 @@ def plain_mesh_sweep(terms: Tensor, lo: Tensor, hi: Tensor, codes: Tensor, ray_o
     return ungroup(best.reshape(B, G, R), lay)
 
 
-def mesh_sweep_cuda(terms: Tensor, lo: Tensor, hi: Tensor, codes: Tensor, ray_o: Tensor,
-                    ray_d: Tensor, lay: RayLayout, visits: Tensor | None = None) -> Tensor:
+def mesh_walk(B: int, lay: RayLayout) -> str:
+    """The kernel's walk for B frames in ``lay`` (``WALKS``): ``PATCH`` on
+    32 x 32 pixel tiles that fill the card (FILL_GROUPS in all), else
+    "split"."""
+    tiles = lay.grid_w > 0 and lay.side == PATCH_SIDE
+    return PATCH if tiles and B * lay.groups >= FILL_GROUPS else "split"
+
+
+def mesh_sweep_cuda(terms: Tensor, lo: Tensor, hi: Tensor, spheres: Tensor, codes: Tensor,
+                    ray_o: Tensor, ray_d: Tensor, lay: RayLayout, visits: Tensor | None = None,
+                    kept: Tensor | None = None, walk: str | None = None) -> Tensor:
     """Launch csrc/meshsweep.cu: ``plain_mesh_sweep``'s (B, N) packed f32.
-    With ``visits`` (B, groups) int32, the kernel also writes there the
-    blocks each group visits (``MeshCaster.visited(...).sum(-1)``). Raises,
-    before any launch, unless every tensor is a contiguous CUDA tensor of
-    its type and shape and the blocks hold ``KERNEL_TRI_BLOCK`` triangles,
-    the kernel's compile-time width."""
+    ``walk`` (``WALKS``; default ``mesh_walk``) picks the kernel's walk;
+    every walk gives the same bits. With ``visits`` (B, groups) int32, the
+    kernel also writes there the blocks each group visits
+    (``MeshCaster.visited(...).sum(-1)``); with a patch walk and ``kept``
+    (``kept_shape``, zeroed), each patch's words of kept triangles for
+    each block it visits. Raises, before any launch, unless every tensor is a
+    contiguous CUDA tensor of its type and shape, the blocks hold
+    ``KERNEL_TRI_BLOCK`` triangles, the kernel's compile-time width, and a
+    patch walk has 32 x 32 pixel tiles."""
     if terms.dim() != 4 or terms.shape[2:] != (N_TERMS, KERNEL_TRI_BLOCK):
         raise ValueError(f"mesh sweep: terms must be (B, n_blocks, {N_TERMS}, "
                          f"{KERNEL_TRI_BLOCK}): the kernel's tri_block is {KERNEL_TRI_BLOCK}, "
@@ -254,14 +445,25 @@ def mesh_sweep_cuda(terms: Tensor, lo: Tensor, hi: Tensor, codes: Tensor, ray_o:
     N = ray_d.shape[1] if ray_d.dim() == 3 else -1
     if lay.groups * lay.rays != N:
         raise ValueError(f"mesh sweep: layout {lay} does not cover {N} rays")
+    walk = mesh_walk(B, lay) if walk is None else walk
+    if walk not in WALKS:
+        raise ValueError(f"mesh sweep: walk {walk!r} is not one of {list(WALKS)}")
+    if walk != "split" and not (lay.grid_w and lay.side == PATCH_SIDE):
+        raise ValueError(f"mesh sweep: the patch walk takes {PATCH_SIDE} x {PATCH_SIDE} "
+                         f"pixel tiles, not {lay}")
+    if kept is not None and walk == "split":
+        raise ValueError("mesh sweep: kept needs a patch walk")
     specs = [("mesh terms", terms, torch.float32, tuple(terms.shape)),
              ("mesh lo", lo, torch.float32, (B, nb, 3)),
              ("mesh hi", hi, torch.float32, (B, nb, 3)),
+             ("mesh spheres", spheres, torch.float32, (B, nb, 4, KERNEL_TRI_BLOCK)),
              ("mesh codes", codes, torch.int32, (nb,)),
              ("mesh ray_o", ray_o, torch.float32, (B, 3)),
              ("mesh ray_d", ray_d, torch.float32, (B, N, 3))]
     if visits is not None:
         specs.append(("mesh visits", visits, torch.int32, (B, lay.groups)))
+    if kept is not None:
+        specs.append(("mesh kept", kept, torch.int32, kept_shape(B, lay, nb)))
     # Types and shapes first, whatever the device; then device and layout.
     for name, t, dtype, shape in specs:
         if t.dtype != dtype or tuple(t.shape) != shape:
@@ -270,8 +472,8 @@ def mesh_sweep_cuda(terms: Tensor, lo: Tensor, hi: Tensor, codes: Tensor, ray_o:
     for name, t, dtype, shape in specs:
         kernels.check_cuda(name, t, dtype, shape)
     out = torch.empty(B, N, dtype=torch.float32, device=ray_d.device)
-    kernels.launch("cspe_mesh_sweep", terms, lo, hi, codes, ray_o, ray_d, B, nb, N, lay.groups,
-                   lay.rays, lay.grid_w, lay.side, out, visits)
+    kernels.launch("cspe_mesh_sweep", terms, spheres, lo, hi, codes, ray_o, ray_d, B, nb, N,
+                   lay.groups, lay.rays, lay.grid_w, lay.side, WALKS[walk], out, visits, kept)
     mesh_sweep_cuda.launches += 1
     return out
 
@@ -335,26 +537,29 @@ class MeshCaster:
         return tuple(torch.cat(c, dim=1).reshape(B, self.n_blocks, self.tri_block, 3)
                      for c in cs)
 
-    def mesh_terms(self, world, ray_o: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    def mesh_terms(self, world, ray_o: Tensor) -> MeshTerms:
         """The sweep's inputs in the layout ``csrc/meshsweep.cu`` reads: terms
         (B, n_blocks, N_TERMS, tri_block), for each block rows of tri_block
         floats for cr = e2 x e1 (3; det = d . cr), au = e2 x s (3; u_num =
         d . au), qv = s x e1 (3; v_num = d . qv) and tn = e2 . qv (t_num), s
-        = o - v0; and each block's inflated AABB, lo and hi (B, n_blocks,
-        3)."""
+        = o - v0; each block's inflated AABB, lo and hi (B, n_blocks, 3);
+        each triangle's bounding sphere (``triangle_spheres``); and
+        ``ray_o`` itself, the origin they hold."""
         c0, c1, c2 = self.corners(world)
         e1, e2 = c1 - c0, c2 - c0
         s = ray_o[:, None, None, :] - c0
         cross = lambda a, b: torch.linalg.cross(a, b, dim=-1)
         qv = cross(s, e1)
         tn = torch.sum(e2 * qv, dim=-1)
-        terms = torch.cat([cross(e2, e1), cross(e2, s), qv, tn[..., None]], dim=-1)
+        cr = cross(e2, e1)
+        terms = torch.cat([cr, cross(e2, s), qv, tn[..., None]], dim=-1)
         blk_lo = torch.minimum(torch.minimum(c0, c1), c2).amin(dim=2)
         blk_hi = torch.maximum(torch.maximum(c0, c1), c2).amax(dim=2)
         # The boxes are exact f32 bounds: inflate them, or a ray grazing a
         # silhouette triangle could pass the triangle test yet miss the slab.
         eps = 1e-5 * torch.amax(blk_hi - blk_lo, dim=-1, keepdim=True)
-        return terms.transpose(2, 3).contiguous(), blk_lo - eps, blk_hi + eps
+        return MeshTerms(terms.transpose(2, 3).contiguous(), blk_lo - eps, blk_hi + eps,
+                         triangle_spheres(c0, c1, c2, cr, ray_o), ray_o)
 
     def layout(self, n: int) -> RayLayout:
         """How ``n`` rays a frame go in groups (``ray_layout``)."""
@@ -363,14 +568,23 @@ class MeshCaster:
     def visited(self, world, ray_o: Tensor, ray_d: Tensor) -> Tensor:
         """(B, G, n_blocks) bool: the (frame, ray group, block) triples the
         sweep tests, each ``tile`` rays against ``tri_block`` triangles."""
-        _, lo, hi = self.mesh_terms(world, ray_o)
-        return block_hits(ray_o, group_rays(ray_d, self.layout(ray_d.shape[1])), lo, hi)
+        m = self.mesh_terms(world, ray_o)
+        return block_hits(ray_o, group_rays(ray_d, self.layout(ray_d.shape[1])), m.lo, m.hi)
 
     def packed(self, world, ray_o: Tensor, ray_d: Tensor) -> Tensor:
-        terms, lo, hi = self.mesh_terms(world, ray_o)
-        sweep = mesh_sweep_cuda if ray_d.is_cuda else plain_mesh_sweep
-        return sweep(terms, lo, hi, self._on(ray_d.device)["codes"], ray_o.contiguous(),
-                     ray_d.contiguous(), self.layout(ray_d.shape[1]))
+        """The sweep of rays from ray_o (B, 3) along ray_d (B, N, 3). A world
+        from ``HifiCaster.frame_world`` holds the terms of its render's
+        camera (key "mesh_terms"): they are used when ``ray_o`` is the very
+        tensor they were built for (``MeshTerms.origin``), as in
+        ``annotate.render_frame``, and built anew for any other origin."""
+        m = world.get("mesh_terms")
+        if m is None or m.origin is not ray_o:
+            m = self.mesh_terms(world, ray_o)
+        codes, lay = self._on(ray_d.device)["codes"], self.layout(ray_d.shape[1])
+        if ray_d.is_cuda:
+            return mesh_sweep_cuda(m.terms, m.lo, m.hi, m.spheres, codes, ray_o.contiguous(),
+                                   ray_d.contiguous(), lay)
+        return plain_mesh_sweep(m.terms, m.lo, m.hi, codes, ray_o, ray_d, lay)
 
 
 def make_mesh_caster(roster: world_mod.Roster, tri_block: int = 512, tile: int = 1024,
@@ -435,6 +649,14 @@ class HifiCaster:
         self.full = raycast.Raycaster(roster)
         self.cast = self.full.cast
         self.fast_multi_origin = self.full.fast_multi_origin
+
+    def frame_world(self, world, cam_pos: Tensor):
+        """The world that a render from cam_pos (B, 3) sweeps
+        (``annotate.render_frame``): ``world`` with the meshes' terms for
+        that camera under "mesh_terms", so that the render's pixel sweep and
+        keypoint segments build them once (``MeshCaster.packed`` takes them
+        only for rays from that very ``cam_pos`` tensor)."""
+        return {**world, "mesh_terms": self.mesh.mesh_terms(world, cam_pos)}
 
     def packed(self, world, ray_o: Tensor, ray_d: Tensor) -> Tensor:
         return torch.minimum(self.base.packed(world, ray_o, ray_d),

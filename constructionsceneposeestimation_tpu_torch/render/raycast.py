@@ -834,6 +834,13 @@ class Raycaster:
         self.packed_table = packed_table(self.cats, self.prim_codes, params)
         self.kind_table = kind_table(self.groups, self.prim_codes, params)
 
+    def frame_world(self, world: Dict[str, Tensor], cam_pos: Tensor) -> Dict[str, Tensor]:
+        """The world that a render from cam_pos (B, 3) sweeps
+        (``annotate.render_frame``): the analytic caster's needs nothing
+        more; ``meshcast.HifiCaster`` adds its meshes' terms for that
+        camera."""
+        return world
+
     def packed(self, world: Dict[str, Tensor], ray_o: Tensor, ray_d: Tensor) -> Tensor:
         """(B, N) packed nearest hit of rays from ray_o (B, 3) along ray_d
         (B, N, 3)."""

@@ -41,7 +41,8 @@ SIGNATURES = {
     "cspe_rgb_tier": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "cspe_heatmap": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P],
     "cspe_peaks": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
-    "cspe_mesh_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "cspe_mesh_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                        _P],
     "cspe_raycast": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                      _P],
 }

@@ -279,19 +279,28 @@ def mesh_scene(dev, request):
 def _check_mesh(mesh, w, cam, d):
     """csrc/meshsweep.cu against plain_mesh_sweep on the same terms and rays,
     to the pixel sweep's tolerances; its visits equal ``visited()``, two
-    calls are bit-equal and ``packed`` launches it. Returns its output."""
-    terms, lo, hi = mesh.mesh_terms(w, cam)
+    calls are bit-equal, ``packed`` launches it, and on 32 x 32 pixel
+    tiles the patch walk is bit-equal to the split walk. Returns its
+    output."""
+    m = mesh.mesh_terms(w, cam)
     codes, lay = mesh._on(cam.device)["codes"], mesh.layout(d.shape[1])
     visits = torch.full((cam.shape[0], lay.groups), -1, dtype=torch.int32, device=cam.device)
+    sweep = lambda **kw: meshcast.mesh_sweep_cuda(m.terms, m.lo, m.hi, m.spheres, codes, cam, d,
+                                                  lay, **kw)
     before = meshcast.mesh_sweep_cuda.launches
-    k = meshcast.mesh_sweep_cuda(terms, lo, hi, codes, cam, d, lay, visits)
-    again = meshcast.mesh_sweep_cuda(terms, lo, hi, codes, cam, d, lay)
+    k = sweep(visits=visits)
+    again = sweep()
     packed = mesh.packed(w, cam, d)
     assert meshcast.mesh_sweep_cuda.launches == before + 3
-    p = meshcast.plain_mesh_sweep(terms, lo, hi, codes, cam, d, lay)
+    p = meshcast.plain_mesh_sweep(m.terms, m.lo, m.hi, codes, cam, d, lay)
     assert torch.equal(k.view(torch.int32), again.view(torch.int32))
     assert torch.equal(k.view(torch.int32), packed.view(torch.int32))
     assert torch.equal(visits, mesh.visited(w, cam, d).sum(-1).int())
+    if lay.grid_w and lay.side == meshcast.PATCH_SIDE:
+        for walk in meshcast.WALKS:
+            v = torch.full_like(visits, -1)
+            assert torch.equal(sweep(visits=v, walk=walk).view(torch.int32), k.view(torch.int32))
+            assert torch.equal(v, visits)
     tk, ck = raycast._unpack(k)
     tp, cp = raycast._unpack(p)
     hk, hp = tk < raycast.INF * 0.99, tp < raycast.INF * 0.99
@@ -325,7 +334,8 @@ def test_mesh_sweep_camera_inside_a_block(mesh_scene):
     looking through it at the scene."""
     roster, w, cam, tgt = mesh_scene
     mesh = meshcast.make_mesh_caster(roster, grid_hw=(128, 128))
-    _, lo, hi = mesh.mesh_terms(w, cam)
+    m = mesh.mesh_terms(w, cam)
+    lo, hi = m.lo, m.hi
     k = int(np.nonzero(mesh.codes - 2 == roster.inst_class_names.index("tree"))[0][0])
     inside = 0.5 * (lo[:, k] + hi[:, k])
     assert bool(((inside > lo[:, k]) & (inside < hi[:, k])).all())
@@ -360,6 +370,40 @@ def test_mesh_sweep_one_group_of_many_rays(mesh_scene):
          - cam[:, None]).contiguous()
     assert mesh.layout(1500) == meshcast.RayLayout(1, 1500, 0, 32)
     _check_mesh(mesh, w, cam, d)
+
+
+@pytest.mark.parametrize("size", [128, 512])
+def test_mesh_sweep_kept_covers_the_passing_pairs(mesh_scene, size):
+    """The patch walk's ``kept`` words hold, for every visited block, each
+    triangle that some ray of the patch passes by the test widened by 8
+    ulps, and no padding triangle; they equal patch_cull_plain's on > 0.99
+    of the (visited block, patch) rows."""
+    roster, w, cam, tgt = mesh_scene
+    intr = camera.intrinsics_from_apertures(12.0, 25.0, size, size)
+    mesh = meshcast.make_mesh_caster(roster, grid_hw=(size, size))
+    d = camera.pixel_rays(intr, camera.look_at_matrix(cam, tgt)).reshape(4, -1, 3)
+    m = mesh.mesh_terms(w, cam)
+    codes, lay = mesh._on(cam.device)["codes"], mesh.layout(d.shape[1])
+    kept = torch.zeros(meshcast.kept_shape(4, lay, mesh.n_blocks), dtype=torch.int32,
+                       device=cam.device)
+    meshcast.mesh_sweep_cuda(m.terms, m.lo, m.hi, m.spheres, codes, cam, d, lay, kept=kept,
+                             walk=meshcast.PATCH)
+    visited = mesh.visited(w, cam, d)
+    _, mirror = meshcast.patch_cull_plain(m.lo, m.hi, m.spheres, cam, d, lay)
+    W, _ = meshcast.block_matrices(m.terms)
+    rays = meshcast.group_rays(d, lay)
+    triples = torch.nonzero(visited)
+    agree = rows = 0
+    for c in range(0, triples.shape[0], 32):
+        b, g, k = triples[c:c + 32].unbind(1)
+        mine = meshcast.kept_triangles(kept[b, g, :, k])
+        need = meshcast.patch_passes(W[b, k], rays[b, g], widen=8.0)
+        assert not bool((need & ~mine).any())
+        assert not bool((mine & (m.spheres[b, k, 3] < 0)[:, None]).any())
+        agree += int((mirror[b, g, :, k] == mine).all(-1).sum())
+        rows += mine.shape[0] * mine.shape[1]
+    assert rows > 0 and agree / rows > 0.99
+    assert int(kept[~visited[:, :, None, :, None].expand_as(kept)].abs().sum()) == 0
 
 
 def test_mesh_sweep_kernel_has_no_spills(dev):

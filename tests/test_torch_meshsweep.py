@@ -82,8 +82,8 @@ def _agree(mine, ref, min_hits):
 
 
 def _plain(mesh, w, cam, rays):
-    terms, lo, hi = mesh.mesh_terms(w, cam)
-    return meshcast.plain_mesh_sweep(terms, lo, hi, mesh._on("cpu")["codes"], cam, rays,
+    m = mesh.mesh_terms(w, cam)
+    return meshcast.plain_mesh_sweep(m.terms, m.lo, m.hi, mesh._on("cpu")["codes"], cam, rays,
                                      mesh.layout(rays.shape[1]))
 
 
@@ -121,7 +121,8 @@ def test_terms_rebuild_the_block_matrices(scene):
     t_num of the per-triangle vectors computed from the corners."""
     _, roster, w, cam, _, _ = scene
     mesh = meshcast.make_mesh_caster(roster)
-    terms, lo, hi = mesh.mesh_terms(w, cam)
+    m = mesh.mesh_terms(w, cam)
+    terms, lo, hi = m.terms, m.lo, m.hi
     B, nb, T = 2, mesh.n_blocks, mesh.tri_block
     assert terms.shape == (B, nb, meshcast.N_TERMS, T) and terms.is_contiguous()
     c0, c1, c2 = mesh.corners(w)
@@ -174,21 +175,29 @@ def test_packed_on_cpu_takes_the_plain_version(scene, monkeypatch):
 
 
 def test_wrapper_refuses_before_any_launch(scene, monkeypatch):
-    """Wrong dtype, shape, layout or tri_block, and CPU tensors, raise
+    """Wrong dtype, shape, layout, walk or tri_block, and CPU tensors, raise
     before a launch."""
-    _, roster, w, cam, px, _ = scene
+    _, roster, w, cam, px, one = scene
     monkeypatch.setattr(kernels, "launch", lambda *a: pytest.fail("launched"))
     mesh = meshcast.make_mesh_caster(roster, grid_hw=(64, 64))
-    terms, lo, hi = mesh.mesh_terms(w, cam)
+    m = mesh.mesh_terms(w, cam)
+    terms, lo, hi, spheres = m.terms, m.lo, m.hi, m.spheres
     codes, rays, lay = mesh._on("cpu")["codes"], px["64x64"], mesh.layout(4096)
-    args = dict(terms=terms, lo=lo, hi=hi, codes=codes, ray_o=cam, ray_d=rays, lay=lay)
+    args = dict(terms=terms, lo=lo, hi=hi, spheres=spheres, codes=codes, ray_o=cam, ray_d=rays,
+                lay=lay)
     small = meshcast.make_mesh_caster(roster, tri_block=256, grid_hw=(64, 64))
+    kept = torch.zeros(meshcast.kept_shape(2, lay, mesh.n_blocks), dtype=torch.int32)
     cases = {
-        "tri_block": (dict(terms=small.mesh_terms(w, cam)[0]), "tri_block"),
+        "tri_block": (dict(terms=small.mesh_terms(w, cam).terms), "tri_block"),
         "dtype": (dict(codes=codes.long()), "mesh codes"),
         "shape": (dict(lo=lo[:, 1:]), "mesh lo"),
+        "spheres": (dict(spheres=spheres[..., 1:]), "mesh spheres"),
         "layout": (dict(lay=mesh.layout(2048)), "layout"),
         "visits": (dict(visits=torch.zeros(2, 3, dtype=torch.int32)), "mesh visits"),
+        "walk": (dict(walk="4x4"), "walk"),
+        "patch walk off tiles": (dict(ray_d=one, lay=mesh.layout(1100), walk="4x8"), "tiles"),
+        "kept without a patch walk": (dict(kept=kept, walk="split"), "patch walk"),
+        "kept": (dict(kept=kept[:, 1:], walk="4x8"), "mesh kept"),
         "device": ({}, "expected a CUDA tensor"),
     }
     before = meshcast.mesh_sweep_cuda.launches
