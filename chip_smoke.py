@@ -129,15 +129,17 @@ Run from the root of a checkout. Phases, each reported on its own line:
    steps 0, 4, 8, 12, 16 and for the evaluation), ``infer --hifi`` of 32
    frames, the mesh sweep kernel (``csrc/meshsweep.cu``) launched twice a
    hifi batch on each; ``[mesh]`` lines for the triangle sweep on 32 x
-   512^2, pixels and segments: the kernel's registers and spills (none),
-   the kernel against ``plain_mesh_sweep`` on the same terms and rays
-   (pixels: the ``[sweep]`` bars; segments: the same without the edge
-   test), its visit counts equal to ``visited()``, two calls and every
-   walk bit-equal; the boxes the tile cone keeps (all the visited among
-   them); the patch walk's triangles kept a pixel ray beside those
-   visited and needed, no pair that passes the widened test lost, kept
-   sets equal to ``patch_cull_plain``'s on > 0.99; each walk's device
-   time; its device time,
+   512^2, pixels and segments: the kernel's registers (at most 80) and
+   spills (none), the kernel against ``plain_mesh_sweep`` on the same
+   terms and rays (pixels: the ``[sweep]`` bars; segments: the same
+   without the edge test), its visit counts equal to ``visited()``, two
+   calls and every walk bit-equal; the boxes the tile cone keeps (all the
+   visited among them); the patch walk's triangles kept a pixel ray and
+   the segment walk's a segment beside those visited and needed, no pair
+   that passes the widened test lost, kept sets equal to
+   ``patch_cull_plain``'s and ``segment_cull_plain``'s on > 0.99; the
+   default walk's device time beside the split walk's in one window; its
+   device time,
    its wrapper's call and ``MeshCaster.packed`` beside the plain version's
    time and launches, the bound (each needed pair's 22 operations of the
    kernel's division-free test, 4 more on each pair that passes it; the
@@ -334,7 +336,11 @@ MESH_PLAIN_PAIR_OPS = 30
 # csrc/meshsweep.cu's instantiations, by walk (render/meshcast.WALKS), as
 # kernels.ptxas_report names them.
 MESH_INSTANTIATIONS = {"split": "mesh_sweep_kernel<64, 1, 4>",
-                       "4x8": "mesh_sweep_patch_kernel"}
+                       "4x8": "mesh_sweep_patch_kernel",
+                       "segments": "mesh_sweep_segment_kernel"}
+# Registers a thread each instantiation may take: three blocks of 256
+# threads an SM.
+MESH_MAX_REGISTERS = 80
 # The mesh sweep's cull check: every pair that passes the division-free
 # test widened by MESH_WIDEN_ULPS ulps of its dots' terms (which the
 # kernel's own rounding may pass) must be kept; the kept sets are held
@@ -718,6 +724,52 @@ def mesh_cull_report(m, codes, ray_o, ray_d, lay) -> dict:
                 res["mirror_agree"] += int((mirror[b, g, :, k] == mine).all(-1).sum())
                 res["mirror_rows"] += mine.shape[0] * mine.shape[1]
         del kept, mirror
+    res["mirror_agree"] /= max(res["mirror_rows"], 1)
+    return res
+
+
+def mesh_segment_cull_report(m, codes, ray_o, ray_d, lay) -> dict:
+    """The mesh sweep kernel's segment walk cull (``meshcast.SEGMENTS``) on
+    the keypoint segments: its ``kept`` words of one call, as the
+    (segment, triangle) pairs it tests (``kept``: each set's kept
+    triangles times its rays) and the (set, block) pairs with a kept
+    triangle (``blocks``); the (segment, triangle) pairs of the visited
+    blocks that pass the test widened by MESH_WIDEN_ULPS, t > EPS included
+    (``widened``), and those whose triangle the segment's set did not keep
+    (``lost``, which must be 0); on the first MESH_MIRROR_FRAMES frames,
+    the share of (visited triple, set) rows whose kept set equals
+    ``segment_cull_plain``'s (``mirror_agree`` of ``mirror_rows``)."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.render import meshcast
+    dev, F = ray_d.device, MESH_MIRROR_FRAMES
+    kept = torch.zeros(meshcast.kept_shape(ray_d.shape[0], lay, m.lo.shape[1]),
+                       dtype=torch.int32, device=dev)
+    meshcast.mesh_sweep_cuda(m.terms, m.lo, m.hi, m.spheres, codes, ray_o, ray_d, lay, kept=kept,
+                             walk=meshcast.SEGMENTS)
+    S = kept.shape[2]
+    live = (lay.rays - meshcast.SET * torch.arange(S, device=dev)).clamp(max=meshcast.SET)
+    set_of = torch.arange(lay.rays, device=dev) // meshcast.SET
+    mirror = meshcast.segment_cull_plain(m.lo[:F], m.hi[:F], m.spheres[:F], ray_o[:F],
+                                         ray_d[:F], lay)
+    W, tn = meshcast.block_matrices(m.terms)
+    rays, chunks = mesh_triples(m, ray_o, ray_d, lay)
+    res = {"kept": 0, "blocks": int((kept != 0).any(-1).sum()), "sets": kept[:, :, :, 0, 0].numel(),
+           "widened": 0, "lost": 0, "mirror_agree": 0, "mirror_rows": 0}
+    for b, g, k in chunks:
+        mine = meshcast.kept_triangles(kept[b, g, :, k])  # (V, sets, T)
+        res["kept"] += int((mine.sum(-1) * live).sum())
+        need = meshcast.pair_passes(W[b, k], rays[b, g], MESH_WIDEN_ULPS, tn[b, k])  # (V, R, T)
+        res["widened"] += int(need.sum())
+        lost = torch.nonzero(need & ~mine[:, set_of])
+        res["lost"] += lost.shape[0]
+        for v, r, i in lost[:4].tolist():
+            res.setdefault("lost_pairs", []).append(
+                {"frame": int(b[v]), "block": int(k[v]), "ray": r, "triangle": i})
+        first = b < F
+        res["mirror_agree"] += int((mirror[b[first], g[first], :, k[first]]
+                                    == mine[first]).all(-1).sum())
+        res["mirror_rows"] += int(first.sum()) * S
+        del mine, need
     res["mirror_agree"] /= max(res["mirror_rows"], 1)
     return res
 
@@ -1865,15 +1917,16 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
     # segments, not a grid: the same bars without the edge test), its visits
     # equal to visited(), two calls bit-equal, every walk bit-equal to the
     # split walk (every triangle of each visited block); the culls
-    # (mesh_cull_report): the boxes the cone pre-test keeps beside the
-    # visits, the triangles each patch keeps, no widened-passing pair lost;
+    # (mesh_cull_report, mesh_segment_cull_report): the boxes the cone
+    # pre-test keeps beside the visits, the triangles each patch or set of
+    # segments keeps, no widened-passing pair lost;
     # the kernel's device time against its bound, the needed (ray,
     # triangle) pairs (mesh_needed_pairs) x MESH_PAIR_OPS and the pairs
     # that pass x MESH_PASS_OPS at the FP32 rate against the terms' and
     # rays' bytes, with the visited pairs' bound (the JAX function's grain),
     # the plain test's MESH_PLAIN_PAIR_OPS a visited pair and the
     # brute-force count of every ray against every triangle printed beside;
-    # the split and patch walks' times in one window; the plain version's
+    # the default walk's and the split walk's times in one window; the plain version's
     # time and launches a call; MeshCaster.packed (the terms and the
     # kernel) by CUDA events.
     n = HIFI_FRAMES
@@ -1888,8 +1941,10 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
     report = kernels.ptxas_report("meshsweep.cu")
     phase("mesh", f"csrc/meshsweep.cu, registers and spill bytes (ptxas): {report}")
     check(set(report) == set(MESH_INSTANTIATIONS.values())
-          and all(r["spill_bytes"] == 0 for r in report.values()),
-          f"mesh sweep: an instantiation is missing or spills: {report}")
+          and all(r["spill_bytes"] == 0 and r["registers"] <= MESH_MAX_REGISTERS
+                  for r in report.values()),
+          f"mesh sweep: an instantiation is missing, spills or takes more than "
+          f"{MESH_MAX_REGISTERS} registers: {report}")
     m = mesh.mesh_terms(w, o)
     codes = mesh._on(dev)["codes"]
     mesh_r = {}
@@ -1903,7 +1958,8 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
         visits = torch.full((n, lay.groups), -1, dtype=torch.int32, device=dev)
         out = meshcast.mesh_sweep_cuda(m.terms, m.lo, m.hi, m.spheres, codes, o, d, lay, visits)
         again, plain = k_fn(), p_fn()
-        walks = list(meshcast.WALKS) if walk != "split" else ["split"]
+        tiles = lay.grid_w and lay.side == meshcast.PATCH_SIDE
+        walks = [v for v in meshcast.WALKS if v != meshcast.PATCH or tiles]
         same_walks = {v: torch.equal(out.view(torch.int32), k_fn(walk=v).view(torch.int32))
                       for v in walks}
         visited = mesh.visited(w, o, d)
@@ -1939,7 +1995,7 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
         ops = needed * MESH_PAIR_OPS + passes * MESH_PASS_OPS
         r = mesh_r[name] = {
             "ms": device_ms(k_fn, "mesh_sweep"), "call_ms": cuda_ms(k_fn),
-            "packed_ms": cuda_ms(lambda d=d: mesh.packed(w, o, d), iters=3, warmup=1),
+            "packed_ms": cuda_ms(lambda d=d: mesh.packed(w, o, d), iters=10, warmup=2),
             "plain_ms": cuda_ms(p_fn, iters=2, warmup=1),
             "plain_launches": sum(e.count for e in kern),
             "plain_device_ms": sum(e.self_device_time_total for e in kern) / 1e3,
@@ -1950,9 +2006,11 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
             "visited_bound": bound(nbytes, pairs * MESH_PAIR_OPS + passes * MESH_PASS_OPS),
             "plain_test_bound_ms": bound(nbytes, pairs * MESH_PLAIN_PAIR_OPS)[0]}
         if walk != "split":
-            r["walk_ms"] = dict(zip(walks, device_ms_window(
-                [(lambda v=v: k_fn(walk=v), MESH_INSTANTIATIONS[v]) for v in walks])))
-            r["cull"] = mesh_cull_report(m, codes, o, d, lay)
+            timed = ["split", walk]
+            r["walk_ms"] = dict(zip(timed, device_ms_window(
+                [(lambda v=v: k_fn(walk=v), MESH_INSTANTIATIONS[v]) for v in timed])))
+            r["cull"] = (mesh_cull_report if walk == meshcast.PATCH
+                         else mesh_segment_cull_report)(m, codes, o, d, lay)
         phase("mesh", f"{name}, {n} x {RES}^2: kernel {r['ms']:.4f} ms (device time; the "
               f"wrapper's call {r['call_ms']:.4f} ms, MeshCaster.packed with its terms "
               f"{r['packed_ms']:.4f} ms, CUDA events) in 1 launch; plain {r['plain_ms']:.3f} ms "
@@ -1973,6 +2031,22 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
                   f"bit-equal): " + ", ".join(f"{v} {t:.4f} ms" for v, t in r["walk_ms"].items())
                   + f"; the {walk} walk is the default; on {card}")
             c = r["cull"]
+        if walk == meshcast.SEGMENTS:
+            phase("mesh", f"{name}, the segment walk's cull: triangles tested a segment "
+                  f"{c['kept'] / rays:.3f} (visited {pairs / rays:.2f}, needed "
+                  f"{needed / rays:.3f}); (set, block) pairs with a kept triangle "
+                  f"{c['blocks'] / c['sets']:.3f} a set of {r['visits'] / n:.2f} visited blocks "
+                  f"a frame; (segment, triangle) pairs passing the test widened by "
+                  f"{MESH_WIDEN_ULPS} ulps, t > EPS included, {c['widened']}, lost by the cull "
+                  f"{c['lost']} (must be 0); the (visited block, set) kept sets equal to the "
+                  f"mirror's (segment_cull_plain) on {c['mirror_agree']:.6f} of "
+                  f"{c['mirror_rows']} on the first {MESH_MIRROR_FRAMES} frames (> 0.99)")
+            if c["lost"]:
+                phase("mesh", f"{name}, the segment cull's first lost pairs: {c['lost_pairs']}")
+            check(c["lost"] == 0 and c["mirror_agree"] > 0.99,
+                  f"mesh sweep {name}: the segment cull lost {c['lost']} widened-passing pairs, "
+                  f"or its kept sets differ from the mirror's ({c['mirror_agree']:.6f})")
+        if walk == meshcast.PATCH:
             phase("mesh", f"{name}, the {walk} patch cull: triangles kept a ray "
                   f"{c['kept'] / rays:.3f} (visited {pairs / rays:.2f}, needed "
                   f"{needed / rays:.3f}); (patch, triangle) pairs with a ray passing the test "
@@ -2048,6 +2122,8 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
                       "visited_bound_ms": bound(bytes_, pairs * MESH_PAIR_OPS
                                                 + passes * MESH_PASS_OPS)[0],
                       "plain_test_bound_ms": bound(bytes_, pairs * MESH_PLAIN_PAIR_OPS)[0],
+                      "instantiations": {v: {"kernel": k, **report[k]}
+                                         for v, k in MESH_INSTANTIATIONS.items()},
                       "hifi_batch_ms": hifi_ms, **{k: {f: r[f] for f in (
                           "ms", "call_ms", "packed_ms", "plain_ms", "plain_launches", "walk",
                           "visits", "boxes_pretest", "pairs", "needed", "passes", "walk_ms",

@@ -5,8 +5,8 @@
 // (constructionsceneposeestimation_tpu/render/meshcast.py:307-344), which
 // XLA fuses on the TPU into one elementwise block a visited triangle block
 // (it is not a Pallas kernel). Plain version:
-// render/meshcast.plain_mesh_sweep; the culls' mirror:
-// render/meshcast.patch_cull_plain.
+// render/meshcast.plain_mesh_sweep; the culls' mirrors:
+// render/meshcast.patch_cull_plain and segment_cull_plain.
 //
 // Inputs, from render/meshcast.MeshCaster.mesh_terms: for each (frame,
 // block of kTri triangles) ten rows of kTri floats, cr = e2 x e1 (3),
@@ -31,20 +31,23 @@
 //
 // What bounds it on an H100: the pairs it tests. A pixel ray meets ~8
 // triangles' bounding spheres but its tile's visited blocks hold ~800
-// triangles; the bound (chip_smoke.py) charges the 22 operations of the
-// division-free test below (MESH_PAIR_OPS) only on the (ray, triangle)
-// pairs whose ray meets the triangle's sphere, 4 more (MESH_PASS_OPS) on
-// each pair that passes, against the bytes read once.
+// triangles, and a keypoint segment ~80 of its frame's 45568; the bound
+// (chip_smoke.py) charges the 22 operations of the division-free test
+// below (MESH_PAIR_OPS) only on the (ray, triangle) pairs whose ray meets
+// the triangle's sphere, 4 more (MESH_PASS_OPS) on each pair that passes,
+// against the bytes read once.
 //
 // Design:
 // - A CUDA block owns a slice of one group's rays and writes each of them
 //   once: no atomics on the output. A 32 x 32 pixel tile is one slice,
 //   256 threads x 4 rays held in registers (the patch walk). When the
 //   groups are too few to fill the card (the keypoint segments: one group
-//   of ~700 rays a frame, 32 frames), a slice is 64 rays and 256 threads:
-//   each ray is held by 4 lanes, which split the triangles of a block, and
-//   their mins are reduced through shared memory at the end (the split
-//   walk); a frame spreads over ~11 SMs. The wrapper picks the walk.
+//   of ~700 rays a frame, 32 frames), a slice is 64 rays and 256 threads,
+//   a frame over ~11 SMs: either each ray is held by 4 lanes, which split
+//   the triangles of a block, and their mins are reduced through shared
+//   memory at the end (the split walk, every triangle of every visited
+//   block: the yardstick, and small pixel renders), or the segment walk
+//   below. The wrapper picks the walk.
 // - Box cull. On pixel tiles the block builds its tile's cone from every
 //   ray of the tile (axis: the normalised sum of the unit directions;
 //   half-angle: the largest angle from it, widened as csrc/sweep.cu widens
@@ -75,6 +78,30 @@
 //   triangles or not. Four cones a warp take 108 registers unbounded, two
 //   blocks an SM; the patch kernel is held to three (at most 85, no
 //   spills), which hides more of the walk's latency.
+// - Segment walk (every layout that is not a pixel grid). A warp holds a
+//   set of 32 consecutive rays, one a lane; a set's rays fan out over
+//   whole instances, so no cone that holds them culls (it keeps a third
+//   of the triangles): each ray is tested alone, and ballots merge the
+//   tests. A block holds two sets and eight warps, which take the (set,
+//   kept block) items of both from a shared counter as they come free and
+//   fold each ray's min into shared memory, so that 32 frames' ~700 sets
+//   fill the card and a set that keeps many triangles takes the warps its
+//   neighbour leaves. A set keeps a marked block whose widened box sphere
+//   (mark_boxes keeps each box's) some ray passes by; in it each word of
+//   32 triangles whose sphere, built with shuffles from the triangle
+//   spheres, some ray passes by; in such a word lane i
+//   tests triangle i's sphere against the set's 32 rays (read from shared
+//   memory as broadcasts), and one ballot gives the word's kept
+//   triangles, walked as the patch walk walks them but read through L1:
+//   the warps of a block walk different blocks. A ray passes by a ball
+//   when the ball holds the origin or the ray's unit direction u has u . v
+//   > 0 and |u x v| <= r + kCullAbs |v|: the cone of one ray, widened as
+//   a tile's. The cross product keeps the distance to a few ulps of |v|;
+//   meets()'s cos^2 form, at a zero spread, rounds it by ~sqrt(ulp) |v|.
+//   A culled pair is one whose ray misses the triangle's sphere, so it
+//   fails the test; each marked block still gives pack(INF, code), the
+//   block's least code starting each ray's min, and the output is the
+//   split walk's bit for bit.
 // - The test a pair is 9 FMAs and ~7 more, with no division: u_num and
 //   v_num must have det's sign (one LOP3 of the sign bits), |u_num +
 //   v_num| <= |det| and |det| >= EPS. Only a pair that passes takes t =
@@ -85,7 +112,7 @@
 //   order than the plain version's matrix product: the kernel is held to
 //   it by the sweep's tolerances, not bit for bit.
 // An optional output `kept` receives each patch's words of kept triangles
-// for each visited block.
+// for each visited block, or each set's for each block it walks.
 #include "common.cuh"
 
 namespace cspe {
@@ -100,16 +127,21 @@ constexpr int kPatchH = 4, kPatchW = 8;  // a patch's pixels: one ray a lane
 constexpr int kPatchWarps = 8;           // warps of a patch walk's block
 constexpr int kMine = kSide * kSide / (32 * kPatchWarps);  // patches a warp
 constexpr int kPatches = kSide * kSide / (kPatchH * kPatchW);
+constexpr int kSet = 32;      // render/meshcast.SET: a segment walk's rays a set, one a lane
+constexpr int kSegSets = 2;   // sets a block of the segment walk
+constexpr int kSegSplit = 4;  // warps a set's box tests split over
+constexpr int kSegThreads = 32 * kSegSets * kSegSplit;
 constexpr float kBig = 3e38f;  // render/meshcast._BIG
 constexpr float kNear = 1e-12f;  // an axis-parallel ray component
 constexpr float kCullRel = 1e-3f;  // render/raycast.CULL_REL
 constexpr float kCullAbs = 1e-6f;  // render/raycast.CULL_ABS
 constexpr float kBoxAbs = 1e-4f;   // render/meshcast.SPHERE_ABS
+constexpr float kSphereRel = 1e-5f;  // render/meshcast.SPHERE_REL
 constexpr float kHalfPi = 1.5707963f;
 constexpr size_t kStageBytes = sizeof(float) * kTri * kStride + sizeof(float4) * kTri;
 
 // render/meshcast.WALKS.
-enum Walk : int { kSplitWalk = 0, kPatchWalk = 1 };
+enum Walk : int { kSplitWalk = 0, kPatchWalk = 1, kSegmentWalk = 2 };
 
 struct Args {
   const float* terms;    // (B, nb, kTerms, kTri)
@@ -122,7 +154,7 @@ struct Args {
   int nb, n, groups, rays, grid_w, side, slices;
   float* out;   // (B, n)
   int* visits;  // (B, groups) or null
-  int* kept;    // (B, groups, patches, nb, kWords) or null
+  int* kept;    // (B, groups, patches or sets, nb, kWords) or null
 };
 
 // Ray r of group g in the frame's ray order (render/meshcast.group_rays).
@@ -222,7 +254,8 @@ __device__ __forceinline__ void test_pair(float dx, float dy, float dz, float4 p
 
 // Shared memory: the stage (kTri x kStride floats, then kTri float4
 // spheres), the group's cone, each box that passes it as two float4 (lo -
-// o with the inside bits, hi - o), the marks, the passing boxes' numbers,
+// o with the inside bits, hi - o), each box's sphere, the marks, the
+// passing boxes' numbers,
 // the hit words, the tile's words of kept triangles, the block's
 // reductions.
 struct Smem {
@@ -230,6 +263,7 @@ struct Smem {
   float4* sphere;
   float4* cone;  // the group's cone: axis and cos^2, sin and all
   float4* box;
+  float4* bsph;  // each box's widened sphere, centre - o and radius, by block
   int* marked;
   int* cand;
   unsigned* hit;
@@ -244,7 +278,8 @@ __device__ __forceinline__ Smem carve(float4* base, int nb) {
   s.sphere = base + 3 * kTri;
   s.cone = s.sphere + kTri;
   s.box = s.cone + 2;
-  s.marked = reinterpret_cast<int*>(s.box + 2 * nb);
+  s.bsph = s.box + 2 * nb;
+  s.marked = reinterpret_cast<int*>(s.bsph + nb);
   s.cand = s.marked + nb;
   s.hit = reinterpret_cast<unsigned*>(s.cand + nb);
   s.tile = s.hit + (nb + 31) / 32;
@@ -254,7 +289,7 @@ __device__ __forceinline__ Smem carve(float4* base, int nb) {
 }
 
 size_t smem_bytes(int nb) {
-  return kStageBytes + 2 * sizeof(float4) * (nb + 1) + 2 * sizeof(int) * nb +
+  return kStageBytes + sizeof(float4) * (3 * nb + 2) + 2 * sizeof(int) * nb +
          sizeof(unsigned) * ((nb + 31) / 32 + kWords) + sizeof(float) * 32 + sizeof(int);
 }
 
@@ -340,6 +375,7 @@ __device__ __forceinline__ void mark_boxes(const Args& a, const Smem& s, int b, 
       inside |= (o[x] >= l[x] && o[x] <= h[x]) << x;
     }
     const float rad = 0.5f * sqrtf(e2) * (1.0f + kCullRel) + kBoxAbs;
+    s.bsph[k] = make_float4(c[0], c[1], c[2], rad);
     if (meets(cone, make_float4(c[0], c[1], c[2], rad))) {
       const int slot = atomicAdd(s.count, 1);
       s.cand[slot] = k;
@@ -573,6 +609,208 @@ __device__ __forceinline__ void patch_walk(const Args& a, const Smem& s, int b, 
   if (a.visits != nullptr && tid == 0) a.visits[bg] = visits;
 }
 
+// A ball (centre - o, radius >= 0) as one ray's test reads it: inside, o
+// lies in it; reach2, the square of its radius widened by the one-ray
+// cone's half-angle kCullAbs at its distance.
+struct Ball {
+  float4 b;
+  float reach2;
+  bool inside;
+};
+
+__device__ __forceinline__ Ball ball(float4 b) {
+  const float vv = b.x * b.x + b.y * b.y + b.z * b.z;
+  const float reach = b.w + kCullAbs * sqrtf(vv);
+  return Ball{b, reach * reach, vv <= b.w * b.w};
+}
+
+// Whether the half-line from o along unit u passes within the ball's reach
+// of its centre v beyond o: u . v > 0 and |u x v|^2 <= reach2. The cross
+// product keeps the distance to a few ulps of |v|; meets()'s cos^2 form
+// loses it to cancellation at one ray's zero spread.
+__device__ __forceinline__ bool passes_by(float3 u, const Ball& c) {
+  const float4 v = c.b;
+  const float tc = u.x * v.x + u.y * v.y + u.z * v.z;
+  const float cx = u.y * v.z - u.z * v.y, cy = u.z * v.x - u.x * v.z,
+              cz = u.x * v.y - u.y * v.x;
+  return tc > 0.0f && cx * cx + cy * cy + cz * cz <= c.reach2;
+}
+
+// The segment walk: the block holds kSegSets sets of kSet consecutive rays
+// of the group, one a lane; warp w first tests, for set w / kSegSplit,
+// every kSegSplit-th marked block. A set keeps a marked block whose box
+// sphere some ray of the set passes by (render/meshcast._ray_meets). The
+// (set, kept block) items of both sets then go to the block's warps as
+// they come free (a shared counter), so that a heavy set takes the warps
+// its light neighbour leaves. For an item the warp takes the set's rays,
+// one a lane; each word of 32 triangles whose sphere (built here from the
+// word's triangle spheres, render/meshcast.word_spheres) some ray passes
+// by; in such a word, lane i tests triangle i's sphere against the set's
+// 32 rays, and one ballot gives the word's kept triangles, which the warp
+// walks as the patch walk does, reading each through L1 as a broadcast. A
+// set with a non-finite direction keeps every ball. Every marked block
+// gives each ray at least pack(INF, code): the least marked code starts
+// each ray's min, kept in shared memory, where each item folds its
+// block's pack(least t, code) in with one atomicMin of the bits (the
+// packed values are positive floats).
+__device__ __forceinline__ void segment_walk(const Args& a, const Smem& s, int b, int g, int bg,
+                                             int slice) {
+  constexpr int kRays = kSegSets * kSet;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int set = warp / kSegSplit, part = warp % kSegSplit;
+  const int nbw = (a.nb + 31) / 32;
+  float4* units = s.stage;                       // kRays: unit directions
+  float4* dirs = units + kRays;                  // kRays: directions
+  int* bests = reinterpret_cast<int*>(dirs + kRays);  // kRays: each ray's min, as bits
+  unsigned* keep = reinterpret_cast<unsigned*>(bests + kRays);  // kSegSets x nbw
+  int* items = reinterpret_cast<int*>(keep + kSegSets * nbw);  // kSegSets x nb: set << 16 | k
+  int* least = items + kSegSets * a.nb;  // least code, count, items, next item, wild sets
+  const int r = (slice * kSegSets + set) * kSet + lane;
+  // Whether the set holds a ray of the group (the last slice's may not).
+  const bool set_live = r - lane < a.rays;
+  const float* rd = a.ray_d + static_cast<size_t>(b) * a.n * 3;
+  const float* d = rd + 3 * static_cast<size_t>(r < a.rays ? ray_index(a, g, r) : 0);
+  // A ray beyond the group's end has d = 0: it passes nothing.
+  const float dx = r < a.rays ? d[0] : 0.0f, dy = r < a.rays ? d[1] : 0.0f,
+              dz = r < a.rays ? d[2] : 0.0f;
+  bool ok;
+  const float3 u = unit(dx, dy, dz, ok);
+  const bool wild = __any_sync(0xffffffffu, !isfinite(dx * dx + dy * dy + dz * dz));
+  if (part == 0) {
+    units[set * kSet + lane] = make_float4(u.x, u.y, u.z, 0.0f);
+    dirs[set * kSet + lane] = make_float4(dx, dy, dz, 0.0f);
+  }
+  for (int k = tid; k < kSegSets * nbw; k += kSegThreads) keep[k] = 0u;
+  if (tid == 0) {
+    least[0] = kPayloadMask;
+    least[1] = 0;
+    least[3] = 0;
+    least[4] = 0;
+  }
+  __syncthreads();
+  if (part == 0 && lane == 0 && wild) atomicOr(&least[4], 1 << set);
+
+  // The marked blocks' least code and count; each warp tests every
+  // kSegSplit-th marked block's box sphere against its set's rays.
+  int code_min = kPayloadMask, count = 0;
+  for (int k0 = part * 32; k0 < a.nb; k0 += kSegSplit * 32) {
+    const int k = k0 + lane;
+    const bool marked = k < a.nb && s.marked[k];
+    if (marked && set == 0) {
+      code_min = min(code_min, a.codes[k]);
+      ++count;
+    }
+    for (unsigned todo = __ballot_sync(0xffffffffu, marked); todo != 0u; todo &= todo - 1u) {
+      const int kk = k0 + __ffs(todo) - 1;
+      const Ball box = ball(s.bsph[kk]);
+      if (set_live && (box.inside || __any_sync(0xffffffffu, wild || passes_by(u, box))) &&
+          lane == 0)
+        atomicOr(&keep[set * nbw + kk / 32], 1u << (kk % 32));
+    }
+  }
+  code_min = __reduce_min_sync(0xffffffffu, code_min);
+  count = __reduce_add_sync(0xffffffffu, count);
+  if (lane == 0 && set == 0) {
+    atomicMin(&least[0], code_min);
+    atomicAdd(&least[1], count);
+  }
+  __syncthreads();
+
+  // The items, set by set in ascending block order, listed by warp 0; each
+  // ray's min starts at the least marked code's pack(INF, code).
+  const float start = least[1] > 0 ? fminf(kInf, pack(kInf, least[0])) : kInf;
+  if (tid < kRays) bests[tid] = __float_as_int(start);
+  if (warp == 0) {
+    int n = 0;
+    for (int w = 0; w < kSegSets * nbw; ++w) {
+      const unsigned bits = keep[w];
+      if ((bits >> lane) & 1u)
+        items[n + __popc(bits & ((1u << lane) - 1u))] = (w / nbw) << 16 | ((w % nbw) * 32 + lane);
+      n += __popc(bits);
+    }
+    if (lane == 0) least[2] = n;
+  }
+  __syncthreads();
+
+  const int n_items = least[2], wild_sets = least[4];
+  const int n_sets = (a.rays + kSet - 1) / kSet;
+  for (;;) {
+    int item = 0;
+    if (lane == 0) item = atomicAdd(&least[3], 1);
+    item = __shfl_sync(0xffffffffu, item, 0);
+    if (item >= n_items) break;
+    const int is = items[item] >> 16, k = items[item] & 0xffff;
+    const float4* set_units = units + is * kSet;
+    const float4 uu = set_units[lane], dd = dirs[is * kSet + lane];
+    const float3 ui = make_float3(uu.x, uu.y, uu.z);
+    const bool wi = (wild_sets >> is) & 1;
+    const size_t blk = static_cast<size_t>(b) * a.nb + k;
+    const float* src = a.terms + blk * kTerms * kTri;
+    const float* sph = a.spheres + blk * 4 * kTri;
+    int* kept = a.kept == nullptr
+                    ? nullptr
+                    : a.kept + ((static_cast<size_t>(bg) * n_sets + slice * kSegSets + is) *
+                                    a.nb + k) * kWords;
+    float tb = kInf;
+    for (int w = 0; w < kWords; ++w) {
+      const int i = w * 32 + lane;
+      const float4 sp = make_float4(__ldg(sph + i), __ldg(sph + kTri + i),
+                                    __ldg(sph + 2 * kTri + i), __ldg(sph + 3 * kTri + i));
+      const bool real = sp.w >= 0.0f;
+      const int n_real = __popc(__ballot_sync(0xffffffffu, real));
+      if (n_real == 0) continue;  // padding only: kept stays 0
+      // The word's sphere: the mean of its real centres, and the largest
+      // distance from it plus the triangle's radius, widened.
+      const float cx = warp_sum(real ? sp.x : 0.0f) / n_real;
+      const float cy = warp_sum(real ? sp.y : 0.0f) / n_real;
+      const float cz = warp_sum(real ? sp.z : 0.0f) / n_real;
+      const float ex = sp.x - cx, ey = sp.y - cy, ez = sp.z - cz;
+      const float gap = real ? sqrtf(ex * ex + ey * ey + ez * ez) + sp.w : 0.0f;
+      const Ball word = ball(make_float4(cx, cy, cz, warp_max(gap) * (1.0f + kSphereRel)));
+      if (!word.inside && !__any_sync(0xffffffffu, wi || passes_by(ui, word))) continue;
+      // Lane i's triangle against the set's rays.
+      const Ball tri = ball(sp);
+      bool met = wi || tri.inside;
+#pragma unroll 8
+      for (int j = 0; j < kSet; ++j) {
+        const float4 v = set_units[j];
+        met = met | passes_by(make_float3(v.x, v.y, v.z), tri);
+      }
+      unsigned bits = __ballot_sync(0xffffffffu, real && met);
+      if (kept != nullptr && lane == 0) kept[w] = static_cast<int>(bits);
+      // Two triangles an iteration, as the patch walk.
+      while (bits != 0u) {
+        const int t1 = w * 32 + __ffs(bits) - 1;
+        bits &= bits - 1u;
+        const int t2 = bits != 0u ? w * 32 + __ffs(bits) - 1 : t1;
+        bits &= bits - 1u;
+        const float4 p = make_float4(__ldg(src + t1), __ldg(src + kTri + t1),
+                                     __ldg(src + 2 * kTri + t1), __ldg(src + 3 * kTri + t1));
+        const float4 q = make_float4(__ldg(src + 4 * kTri + t1), __ldg(src + 5 * kTri + t1),
+                                     __ldg(src + 6 * kTri + t1), __ldg(src + 7 * kTri + t1));
+        const float4 v = make_float4(__ldg(src + 8 * kTri + t1), __ldg(src + 9 * kTri + t1),
+                                     0.0f, 0.0f);
+        const float4 p2 = make_float4(__ldg(src + t2), __ldg(src + kTri + t2),
+                                      __ldg(src + 2 * kTri + t2), __ldg(src + 3 * kTri + t2));
+        const float4 q2 = make_float4(__ldg(src + 4 * kTri + t2), __ldg(src + 5 * kTri + t2),
+                                      __ldg(src + 6 * kTri + t2), __ldg(src + 7 * kTri + t2));
+        const float4 v2 = make_float4(__ldg(src + 8 * kTri + t2), __ldg(src + 9 * kTri + t2),
+                                      0.0f, 0.0f);
+        test_pair(dd.x, dd.y, dd.z, p, q, v, tb);
+        test_pair(dd.x, dd.y, dd.z, p2, q2, v2, tb);
+      }
+    }
+    // A miss leaves pack(INF, code), never below the start.
+    if (tb < kInf) atomicMin(&bests[is * kSet + lane], __float_as_int(pack(tb, a.codes[k])));
+  }
+  __syncthreads();
+  if (part == 0 && r < a.rays) {
+    a.out[static_cast<size_t>(b) * a.n + ray_index(a, g, r)] =
+        __int_as_float(bests[set * kSet + lane]);
+  }
+  if (a.visits != nullptr && slice == 0 && tid == 0) a.visits[bg] = least[1];
+}
+
 // The split walk of kRayThreads x kRays rays, kSplit lanes a ray.
 template <int kRayThreads, int kRays, int kSplit>
 __global__ void __launch_bounds__(kRayThreads * kSplit) mesh_sweep_kernel(Args a) {
@@ -599,12 +837,31 @@ __global__ void __launch_bounds__(32 * kPatchWarps, 3) mesh_sweep_patch_kernel(A
   patch_walk(a, s, b, g, bg);
 }
 
+// The segment walk of kSegSets sets of kSet rays a block, kSegSplit warps a
+// set; three blocks an SM (at most 85 registers a thread).
+__global__ void __launch_bounds__(kSegThreads, 3) mesh_sweep_segment_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  const Smem s = carve(smem4, a.nb);
+  const int slice = blockIdx.x % a.slices;
+  const int bg = blockIdx.x / a.slices;  // frame * groups + group
+  const int b = bg / a.groups, g = bg - b * a.groups;
+  const float o[3] = {a.ray_o[3 * b], a.ray_o[3 * b + 1], a.ray_o[3 * b + 2]};
+  mark_boxes<kSegThreads>(a, s, b, g, o);
+  segment_walk(a, s, b, g, bg, slice);
+}
+
 template <int kRayThreads, int kRays, int kSplit>
 void launch_split(Args a, int B, size_t smem, cudaStream_t stream) {
   static_assert(kSplit * kRayThreads * kRays <= kTri * kStride, "lanes' mins overflow the stage");
   a.slices = (a.rays + kRayThreads * kRays - 1) / (kRayThreads * kRays);
   const unsigned blocks = static_cast<unsigned>(static_cast<long long>(B) * a.groups * a.slices);
   mesh_sweep_kernel<kRayThreads, kRays, kSplit><<<blocks, kRayThreads * kSplit, smem, stream>>>(a);
+}
+
+void launch_segments(Args a, int B, size_t smem, cudaStream_t stream) {
+  a.slices = (a.rays + kSegSets * kSet - 1) / (kSegSets * kSet);
+  const unsigned blocks = static_cast<unsigned>(static_cast<long long>(B) * a.groups * a.slices);
+  mesh_sweep_segment_kernel<<<blocks, kSegThreads, smem, stream>>>(a);
 }
 
 void launch_patch(Args a, int B, size_t smem, cudaStream_t stream) {
@@ -622,9 +879,11 @@ void launch_patch(Args a, int B, size_t smem, cudaStream_t stream) {
 // blocks each group visits. grid_w > 0: the groups are side x side tiles
 // of a pixel grid grid_w wide; else contiguous ranges of `rays`. walk
 // (render/meshcast.WALKS): 0 the split walk, 1 the patch walk of 4 x 8
-// patches (32 x 32 tiles only); with the patch walk, where kept is not
-// null, kept (B, groups, 32 patches, nb, 16) int32 receives each patch's
-// words of kept triangles for each visited block.
+// patches (32 x 32 tiles only), 2 the segment walk (any layout); where
+// kept is not null, kept (B, groups, 32 patches, nb, 16) int32 receives
+// each patch's words of kept triangles for each visited block with the
+// patch walk, kept (B, groups, ceil(rays / 32) sets, nb, 16) each set's
+// for each block it walks with the segment walk.
 CSPE_API int cspe_mesh_sweep(const float* terms, const float* spheres, const float* lo,
                              const float* hi, const int* codes, const float* ray_o,
                              const float* ray_d, int B, int nb, int n, int groups, int rays,
@@ -635,16 +894,25 @@ CSPE_API int cspe_mesh_sweep(const float* terms, const float* spheres, const flo
       static_cast<long long>(groups) * rays != n ||
       (grid_w > 0 && (side <= 0 || rays != side * side || grid_w % side != 0 ||
                       n % grid_w != 0 || (n / grid_w) % side != 0)) ||
-      walk < kSplitWalk || walk > kPatchWalk ||
-      (walk != kSplitWalk && (grid_w <= 0 || side != kSide)) ||
+      walk < kSplitWalk || walk > kSegmentWalk ||
+      (walk == kPatchWalk && (grid_w <= 0 || side != kSide)) ||
       (kept != nullptr && walk == kSplitWalk))
     return kErrArgument;
   const size_t smem = smem_bytes(nb);
   if (smem > kSmemLimit) return kErrSharedMemory;
+  // The segment walk's rays, mins, kept blocks, items and counts in the
+  // stage.
+  if (walk == kSegmentWalk &&
+      (2 * sizeof(float4) + sizeof(int)) * kSegSets * kSet +
+              sizeof(unsigned) * kSegSets * ((nb + 31) / 32) + sizeof(int) * (kSegSets * nb + 5) >
+          kStageBytes)
+    return kErrSharedMemory;
   const Args a{terms, spheres, lo, hi, codes, ray_o, ray_d, nb, n, groups, rays, grid_w, side,
                0, out, visits, kept};
   if (walk == kPatchWalk)
     launch_patch(a, B, smem, stream);
+  else if (walk == kSegmentWalk)
+    launch_segments(a, B, smem, stream);
   else
     launch_split<64, 1, 4>(a, B, smem, stream);
   return static_cast<int>(cudaGetLastError());

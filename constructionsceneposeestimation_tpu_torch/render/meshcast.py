@@ -30,7 +30,10 @@ a group's rays; the group's cone pre-tests the blocks' boxes before their
 slab test; on 32 x 32 pixel tiles each warp's compact patch of rays keeps
 only the triangles whose bounding sphere its cone meets (the patch walk,
 ``WALKS``), and walks those in the visited blocks' triangles staged in
-shared memory. ``patch_cull_plain`` mirrors both culls on tensors. Plain
+shared memory; on the keypoint segments each warp's set of 32 rays keeps
+the blocks, words and triangles whose spheres one of its rays passes by
+(the segment walk). ``patch_cull_plain`` and ``segment_cull_plain``
+mirror the culls on tensors. Plain
 version: ``plain_mesh_sweep``, brute force over the visited blocks, where
 every (frame, group, block) slab test runs at once, the visited triples
 are gathered with one ``nonzero``, and the test runs on fixed-size chunks
@@ -72,11 +75,15 @@ MAX_PAIRS = 1 << 25
 KERNEL_TRI_BLOCK = 512
 N_TERMS = 10
 # The kernel's walks (csrc/meshsweep.cu Walk): "split", a slice of 64 rays
-# with 4 lanes a ray over every triangle of each visited block; or PATCH,
+# with 4 lanes a ray over every triangle of each visited block; PATCH,
 # the patch walk of a 32 x 32 pixel tile, each warp's patches of
-# PATCH_SHAPE (rows, cols) pixels culling the triangles by their spheres.
+# PATCH_SHAPE (rows, cols) pixels culling the triangles by their spheres;
+# or SEGMENTS, sets of SET consecutive rays of a group, one a lane, culling
+# blocks, words and triangles by each ray's own test merged over the set.
 PATCH = "4x8"
-WALKS = {"split": 0, PATCH: 1}
+SEGMENTS = "segments"
+WALKS = {"split": 0, PATCH: 1, SEGMENTS: 2}
+SET = 32
 PATCH_SHAPE = (4, 8)
 PATCH_SIDE = 32
 # Groups of 1024 rays that fill the card: two CUDA blocks a streaming
@@ -321,12 +328,78 @@ def patch_cull_plain(lo: Tensor, hi: Tensor, spheres: Tensor, ray_o: Tensor, ray
     return boxes, kept
 
 
+def word_spheres(spheres: Tensor) -> Tensor:
+    """(B, n_blocks, 4, WORDS): a sphere about each word of 32 triangles'
+    spheres (``triangle_spheres``), as csrc/meshsweep.cu's segment walk
+    builds it: centred on the mean of the word's real centres (radius >=
+    0), its radius the largest distance from there plus the triangle's
+    radius, widened by SPHERE_REL; -1 for a word of padding only."""
+    sph = spheres.unflatten(-1, (WORDS, 32))  # (B, nb, 4, WORDS, 32)
+    real = sph[:, :, 3] >= 0  # (B, nb, WORDS, 32)
+    n = real.sum(-1)
+    c = torch.where(real[:, :, None], sph[:, :, :3], 0.0).sum(-1) / n.clamp_min(1)[:, :, None]
+    gap = torch.sqrt(torch.sum((sph[:, :, :3] - c[..., None]) ** 2, 2)) + sph[:, :, 3]
+    r = torch.where(real, gap, 0.0).amax(-1) * (1.0 + SPHERE_REL)
+    return torch.cat([c, torch.where(n > 0, r, -1.0)[:, :, None]], 2)
+
+
+def _ray_meets(u: Tensor, ball: Tensor) -> Tensor:
+    """Whether the half-lines o + t u (t > 0) along unit directions u (...,
+    3) meet the balls (..., 4) (centre - o, radius; a radius < 0 never),
+    broadcast together, as csrc/meshsweep.cu's segment walk tests them: o
+    inside the ball, or u . v > 0 and |u x v|^2 <= (r + CULL_ABS |v|)^2,
+    the cone of one ray widened as the pixel sweep's. The cross product
+    keeps the ray's distance from the centre to a few ulps of |v|;
+    ``_meets``'s cos^2 form would lose it to cancellation at a cone this
+    narrow. A zero u meets only the balls that hold o."""
+    v, r = ball[..., :3], ball[..., 3]
+    vv = torch.sum(v * v, -1)
+    tc = torch.sum(u * v, -1)
+    cx = u[..., 1] * v[..., 2] - u[..., 2] * v[..., 1]
+    cy = u[..., 2] * v[..., 0] - u[..., 0] * v[..., 2]
+    cz = u[..., 0] * v[..., 1] - u[..., 1] * v[..., 0]
+    reach = r + raycast.CULL_ABS * torch.sqrt(vv)
+    far = (tc > 0) & (cx * cx + cy * cy + cz * cz <= reach * reach)
+    return (r >= 0) & ((vv <= r * r) | far)
+
+
+def segment_cull_plain(lo: Tensor, hi: Tensor, spheres: Tensor, ray_o: Tensor, ray_d: Tensor,
+                       lay: RayLayout) -> Tensor:
+    """csrc/meshsweep.cu's segment walk cull on tensors: (B, groups, sets,
+    n_blocks, T) bool, the triangles that set s of SET consecutive rays of
+    each group (the last padded with zero directions) keeps: some ray of
+    the set meets (``_ray_meets``) the block's box sphere (``box_spheres``),
+    some ray meets the triangle's word sphere (``word_spheres``) and some
+    ray meets the triangle's own sphere. A set with a direction whose |d|^2
+    is not finite keeps every ball of radius >= 0. The kernel tests only
+    the blocks its group visits."""
+    rays = group_rays(ray_d, lay)  # (B, G, R, 3)
+    B, G, R = rays.shape[:3]
+    S = -(-R // SET)
+    sets = torch.cat([rays, rays.new_zeros(B, G, S * SET - R, 3)], 2).reshape(B, G, S, SET, 3)
+    dd = torch.sum(sets * sets, -1)
+    nd = torch.sqrt(dd)
+    ok = (dd > 0) & torch.isfinite(nd)
+    u = torch.where(ok[..., None], sets / nd[..., None], 0.0)[:, :, :, :, None]  # (..., SET, 1, 3)
+    wild = ~torch.isfinite(dd).all(-1)  # (B, G, S)
+
+    def met(balls):  # (B, n, 4) -> (B, G, S, n)
+        b = balls[:, None, None, None]
+        return _ray_meets(u, b).any(3) | (wild[..., None] & (balls[:, None, None, :, 3] >= 0))
+
+    blocks = met(box_spheres(lo, hi, ray_o))  # (B, G, S, nb)
+    words = word_spheres(spheres).transpose(2, 3)  # (B, nb, WORDS, 4)
+    sph = spheres.transpose(2, 3)  # (B, nb, T, 4)
+    return torch.stack([met(sph[:, k]) & (met(words[:, k]) & blocks[..., k, None])
+                        .repeat_interleave(32, -1) for k in range(sph.shape[1])], 3)
+
+
 def kept_shape(B: int, lay: RayLayout, n_blocks: int) -> Tuple[int, ...]:
-    """The shape of ``mesh_sweep_cuda``'s ``kept`` with the patch walk: (B,
-    groups, patches, n_blocks, WORDS). Pass it zeroed: the kernel writes
-    only the blocks each group visits."""
-    ph, pw = PATCH_SHAPE
-    return (B, lay.groups, lay.rays // (ph * pw), n_blocks, WORDS)
+    """The shape of ``mesh_sweep_cuda``'s ``kept``: (B, groups, patches or
+    sets, n_blocks, WORDS), a patch or set of 32 rays each (the last set
+    of the segment walk padded). Pass it zeroed: the kernel writes only
+    the blocks each group visits (the segment walk: each set walks)."""
+    return (B, lay.groups, -(-lay.rays // SET), n_blocks, WORDS)
 
 
 def kept_triangles(words: Tensor) -> Tensor:
@@ -336,21 +409,27 @@ def kept_triangles(words: Tensor) -> Tensor:
     return ((words[..., None] >> shift) & 1).reshape(*words.shape[:-1], -1).bool()
 
 
-def pair_passes(W: Tensor, rays: Tensor, widen: float = 0.0) -> Tensor:
+def pair_passes(W: Tensor, rays: Tensor, widen: float = 0.0, tn: Tensor | None = None) -> Tensor:
     """(P, R, T) bool: the pairs of rays (P, R, 3) and triangles of the
     block matrices W (P, 3, 3T) (``block_matrices``) that pass the kernel's
     division-free test: u_num and v_num of det's sign, |u_num + v_num| <=
     |det|, |det| >= EPS; its dots summed in PyTorch's order. With ``widen``
     > 0 also the pairs that pass with each dot moved by ``widen`` ulps of
     its terms' magnitude (det's sum_i |d_i cr_i|, u_num's sum_i |d_i au_i|,
-    v_num's sum_i |d_i qv_i|): those the kernel's own rounding may pass."""
+    v_num's sum_i |d_i qv_i|): those the kernel's own rounding may pass.
+    With the blocks' t_num ``tn`` (P, T) also t = t_num x (1 / det) > EPS,
+    the rest of the kernel's test (widened: t_num moved by ``widen`` ulps
+    and det by its own), which drops the triangles behind the origin."""
     T = W.shape[-1] // 3
     det, un, vn = torch.bmm(rays, W).unflatten(-1, (3, T)).unbind(2)
     if not widen:
         bits = det.view(torch.int32)
         sign = (un.view(torch.int32) ^ bits) | (vn.view(torch.int32) ^ bits)
-        return ((sign >= 0) & (torch.abs(un + vn) <= torch.abs(det))
-                & (torch.abs(det) >= raycast.EPS))
+        ok = ((sign >= 0) & (torch.abs(un + vn) <= torch.abs(det))
+              & (torch.abs(det) >= raycast.EPS))
+        if tn is not None:
+            ok &= tn[:, None] * torch.reciprocal(det) > raycast.EPS
+        return ok
     tol = torch.bmm(torch.abs(rays), torch.abs(W)).mul_(widen * 2.0 ** -23)
     t_det, t_u, t_v = tol.unflatten(-1, (3, T)).unbind(2)
     sd = torch.where(det < 0, -1.0, 1.0)
@@ -358,6 +437,9 @@ def pair_passes(W: Tensor, rays: Tensor, widen: float = 0.0) -> Tensor:
     ok = (u >= -t_u) & (v >= -t_v)
     ok &= u.add_(v).abs_() <= (t_u + t_v).add_(t_det).add_(a)
     ok &= a >= raycast.EPS - t_det
+    if tn is not None:
+        t_num = tn[:, None]
+        ok &= t_num * sd > raycast.EPS * (a - t_det) - widen * 2.0 ** -23 * torch.abs(t_num)
     return ok
 
 
@@ -417,11 +499,13 @@ def plain_mesh_sweep(terms: Tensor, lo: Tensor, hi: Tensor, codes: Tensor, ray_o
 
 
 def mesh_walk(B: int, lay: RayLayout) -> str:
-    """The kernel's walk for B frames in ``lay`` (``WALKS``): ``PATCH`` on
-    32 x 32 pixel tiles that fill the card (FILL_GROUPS in all), else
-    "split"."""
-    tiles = lay.grid_w > 0 and lay.side == PATCH_SIDE
-    return PATCH if tiles and B * lay.groups >= FILL_GROUPS else "split"
+    """The kernel's walk for B frames in ``lay`` (``WALKS``): ``SEGMENTS``
+    for every layout that is not a pixel grid (the keypoint segments);
+    ``PATCH`` on 32 x 32 pixel tiles that fill the card (FILL_GROUPS in
+    all); else "split"."""
+    if not lay.grid_w:
+        return SEGMENTS
+    return PATCH if lay.side == PATCH_SIDE and B * lay.groups >= FILL_GROUPS else "split"
 
 
 def mesh_sweep_cuda(terms: Tensor, lo: Tensor, hi: Tensor, spheres: Tensor, codes: Tensor,
@@ -431,9 +515,10 @@ def mesh_sweep_cuda(terms: Tensor, lo: Tensor, hi: Tensor, spheres: Tensor, code
     ``walk`` (``WALKS``; default ``mesh_walk``) picks the kernel's walk;
     every walk gives the same bits. With ``visits`` (B, groups) int32, the
     kernel also writes there the blocks each group visits
-    (``MeshCaster.visited(...).sum(-1)``); with a patch walk and ``kept``
-    (``kept_shape``, zeroed), each patch's words of kept triangles for
-    each block it visits. Raises, before any launch, unless every tensor is a
+    (``MeshCaster.visited(...).sum(-1)``); with ``kept`` (``kept_shape``,
+    zeroed), the patch walk writes each patch's words of kept triangles for
+    each block it visits, the segment walk each set's for each block it
+    walks. Raises, before any launch, unless every tensor is a
     contiguous CUDA tensor of its type and shape, the blocks hold
     ``KERNEL_TRI_BLOCK`` triangles, the kernel's compile-time width, and a
     patch walk has 32 x 32 pixel tiles."""
@@ -448,11 +533,11 @@ def mesh_sweep_cuda(terms: Tensor, lo: Tensor, hi: Tensor, spheres: Tensor, code
     walk = mesh_walk(B, lay) if walk is None else walk
     if walk not in WALKS:
         raise ValueError(f"mesh sweep: walk {walk!r} is not one of {list(WALKS)}")
-    if walk != "split" and not (lay.grid_w and lay.side == PATCH_SIDE):
+    if walk == PATCH and not (lay.grid_w and lay.side == PATCH_SIDE):
         raise ValueError(f"mesh sweep: the patch walk takes {PATCH_SIDE} x {PATCH_SIDE} "
                          f"pixel tiles, not {lay}")
     if kept is not None and walk == "split":
-        raise ValueError("mesh sweep: kept needs a patch walk")
+        raise ValueError("mesh sweep: kept needs a patch walk or the segment walk")
     specs = [("mesh terms", terms, torch.float32, tuple(terms.shape)),
              ("mesh lo", lo, torch.float32, (B, nb, 3)),
              ("mesh hi", hi, torch.float32, (B, nb, 3)),

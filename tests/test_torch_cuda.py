@@ -279,8 +279,11 @@ def mesh_scene(dev, request):
 def _check_mesh(mesh, w, cam, d):
     """csrc/meshsweep.cu against plain_mesh_sweep on the same terms and rays,
     to the pixel sweep's tolerances; its visits equal ``visited()``, two
-    calls are bit-equal, ``packed`` launches it, and on 32 x 32 pixel
-    tiles the patch walk is bit-equal to the split walk. Returns its
+    calls are bit-equal, ``packed`` launches it, every walk the layout
+    takes (the patch walk on 32 x 32 pixel tiles, the segment walk on any)
+    is bit-equal to the split walk, and on layouts that are not a pixel
+    grid the segment walk's kept words hold every widened-passing pair and
+    match segment_cull_plain's (``_check_segment_kept``). Returns its
     output."""
     m = mesh.mesh_terms(w, cam)
     codes, lay = mesh._on(cam.device)["codes"], mesh.layout(d.shape[1])
@@ -296,11 +299,15 @@ def _check_mesh(mesh, w, cam, d):
     assert torch.equal(k.view(torch.int32), again.view(torch.int32))
     assert torch.equal(k.view(torch.int32), packed.view(torch.int32))
     assert torch.equal(visits, mesh.visited(w, cam, d).sum(-1).int())
-    if lay.grid_w and lay.side == meshcast.PATCH_SIDE:
-        for walk in meshcast.WALKS:
-            v = torch.full_like(visits, -1)
-            assert torch.equal(sweep(visits=v, walk=walk).view(torch.int32), k.view(torch.int32))
-            assert torch.equal(v, visits)
+    tiles = lay.grid_w and lay.side == meshcast.PATCH_SIDE
+    for walk in meshcast.WALKS:
+        if walk == meshcast.PATCH and not tiles:
+            continue
+        v = torch.full_like(visits, -1)
+        assert torch.equal(sweep(visits=v, walk=walk).view(torch.int32), k.view(torch.int32))
+        assert torch.equal(v, visits)
+    if not lay.grid_w:
+        _check_segment_kept(mesh, m, codes, cam, d, lay)
     tk, ck = raycast._unpack(k)
     tp, cp = raycast._unpack(p)
     hk, hp = tk < raycast.INF * 0.99, tp < raycast.INF * 0.99
@@ -314,11 +321,42 @@ def _check_mesh(mesh, w, cam, d):
     return k, visits
 
 
+def _check_segment_kept(mesh, m, codes, cam, d, lay):
+    """The segment walk's ``kept`` words: for every visited block, each
+    triangle that some ray of the set passes by the test widened by 8 ulps
+    (t > EPS included), no padding triangle, nothing on a block the group
+    does not visit; equal to segment_cull_plain's on > 0.99 of the
+    (visited block, set) rows."""
+    B = cam.shape[0]
+    kept = torch.zeros(meshcast.kept_shape(B, lay, mesh.n_blocks), dtype=torch.int32,
+                       device=cam.device)
+    meshcast.mesh_sweep_cuda(m.terms, m.lo, m.hi, m.spheres, codes, cam, d, lay, kept=kept,
+                             walk=meshcast.SEGMENTS)
+    mirror = meshcast.segment_cull_plain(m.lo, m.hi, m.spheres, cam, d, lay)
+    rays = meshcast.group_rays(d, lay)
+    visited = meshcast.block_hits(cam, rays, m.lo, m.hi)
+    W, tn = meshcast.block_matrices(m.terms)
+    R = lay.rays
+    set_of = torch.arange(R, device=cam.device) // meshcast.SET
+    triples = torch.nonzero(visited)
+    agree = rows = 0
+    for c in range(0, triples.shape[0], 32):
+        b, g, k = triples[c:c + 32].unbind(1)
+        mine = meshcast.kept_triangles(kept[b, g, :, k])  # (V, sets, T)
+        need = meshcast.pair_passes(W[b, k], rays[b, g], 8.0, tn[b, k])  # (V, R, T)
+        assert not bool((need & ~mine[:, set_of]).any())
+        assert not bool((mine & (m.spheres[b, k, 3] < 0)[:, None]).any())
+        agree += int((mirror[b, g, :, k] == mine).all(-1).sum())
+        rows += mine.shape[0] * mine.shape[1]
+    assert rows > 0 and agree / rows > 0.99
+    assert int(kept[~visited[:, :, None, :, None].expand_as(kept)].abs().sum()) == 0
+
+
 @pytest.mark.parametrize("size", [128, 512])
 def test_mesh_sweep_kernel_matches_plain(mesh_scene, size):
     """Pixels in 32 x 32 tiles (at 128^2 the groups are too few to fill the
     card, so a CUDA block takes 64 rays of a tile; at 512^2 a whole tile)
-    and the keypoint segments, one group a frame."""
+    and the keypoint segments, one group a frame, by the segment walk."""
     roster, w, cam, tgt = mesh_scene
     intr = camera.intrinsics_from_apertures(12.0, 25.0, size, size)
     mesh = meshcast.make_mesh_caster(roster, grid_hw=(size, size))
@@ -409,7 +447,9 @@ def test_mesh_sweep_kept_covers_the_passing_pairs(mesh_scene, size):
 def test_mesh_sweep_kernel_has_no_spills(dev):
     from constructionsceneposeestimation_tpu_torch.utils import kernels
     report = kernels.ptxas_report("meshsweep.cu")
-    assert len(report) == 2 and all(r["spill_bytes"] == 0 for r in report.values()), report
+    assert set(report) == {"mesh_sweep_kernel<64, 1, 4>", "mesh_sweep_patch_kernel",
+                           "mesh_sweep_segment_kernel"}, report
+    assert all(r["spill_bytes"] == 0 and r["registers"] <= 80 for r in report.values()), report
 
 
 def _rgb_pair(roster, w, cam, tgt, width, height, noise, texels=None):

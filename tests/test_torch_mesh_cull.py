@@ -1,7 +1,9 @@
-"""The mesh sweep kernel's culls, on the CPU, through their mirror
-``render/meshcast.patch_cull_plain``: the group cone's pre-test of the
+"""The mesh sweep kernel's culls, on the CPU, through their mirrors
+``render/meshcast.patch_cull_plain``, the group cone's pre-test of the
 block boxes and each patch's cone over the triangles' spheres
-(``triangle_spheres``).
+(``triangle_spheres``), and ``render/meshcast.segment_cull_plain``, each
+set of 32 keypoint segments' own tests of the box, word and triangle
+spheres merged over the set.
 
 The scenes are tests/test_torch_meshsweep.py's: the default roster and two
 dumpers with three workers, two frames (frame 0 looks at the first worker
@@ -11,8 +13,9 @@ is tests/test_torch_meshsweep.py's. What a cull may drop is held exactly:
 the pre-test keeps every box the slab test visits, each patch keeps every
 triangle that one of its rays passes by the kernel's division-free test
 widened by 8 ulps, and the plain sweep over the kept pairs alone is the
-full plain sweep bit for bit, misses' codes included. The kernel's own
-kept words are held to the mirror on the card (tests/test_torch_cuda.py).
+full plain sweep bit for bit, misses' codes included; the same holds for
+each set of segments. The kernel's own kept words are held to the mirrors
+on the card (tests/test_torch_cuda.py).
 """
 
 import math
@@ -158,6 +161,132 @@ def test_sweep_over_kept_pairs_is_the_full_sweep(walks):
     assert 0 < int(hit.sum()) < hit.numel()
 
 
+@pytest.fixture(scope="module")
+def segment_walks(scene):
+    """For the keypoint segments (one group a frame, both frames), the
+    segment walk's mirror: its kept triangles a set (``kept``), the pairs
+    of the visited blocks that pass the kernel's test widened by WIDEN ulps
+    with their triangle not kept by the ray's set (``lost``), the pairs
+    kept a ray; and the plain sweep restricted to the kept pairs
+    (``sweep``) beside the full plain_mesh_sweep (``full``)."""
+    _, _, cam, sizes, seg = scene
+    mesh, m, _, _, _ = sizes["64x64"]
+    codes, lay = mesh._on("cpu")["codes"], mesh.layout(seg.shape[1])
+    T = m.terms.shape[-1]
+    W, tn = meshcast.block_matrices(m.terms)
+    rays = meshcast.group_rays(seg, lay)
+    B, G, R = rays.shape[:3]
+    visited = meshcast.block_hits(cam, rays, m.lo, m.hi)
+    kept = meshcast.segment_cull_plain(m.lo, m.hi, m.spheres, cam, seg, lay)
+    set_of = torch.arange(R) // meshcast.SET
+    out = {"full": meshcast.plain_mesh_sweep(m.terms, m.lo, m.hi, codes, cam, seg, lay),
+           "kept": kept, "lay": lay, "passing": 0, "lost": 0, "kept_pairs": 0}
+    best = torch.full((B * G, R), raycast.INF)
+    for c, (b, g, k) in enumerate(_triples(visited)):
+        widened = meshcast.pair_passes(W[b, k], rays[b, g], WIDEN, tn[b, k])
+        if c == 0:
+            exact = meshcast.pair_passes(W[b, k], rays[b, g], tn=tn[b, k])
+            assert not bool((exact & ~widened).any())
+            assert not bool((exact & ~meshcast.pair_passes(W[b, k], rays[b, g])).any())
+        per_ray = kept[b, g, :, k][:, set_of]  # (V, R, T)
+        D = torch.bmm(rays[b, g], W[b, k])
+        det = D[..., :T]
+        inv = torch.where(torch.abs(det) < raycast.EPS, 0.0, torch.reciprocal(det))
+        u, v = D[..., T:].unflatten(-1, (2, T)).mul_(inv[:, :, None]).unbind(2)
+        t = tn[b, k][:, None, :] * inv
+        ok = (torch.minimum(u, v) >= 0.0) & (u + v <= 1.0) & (t > raycast.EPS)
+        out["passing"] += int(widened.sum())
+        out["lost"] += int((widened & ~per_ray).sum())
+        out["kept_pairs"] += int(per_ray.sum())
+        t_min = torch.where(ok & per_ray, t, float(raycast.INF)).amin(dim=2)
+        pk = raycast._pack(t_min, codes[k, None])
+        best.scatter_reduce_(0, (b * G + g)[:, None].expand(-1, R), pk, "amin")
+    out["sweep"] = meshcast.ungroup(best.reshape(B, G, R), lay)
+    out["visited_pairs"] = int(visited.sum()) * R * T
+    return out
+
+
+def test_segment_cull_keeps_every_passing_pair(segment_walks):
+    """Every (segment, triangle) pair of a visited block that passes the
+    kernel's test widened by 8 ulps, t > EPS included (a frame's segments
+    fan out, so its visited blocks lie behind some of them), has its
+    triangle kept by the segment's set of 32; the cull drops nearly every
+    visited pair."""
+    sw = segment_walks
+    B, G, S, nb, T = sw["kept"].shape
+    assert (G, S, T) == (1, -(-sw["lay"].rays // meshcast.SET), meshcast.KERNEL_TRI_BLOCK)
+    assert sw["passing"] > 100 and sw["lost"] == 0
+    assert sw["kept_pairs"] < 0.05 * sw["visited_pairs"]
+
+
+def test_segment_sweep_over_kept_pairs_is_the_full_sweep(segment_walks):
+    """The plain sweep of the segments restricted to each set's kept pairs
+    equals plain_mesh_sweep bit for bit, the misses' pack(INF, least
+    visited code) included."""
+    full = segment_walks["full"]
+    assert torch.equal(segment_walks["sweep"].view(torch.int32), full.view(torch.int32))
+    t, _ = raycast._unpack(full)
+    hit = t < raycast.INF * 0.99
+    assert 0 < int(hit.sum()) < hit.numel()
+
+
+def test_word_spheres_hold_their_triangles(scene):
+    """Each word's sphere holds the spheres of its real triangles; a word
+    of padding only has radius -1."""
+    _, _, _, sizes, _ = scene
+    _, m, _, _, _ = sizes["64x64"]
+    words = meshcast.word_spheres(m.spheres)
+    B, nb = m.spheres.shape[:2]
+    assert words.shape == (B, nb, 4, meshcast.WORDS)
+    sph = m.spheres.unflatten(-1, (meshcast.WORDS, 32))  # (B, nb, 4, WORDS, 32)
+    real = sph[:, :, 3] >= 0
+    gap = torch.linalg.norm(sph[:, :, :3] - words[:, :, :3, :, None], dim=2) + sph[:, :, 3]
+    assert bool((gap <= words[:, :, 3, :, None])[real].all())
+    empty = ~real.any(-1)
+    assert bool(empty.any()) and bool((words[:, :, 3][empty] == -1).all())
+    assert bool((words[:, :, 3][~empty] > 0).all())
+
+
+def test_one_ray_keeps_small_far_spheres_on_its_line():
+    """``_ray_meets`` keeps a 5 mm sphere centred on the ray from 1 m to 300
+    m (the cross product holds the distance where a cos^2 test would round
+    it away), drops it 1 mm beside its reach or behind the origin, and
+    keeps any sphere that holds the origin, for a zero direction too."""
+    gen = torch.Generator().manual_seed(5)
+    u = torch.randn(64, 3, generator=gen)
+    u = u / torch.linalg.norm(u, dim=-1, keepdim=True)
+    side = torch.linalg.cross(u, torch.randn(64, 3, generator=gen), dim=-1)
+    side = side / torch.linalg.norm(side, dim=-1, keepdim=True)
+    r = 5e-3
+    for dist in (1.0, 30.0, 100.0, 300.0):
+        ball = lambda c: torch.cat([c, torch.full((64, 1), r)], -1)
+        assert bool(meshcast._ray_meets(u, ball(dist * u)).all())
+        reach = r + raycast.CULL_ABS * dist + 1e-3
+        assert not bool(meshcast._ray_meets(u, ball(dist * u + reach * side)).any())
+        assert not bool(meshcast._ray_meets(u, ball(-dist * u)).any())
+    around = torch.cat([0.3 * side, torch.full((64, 1), 0.5)], -1)
+    assert bool(meshcast._ray_meets(u, around).all())
+    assert bool(meshcast._ray_meets(torch.zeros(64, 3), around).all())
+    assert not bool(meshcast._ray_meets(u, torch.cat([0.3 * side, -torch.ones(64, 1)], -1)).any())
+
+
+def test_a_set_with_a_wild_direction_keeps_every_real_triangle(scene):
+    """A set of segments with a non-finite direction keeps every triangle
+    with a sphere, in every block; the other sets cull as before."""
+    _, _, cam, sizes, seg = scene
+    _, m, _, _, _ = sizes["64x64"]
+    lay = meshcast.ray_layout(seg.shape[1], 1024, None)
+    wild = seg.clone()
+    wild[:, 33, 1] = float("nan")
+    kept = meshcast.segment_cull_plain(m.lo, m.hi, m.spheres, cam, wild, lay)
+    real = (m.spheres[:, :, 3] >= 0)[:, None]  # (B, 1, nb, T)
+    assert torch.equal(kept[:, :, 1], real.expand_as(kept[:, :, 1]))
+    calm = meshcast.segment_cull_plain(m.lo, m.hi, m.spheres, cam, seg, lay)
+    assert torch.equal(torch.cat([kept[:, :, :1], kept[:, :, 2:]], 2),
+                       torch.cat([calm[:, :, :1], calm[:, :, 2:]], 2))
+    assert int(calm[:, :, 1].sum()) < 0.2 * int(real.sum())
+
+
 def test_spheres_hold_their_corners_and_mark_the_padding(scene):
     """Each triangle's sphere holds its three corners; the padding
     triangles (and only triangles with cr = 0) have radius -1."""
@@ -242,14 +371,19 @@ def test_kept_words_unpack_bit_by_bit():
 
 
 def test_walk_choice():
-    """The patch walk on 32 x 32 pixel tiles that fill the card, the split
-    walk elsewhere (the keypoint segments, small frames, other tiles)."""
+    """The patch walk on 32 x 32 pixel tiles that fill the card, the
+    segment walk on every layout that is not a pixel grid (the keypoint
+    segments, in one group or in ranges, however few frames), the split
+    walk elsewhere (small frames, other tiles)."""
     tiles = meshcast.ray_layout(512 * 512, 1024, (512, 512))
     assert meshcast.mesh_walk(2, tiles) == meshcast.PATCH
     assert meshcast.mesh_walk(1, meshcast.ray_layout(128 * 128, 1024, (128, 128))) == "split"
-    assert meshcast.mesh_walk(64, meshcast.ray_layout(680, 1024, None)) == "split"
+    for n, B in ((680, 64), (680, 1), (3072, 2), (1500, 4)):
+        assert meshcast.mesh_walk(B, meshcast.ray_layout(n, 1024, None)) == meshcast.SEGMENTS
     assert meshcast.mesh_walk(64, meshcast.ray_layout(512 * 512, 256, (512, 512))) == "split"
     assert math.isqrt(1024) == meshcast.PATCH_SIDE
+    assert meshcast.kept_shape(2, meshcast.ray_layout(680, 1024, None), 89) == (
+        2, 1, 22, 89, meshcast.WORDS)
 
 
 @pytest.mark.parametrize("walk", list(meshcast.WALKS))
@@ -259,8 +393,10 @@ def test_wrapper_passes_the_entry_points_arguments(scene, monkeypatch, walk):
     takes a pointer and ints where it takes an int, the walk's number
     among them."""
     from constructionsceneposeestimation_tpu_torch.utils import kernels
-    _, _, cam, sizes, _ = scene
+    _, _, cam, sizes, seg = scene
     mesh, m, px, lay, _ = sizes["64x64"]
+    if walk == meshcast.SEGMENTS:  # the keypoint segments, one group a frame
+        px, lay = seg, mesh.layout(seg.shape[1])
     seen = []
     monkeypatch.setattr(kernels, "check_cuda", lambda *a: None)
     monkeypatch.setattr(kernels, "launch", lambda name, *args: seen.append((name, args)))
@@ -274,8 +410,10 @@ def test_wrapper_passes_the_entry_points_arguments(scene, monkeypatch, walk):
     for a, t in zip(args, sig):
         assert isinstance(a, int) if t is kernels._I else (a is None or torch.is_tensor(a))
     ints = [a for a in args if isinstance(a, int)]
-    assert ints == [2, mesh.n_blocks, 4096, lay.groups, lay.rays, lay.grid_w, lay.side,
+    assert ints == [2, mesh.n_blocks, px.shape[1], lay.groups, lay.rays, lay.grid_w, lay.side,
                     meshcast.WALKS[walk]]
+    if walk == meshcast.SEGMENTS:  # the walk the segments take by default
+        assert meshcast.mesh_walk(2, lay) == walk
 
 
 def test_a_hifi_render_builds_the_mesh_terms_once(monkeypatch):

@@ -8,8 +8,9 @@ hold another build of the kernels against this one bit for bit.
 Builds ``csrc/`` as it stands ("this"), each variant of ``VARIANTS`` (a copy
 of ``csrc/`` with a few lines of text replaced: the tiles a block and the
 launch bounds of ``csrc/rgb.cu``, its stages taken out one at a time to time
-each by its absence, the warps a block of ``csrc/heatmap.cu``, the rays a
-thread and the branch of ``csrc/meshsweep.cu``), and ``--against``, a
+each by its absence, the warps a block of ``csrc/heatmap.cu``, the sets a
+block and the warps a set of ``csrc/meshsweep.cu``'s segment walk), and
+``--against``, a
 directory of other sources with some of the same C entry points (an
 earlier ``csrc/``), each into a library of its own under
 ``build/kernel_variants/``. On the datagen path's inputs (64 frames at
@@ -20,16 +21,18 @@ hifi frames at 512^2, pixel rays in 32 x 32 tiles and keypoint segments,
 built as ``chip_smoke.py``'s ``[mesh]`` phase builds them) it then:
 
 - holds each library's RGB images (hash noise off and on, and each tier
-  variant with the noise on), heatmaps and mesh sweeps against this
-  build's: bit-equal or not; for RGB the pixels that differ, split into
-  sky, ground and objects, and the max |d| in u8 levels; for heatmaps the
-  max |d|; for the mesh sweep the rays that differ;
+  variant with the noise on), heatmaps and mesh sweeps (each walk of
+  ``MESH_WALKS``) against this build's: bit-equal or not; for RGB the
+  pixels that differ, split into sky, ground and objects, and the max |d|
+  in u8 levels; for heatmaps the max |d|; for the mesh sweep the rays that
+  differ;
 - times each library's ``rgb_kernel`` (the default and, where the library
-  has ``cspe_rgb_tier``, each tier variant), ``heatmap_kernel`` and
-  ``mesh_sweep_kernel`` (pixels, segments) by ``torch.profiler`` device
-  time over ``--iters`` launches, in turns: this, the others, the others
-  again in reverse, this. A library is held and timed on the entry points
-  it has.
+  has ``cspe_rgb_tier``, each tier variant), ``heatmap_kernel`` and mesh
+  sweep (the patch walk on the pixels, the split and segment walks on the
+  segments) by ``torch.profiler`` device time over ``--iters`` launches,
+  in turns: this, the others, the others again in reverse, this. A
+  library is held and timed on the entry points and walks it has (an
+  earlier ``cspe_mesh_sweep`` refuses a walk it lacks).
 
 Prints a line for each comparison and time, with the card's name and power
 limit and each kernel's registers and spills (``ptxas -v``), and writes them to
@@ -61,30 +64,12 @@ TIERS = {"default": 0, "normal": 1, "shadow": 2, "normal+shadow": 3, "flat": 4,
          "flat+shadow": 6, "flat+normal+shadow": 7}
 # The mesh sweep's [mesh] inputs: frames and the sample seed.
 MESH_B, MESH_SEED = 32, 3000
-# csrc/meshsweep.cu: its triangle loop's head and its test a ray, and the
-# "any" variant's test: every ray's test first, then one branch a triangle
-# for the divides of the rays that pass.
-MESH_TRI = "      const float4 p = smem4[3 * i], q = smem4[3 * i + 1], w = smem4[3 * i + 2];\n"
-MESH_TEST = """        if (sign >= 0 && fabsf(un + vn) <= fabsf(det) && fabsf(det) >= kEps) {
-          const float t = w.y * (1.0f / det);
-          if (t > kEps) tb[j] = fminf(tb[j], t);
-        }
-      }
-"""
-MESH_ANY = """        dets[j] = det;
-        pass[j] = sign >= 0 && fabsf(un + vn) <= fabsf(det) && fabsf(det) >= kEps;
-        any = any || pass[j];
-      }
-      if (any) {
-#pragma unroll
-        for (int j = 0; j < kRays; ++j) {
-          if (pass[j]) {
-            const float t = w.y * (1.0f / dets[j]);
-            if (t > kEps) tb[j] = fminf(tb[j], t);
-          }
-        }
-      }
-"""
+# The walks held and timed on each kind of mesh ray (render/meshcast.WALKS),
+# and the name of each walk's kernel as torch.profiler records it.
+MESH_WALKS = {"pixels": ("4x8",), "segments": ("split", "segments")}
+MESH_KERNELS = {"split": "mesh_sweep_kernel<", "4x8": "mesh_sweep_patch_kernel",
+                "segments": "mesh_sweep_segment_kernel"}
+SEG_BOUNDS = "__launch_bounds__(kSegThreads, 3) mesh_sweep_segment_kernel"
 # name: [(source, text, replacement)]; every text must occur once.
 VARIANTS = {
     **{f"rgb_tiles{n}": [("rgb.cu", "constexpr int kTiles = 4;", f"constexpr int kTiles = {n};")]
@@ -108,13 +93,23 @@ VARIANTS = {
                                 f"constexpr int kMinBlocksTier = {n};")] for n in (6, 7)},
     **{f"hm_warps{n}": [("heatmap.cu", "constexpr int kWarps = 16;",
                          f"constexpr int kWarps = {n};")] for n in (8, 32)},
-    # The pixel rays' instantiation at 128 threads x 8 rays a 1024-ray
-    # tile in place of 256 x 4; one branch a triangle in place of one a ray.
-    "mesh_rays8": [("meshsweep.cu", "launch<256, 4, 1>(a, B, smem, stream);",
-                    "launch<128, 8, 1>(a, B, smem, stream);")],
-    "mesh_any": [("meshsweep.cu", MESH_TRI,
-                  MESH_TRI + "      float dets[kRays];\n      bool pass[kRays], any = false;\n"),
-                 ("meshsweep.cu", MESH_TEST, MESH_ANY)],
+    # The segment walk with 2 or 8 warps sharing a set in place of 4, or
+    # one set a block in place of 2 (a block's threads change with both;
+    # 512 threads take one block's register bound, 85 a thread).
+    "mesh_seg_split2": [("meshsweep.cu", "constexpr int kSegSplit = 4;",
+                         "constexpr int kSegSplit = 2;")],
+    "mesh_seg_split8": [("meshsweep.cu", "constexpr int kSegSplit = 4;",
+                         "constexpr int kSegSplit = 8;"),
+                        ("meshsweep.cu", SEG_BOUNDS,
+                         SEG_BOUNDS.replace("3)", "1)"))],
+    "mesh_seg_sets1": [("meshsweep.cu", "constexpr int kSegSets = 2;",
+                        "constexpr int kSegSets = 1;")],
+    # The segment walk's pair tests, then all its walk but the box phase
+    # and the blocks' box spheres, taken out (their outputs differ).
+    "mesh_seg_no_pairs": [("meshsweep.cu", "      while (bits != 0u) {",
+                           "      while (bits != 0u && bits == 0u) {")],
+    "mesh_seg_no_walk": [("meshsweep.cu", "    if (item >= n_items) break;",
+                          "    if (item >= 0) break;")],
 }
 
 
@@ -263,7 +258,7 @@ def main() -> int:
     hkp = world_mod.world_keypoints(hw["inst_rot"], hw["inst_pos"], hw["kpts_local"])
     rays = {"pixels": cam_mod.pixel_rays(intr, hM).reshape(MESH_B, -1, 3).contiguous(),
             "segments": (hkp.reshape(MESH_B, -1, 3) - o[:, None]).contiguous()}
-    terms, lo, hi = mesh.mesh_terms(hw, o)
+    m = mesh.mesh_terms(hw, o)
     codes = mesh._on(dev)["codes"]
 
     def rgb(lib, par, tier=0):
@@ -282,11 +277,26 @@ def main() -> int:
             return {}
         return TIERS if hasattr(lib, "cspe_rgb_tier") else {"default": 0}
 
-    def sweep(lib, d):
+    def sweep(lib, d, walk):
         lay = mesh.layout(d.shape[1])
         out = torch.empty(d.shape[:2], dtype=torch.float32, device=dev)
-        call(lib, "cspe_mesh_sweep", terms, lo, hi, codes, o, d, MESH_B, lo.shape[1], d.shape[1],
-             lay.groups, lay.rays, lay.grid_w, lay.side, out, None)
+        call(lib, "cspe_mesh_sweep", m.terms, m.spheres, m.lo, m.hi, codes, o, d, MESH_B,
+             m.lo.shape[1], d.shape[1], lay.groups, lay.rays, lay.grid_w, lay.side,
+             meshcast.WALKS[walk], out, None, None)
+        return out
+
+    def walks(lib):
+        """The (kind, walk) pairs the library's cspe_mesh_sweep takes."""
+        if not hasattr(lib, "cspe_mesh_sweep"):
+            return []
+        out = []
+        for kind, ws in MESH_WALKS.items():
+            for walk in ws:
+                try:
+                    sweep(lib, rays[kind], walk)
+                except RuntimeError:  # an earlier build without this walk
+                    continue
+                out.append((kind, walk))
         return out
 
     def heat(lib):
@@ -299,7 +309,7 @@ def main() -> int:
     kinds = {"sky": inst == -2, "ground": inst == -1, "objects": inst >= 0}
     ref = {k: rgb(libs["this"], p) for k, p in pars.items()}
     ref_hm = heat(libs["this"])
-    ref_mesh = {k: sweep(libs["this"], d) for k, d in rays.items()}
+    ref_mesh = {(k, v): sweep(libs["this"], rays[k], v) for k, v in walks(libs["this"])}
     for name, lib in libs.items():
         if name == "this":
             continue
@@ -320,12 +330,11 @@ def main() -> int:
             hm = heat(lib)
             res["heatmaps"] = {"bit_equal": bool(torch.equal(hm, ref_hm)),
                                "max_abs": float((hm - ref_hm).abs().max())}
-        if hasattr(lib, "cspe_mesh_sweep"):
-            for k, d in rays.items():
-                differ = int((sweep(lib, d).view(torch.int32)
-                              != ref_mesh[k].view(torch.int32)).sum())
-                res[f"mesh sweep {k}"] = {"bit_equal": differ == 0, "rays_differ": differ,
-                                          "of": ref_mesh[k].numel()}
+        for k, v in walks(lib):
+            differ = int((sweep(lib, rays[k], v).view(torch.int32)
+                          != ref_mesh[k, v].view(torch.int32)).sum())
+            res[f"mesh sweep {k}, {v} walk"] = {"bit_equal": differ == 0, "rays_differ": differ,
+                                                "of": ref_mesh[k, v].numel()}
         torch.cuda.synchronize()
         report["compare"][name] = res
         for k, r in res.items():
@@ -342,10 +351,9 @@ def main() -> int:
         if hasattr(lib, "cspe_heatmap"):
             r.setdefault("heatmap_kernel", []).append(
                 device_ms(lambda: heat(lib), "heatmap_kernel", args.iters))
-        if hasattr(lib, "cspe_mesh_sweep"):
-            for k, d in rays.items():
-                r.setdefault(f"mesh_sweep_kernel {k}", []).append(
-                    device_ms(lambda: sweep(lib, d), "mesh_sweep_kernel", args.iters))
+        for k, v in walks(lib):
+            r.setdefault(f"mesh sweep {k}, {v} walk", []).append(
+                device_ms(lambda: sweep(lib, rays[k], v), MESH_KERNELS[v], args.iters))
     for name, r in report["ms"].items():
         print(f"[time] {name}: " + "; ".join(f"{k} {', '.join(f'{x:.4f}' for x in v)} ms"
                                              for k, v in r.items())
