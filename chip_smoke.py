@@ -128,7 +128,21 @@ Run from the root of a checkout. Phases, each reported on its own line:
    arguments plus ``--hifi-mix 4 --hifi-eval`` (20 steps; hifi batches at
    steps 0, 4, 8, 12, 16 and for the evaluation), ``infer --hifi`` of 32
    frames, the mesh sweep kernel (``csrc/meshsweep.cu``) launched twice a
-   hifi batch on each; ``[mesh]`` lines for the triangle sweep on 32 x
+   hifi batch on each; ``[mesh-terms]`` lines for the mesh terms kernel
+   (``csrc/meshterms.cu``) on the ``[mesh]`` frames: its registers and
+   spills (none), its terms, boxes and spheres against
+   ``plain_mesh_terms`` on the same world and origin (each part within
+   ``MESH_TERMS_UNITS`` units of ``meshcast.terms_gap``; cr = 0 and radius
+   -1 on the same slots bit for bit; two calls bit-equal), the mesh sweep
+   kernel over its terms against the same kernel over the plain terms
+   (pixels: the ``[sweep]`` bars; segments: the same without the edge
+   test), its device time by the profiler and by CUDA events beside its
+   bound (the stores), its wrapper's call, the plain version's time and
+   launches a call, ``HifiCaster.frame_world``'s host issue and
+   CUDA-event times and ``MeshCaster.packed`` with its terms built in the
+   call, with the kernel's terms and with the plain ones in turns; every
+   ``[mesh]`` check below runs on the kernel's terms; ``[mesh]`` lines for
+   the triangle sweep on 32 x
    512^2, pixels and segments: the kernel's registers (at most 80) and
    spills (none), the kernel against ``plain_mesh_sweep`` on the same
    terms and rays (pixels: the ``[sweep]`` bars; segments: the same
@@ -149,7 +163,8 @@ Run from the root of a checkout. Phases, each reported on its own line:
    batch, and the detector step with hifi batches beside the proxy step;
    after ``[bench]``, the kernel's launches on every hifi path (> 0, the
    ``--hifi-eval`` evaluation and the textured hifi paths included) and on
-   no other;
+   no other, the terms kernel's half of them on every path (once a hifi
+   render) and ``plain_mesh_terms`` never on the card;
 11. ``[textures]``, in the same directory: the RGB kernel's textured
    variant against its plain version on 64 x 512² frames, proxy and hifi,
    hash noise off and on (noise off: mean |d| < 0.5 u8, |d| > 1 on < 2% of
@@ -248,7 +263,10 @@ sequence and hifi paths, ``train_crop`` (both crop runs), ``train_detect``,
 times at the crop shapes; one entry for each RGB tier variant, named
 ``rgb_epilogue/<variant>``, with its launches on the [analytic] paths; the
 ``mesh_sweep`` entry for a hifi batch's pixel and segment calls, with its
-launches by path; the ``raycast_packed``, ``raycast_exact`` and
+launches by path; the ``mesh_terms`` entry for a hifi render's terms, its
+``ms`` by the profiler and ``ms_by`` the profiler and CUDA events, with
+its launches by path and ``frame_world``'s and ``packed``'s times with
+the kernel's and the plain terms; the ``raycast_packed``, ``raycast_exact`` and
 ``raycast_multi`` entries, each with its ``jnp_loop`` and launches by
 path), then the card line, then as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -356,6 +374,29 @@ MESH = "mesh_sweep"
 MESH_JNP_LOOP = "constructionsceneposeestimation_tpu/render/meshcast.py:307-344"
 HIFI_PATHS = ("generate_hifi", "train_detect_hifi", "hifi_eval", "infer_hifi",
               "generate_hifi_textured", "train_detect_textured")
+# The mesh terms kernel (csrc/meshterms.cu) replaces the JAX caster's
+# `_world_corners` and the head of its `packed`, a jnp computation XLA
+# fuses (not a Pallas kernel): every render's triangle terms, block boxes
+# and triangle spheres. Its launches count under MESH_TERMS, the plain
+# version's calls on the card under PLAIN_TERMS (0 on every path).
+MESH_TERMS = "mesh_terms"
+PLAIN_TERMS = "plain_mesh_terms_on_card"
+MESH_TERMS_JNP = "constructionsceneposeestimation_tpu/render/meshcast.py:253-305"
+# The kernel against plain_mesh_terms: each part within MESH_TERMS_UNITS
+# units of meshcast.terms_gap (2^-23 x the corners' scale x the part's
+# derivative by a corner). Both round each corner to a few ulps of its
+# scale, einsum and FMA chains in other orders; the plain version is within
+# ~1.6 units of a float64 reference on tests/test_torch_mesh_terms.py's
+# scenes.
+MESH_TERMS_UNITS = 8.0
+# Operations csrc/meshterms.cu does a slot, counted from the source (an FMA
+# as two): a rigid corner R v + p 18, a skinned corner's two bones and
+# blend 48, three corners a slot; then e1, e2, s 9, three cross products
+# 27, tn 5, the sphere 49 (centroid 9, three distances 27, max 2, the cr
+# test 5, widen and select 3, centre - o 3) and the box 18 (the slot's
+# min and max 12, its share of the block's reduction 6).
+MESH_TERMS_CORNER_OPS = {"rigid": 18, "skinned": 48}
+MESH_TERMS_SLOT_OPS = 108
 # The analytic caster's kernel (csrc/raycast.cu) in its three modes, each
 # the kernel of a jnp sweep of the JAX caster (not a Pallas kernel); their
 # launches count under these keys, the profiler names their instantiations
@@ -414,6 +455,7 @@ REPLACES = {
     "heatmap_targets": "constructionsceneposeestimation_tpu/ops/heatmap.py:58",
     "peak_decode": "constructionsceneposeestimation_tpu/ops/peak_kernel.py:56",
     MESH: "constructionsceneposeestimation_tpu/render/meshcast.py:307",
+    MESH_TERMS: "constructionsceneposeestimation_tpu/render/meshcast.py:253",
     RAYCAST_PACKED: "constructionsceneposeestimation_tpu/render/raycast.py:542",
     RAYCAST_EXACT: "constructionsceneposeestimation_tpu/render/raycast.py:180",
     RAYCAST_MULTI: "constructionsceneposeestimation_tpu/render/raycast.py:243",
@@ -424,6 +466,7 @@ SOURCES = {
     "heatmap_targets": "constructionsceneposeestimation_tpu_torch/csrc/heatmap.cu",
     "peak_decode": "constructionsceneposeestimation_tpu_torch/csrc/peaks.cu",
     MESH: "constructionsceneposeestimation_tpu_torch/csrc/meshsweep.cu",
+    MESH_TERMS: "constructionsceneposeestimation_tpu_torch/csrc/meshterms.cu",
     **dict.fromkeys(RAYCAST_MODES, "constructionsceneposeestimation_tpu_torch/csrc/raycast.cu"),
 }
 # The least time the card could take: the larger of the bytes the function
@@ -993,15 +1036,16 @@ def plain_walks():
 
 
 def reset(counters):
-    """Set every kernel wrapper's launch counts to 0, the mesh sweep's, the
-    caster's and the plain caster walks' too."""
+    """Set every kernel wrapper's launch counts to 0, the mesh sweep's and
+    terms', the caster's and the plain caster walks' and terms' too."""
     from constructionsceneposeestimation_tpu_torch.render import meshcast
     for fn in [*counters.values(), *caster_wrappers().values()]:
         fn.launches = 0
     rgb = counters["rgb_epilogue"]
     rgb.textured_launches = 0
     rgb.tier_launches = dict.fromkeys(rgb.tier_launches, 0)
-    meshcast.mesh_sweep_cuda.launches = 0
+    meshcast.mesh_sweep_cuda.launches = meshcast.mesh_terms_cuda.launches = 0
+    meshcast.plain_mesh_terms.card_calls = 0
     for fn in plain_walks():
         fn.card_calls = 0
 
@@ -1010,7 +1054,8 @@ def read(counters):
     """Every kernel wrapper's launch count, the RGB kernel's textured
     launches (``TEXTURED``) and those of each tier variant
     (``tier_key``), which its ``launches`` do not include, the mesh
-    sweep's (``MESH``), which launches on the hifi paths only, the
+    sweep's (``MESH``) and terms' (``MESH_TERMS``), which launch on the
+    hifi paths only, the plain terms run on the card (``PLAIN_TERMS``), the
     caster's three modes (``RAYCAST_MODES``) and the plain caster walks run
     on the card (``PLAIN_CASTER``)."""
     from constructionsceneposeestimation_tpu_torch.render import meshcast
@@ -1019,6 +1064,8 @@ def read(counters):
             TEXTURED: rgb.textured_launches,
             **{tier_key(v): n for v, n in rgb.tier_launches.items()},
             MESH: meshcast.mesh_sweep_cuda.launches,
+            MESH_TERMS: meshcast.mesh_terms_cuda.launches,
+            PLAIN_TERMS: meshcast.plain_mesh_terms.card_calls,
             **{k: fn.launches for k, fn in caster_wrappers().items()},
             PLAIN_CASTER: sum(fn.card_calls for fn in plain_walks())}
 
@@ -1747,6 +1794,171 @@ def sequence_phase(dev, card, counters, datagen, work, ck):
     return launches
 
 
+def events_device_ms(fn, iters=20):
+    """(ms a call, host ms to issue them all): CUDA events around ``iters``
+    calls of ``fn`` queued behind ~20 ms of ``torch.cuda._sleep``, so that
+    the card runs the calls back to back however long the host takes to
+    issue each (``cuda_ms`` times that host work when it exceeds the
+    kernel's); the issue must end well within the sleep."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(40_000_000)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    check(issue_ms < 10.0, f"the host took {issue_ms:.3f} ms to issue {iters} calls: the events "
+          f"would time the host")
+    return start.elapsed_time(end) / iters, issue_ms
+
+
+def mesh_terms_bytes(tab, m, n):
+    """Bytes csrc/meshterms.cu must move for ``n`` frames: its stores
+    (``m``'s terms, spheres, lo and hi) and each element it reads, once.
+    From ``tab`` (``MeshCaster.tables``): the block rows; the face rows the
+    blocks start; the template vertices their rigid faces name; the skin's
+    v_loc, weights and bone_ids rows their skinned faces name; the bone_rows
+    rows of the skinned blocks; and, each frame, the origin, the rigid
+    blocks' instances' inst_rot and inst_pos and those bone rows' prim_rot
+    and prim_pos. Unread elements (other rows, a rigid vertex's zero skin)
+    count nothing."""
+    import numpy as np
+    blocks, faces = tab["blocks"], tab["faces"]
+    T = m.spheres.shape[3]
+    rows = blocks[:, 1:2] + np.arange(T)
+    rigid = blocks[:, 2] < 0
+    rigid_v, skin_v = (np.unique(faces[rows[sel]]) for sel in (rigid, ~rigid))
+    skins = np.unique(blocks[~rigid, 2])
+    n_bones = tab["bone_rows"].shape[1]
+    poses = len(np.unique(blocks[rigid, 0])) + len(np.unique(tab["bone_rows"][skins]))
+    reads = (blocks.size + 3 * len(np.unique(rows)) + 3 * len(rigid_v)
+             + (6 + 2 + 2) * len(skin_v) + n_bones * len(skins) + n * (3 + 12 * poses))
+    return sum(t.numel() * t.element_size() for t in m[:4]) + 4 * reads
+
+
+def mesh_terms_report(card, hifi, w, o, rays, m):
+    """[mesh-terms]: csrc/meshterms.cu, whose terms ``m`` (``hifi.mesh.
+    mesh_terms(w, o)``) the [mesh] checks run on, against ``plain_mesh_terms``
+    on the same world and origin: each part within MESH_TERMS_UNITS units
+    of ``meshcast.terms_gap``, cr = 0 and radius -1 on the same slots bit
+    for bit, two calls bit-equal; the mesh sweep kernel over each on
+    ``rays`` ((name, (B, N, 3)) pairs: the pixels at ``sweep_agreement``'s
+    bars, the segments at ``segment_agreement``'s); the kernel's device
+    time by the profiler and by CUDA events beside its bound, its
+    wrapper's call, the plain version's time and launches a call;
+    ``HifiCaster.frame_world``'s host issue and CUDA-event times and
+    ``MeshCaster.packed`` with its terms built in the call, with the
+    kernel's terms and with the plain version's, in turns. Returns the
+    kernels line's numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from constructionsceneposeestimation_tpu_torch.render import meshcast
+    from constructionsceneposeestimation_tpu_torch.utils import kernels
+    mesh = hifi.mesh
+    report = kernels.ptxas_report("meshterms.cu")
+    phase("mesh-terms", f"csrc/meshterms.cu, registers and spill bytes (ptxas): {report}")
+    check(set(report) == {"mesh_terms_kernel"}
+          and report["mesh_terms_kernel"]["spill_bytes"] == 0,
+          f"mesh terms: the kernel is missing or spills: {report}")
+    tables = mesh._on(o.device)["tables"]
+    pose = [w[k].contiguous() for k in ("inst_rot", "inst_pos", "prim_rot", "prim_pos")]
+    k_fn = lambda: meshcast.mesh_terms_cuda(tables, *pose, o, mesh.tri_block)
+    p_fn = lambda: meshcast.plain_mesh_terms(mesh, w, o)
+    ref, again = p_fn(), k_fn()
+    gap = meshcast.terms_gap(m, ref, mesh.corners(w))
+    flat, want = ((x.terms[:, :, :3] == 0).all(2) for x in (m, ref))
+    radius, want_r = m.spheres[:, :, 3], ref.spheres[:, :, 3]
+    exact = (torch.equal(flat, want) and torch.equal(radius[want], want_r[want])
+             and bool((radius[~want] > 0).all()))
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(m[:4], again[:4]))
+    err = max(float((a - b).abs().max()) for a, b in zip(m[:4], ref[:4]))
+    n, nb, T = m.spheres.shape[0], m.spheres.shape[1], m.spheres.shape[3]
+    phase("mesh-terms", f"kernel against plain_mesh_terms, {n} frames x {nb} blocks x {T} slots: "
+          f"terms_gap (units of 2^-23 x the corners' scale x the part's derivative) "
+          f"{ {k: round(v, 3) for k, v in gap.items()} } (<= {MESH_TERMS_UNITS}); cr = 0 and "
+          f"radius -1 on the same {int(want.sum())} slots bit for bit, every other radius > 0: "
+          f"{exact}; two calls bit-equal: {same}; max |d| {err:.3e}")
+    check(max(gap.values()) <= MESH_TERMS_UNITS and exact and same,
+          "mesh terms: the kernel disagrees with plain_mesh_terms")
+    phase("mesh-terms", "the mesh sweep kernel over the kernel's terms against the same kernel "
+          "over plain_mesh_terms', pixels then segments:")
+    codes = mesh._on(o.device)["codes"]
+    for name, d in rays:
+        lay = mesh.layout(d.shape[1])
+        k, p = (meshcast.mesh_sweep_cuda(x.terms, x.lo, x.hi, x.spheres, codes, o, d, lay)
+                for x in (m, ref))
+        (sweep_agreement if name == "pixels" else segment_agreement)("mesh-terms", k, p)
+    del ref, again, k, p
+
+    ms = device_ms(k_fn, "mesh_terms_kernel")
+    events_ms, issue_ms = events_device_ms(k_fn)
+    call_ms, plain_ms = cuda_ms(k_fn, iters=20), cuda_ms(p_fn, iters=5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        p_fn()
+        torch.cuda.synchronize()
+    plain_launches = sum(e.count for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+    nbytes = mesh_terms_bytes(mesh.tables, m, n)
+    skinned = int((mesh.tables["blocks"][:, 2] >= 0).sum()) * T * n
+    ops = ((n * nb * T - skinned) * 3 * MESH_TERMS_CORNER_OPS["rigid"]
+           + skinned * 3 * MESH_TERMS_CORNER_OPS["skinned"] + n * nb * T * MESH_TERMS_SLOT_OPS)
+    b_ms, b_by = bound(nbytes, ops)
+    phase("mesh-terms", f"kernel {ms:.4f} ms (profiler device time), {events_ms:.4f} ms by CUDA "
+          f"events (20 launches queued behind a sleep, issued in {issue_ms:.3f} ms); the "
+          f"wrapper's call {call_ms:.4f} ms by CUDA events; bound {b_ms:.4f} ms ({b_by}: "
+          f"{nbytes / 1e6:.1f} MB at 3.35 TB/s, {ops / 1e9:.3f} GFLOP at 67 TFLOP/s), "
+          f"{100 * b_ms / ms:.1f}% of the kernel's profiler time, {100 * b_ms / events_ms:.1f}% "
+          f"by events; plain_mesh_terms {plain_ms:.4f} ms by CUDA events in {plain_launches} "
+          f"launches a call; on {card}")
+
+    # Before and after: the plain terms in place of the kernel, in turns.
+    terms_fn = meshcast.MeshCaster.mesh_terms
+
+    def timed(kind, fn, iters=10):
+        """(min host ms to issue ``fn``, CUDA-event ms a call) with the
+        kernel's or the plain version's terms."""
+        if kind == "plain":
+            meshcast.MeshCaster.mesh_terms = meshcast.plain_mesh_terms
+        try:
+            fn()
+            torch.cuda.synchronize()
+            host = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                fn()
+                host.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+            return min(host), cuda_ms(fn, iters=iters)
+        finally:
+            meshcast.MeshCaster.mesh_terms = terms_fn
+
+    calls = {"frame_world": ("HifiCaster.frame_world", lambda: hifi.frame_world(w, o)),
+             **{f"packed_{name}": (f"MeshCaster.packed on the {name}, its terms built in the "
+                                   f"call", lambda d=d: mesh.packed(w, o, d)) for name, d in rays}}
+    times = {c: {"kernel": [], "plain": []} for c in calls}
+    for c, (label, fn) in calls.items():
+        for kind in ("kernel", "plain", "plain", "kernel"):
+            times[c][kind].append(timed(kind, fn))
+        t = times[c]
+        phase("mesh-terms", f"{label}, in turns (kernel, plain, plain, kernel): host issue ms "
+              f"kernel {[round(h, 4) for h, _ in t['kernel']]}, plain "
+              f"{[round(h, 4) for h, _ in t['plain']]}; CUDA events ms kernel "
+              f"{[round(e, 4) for _, e in t['kernel']]}, plain "
+              f"{[round(e, 4) for _, e in t['plain']]}; on {card}")
+    best = {c: {k: {"host_ms": min(h for h, _ in v), "events_ms": min(e for _, e in v)}
+                for k, v in t.items()} for c, t in times.items()}
+    return {"max_abs_err": err, "ms": ms, "ms_by": {"profiler": ms, "events": events_ms},
+            "call_ms": call_ms, "plain_ms": plain_ms, "plain_launches": plain_launches,
+            "bound": (b_ms, b_by), "terms_gap": gap,
+            "registers": report["mesh_terms_kernel"]["registers"], **best}
+
+
 def hifi_phase(dev, card, counters, datagen, work, ck, scene):
     """The hifi CAD-mesh tier: the sweep kernel on the masked schedule
     against its plain version on ``scene`` (the main path's world,
@@ -1841,7 +2053,7 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
     # The mesh sweep's launches in the training steps' hifi batches are
     # counted apart, so that the evaluation's show.
     sweeper_call, gen_step = meshcast.HifiSweeper.__call__, detect_loop.DetectTrainStep.generate
-    hifi_calls, hifi_steps, mesh_in_steps = [0], [], [0]
+    hifi_calls, hifi_steps, mesh_in_steps, terms_in_steps = [0], [], [0], [0]
 
     def counting(self, *a):
         hifi_calls[0] += 1
@@ -1849,10 +2061,12 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
 
     def recording(self, seed, frame_ids, step):
         before, mesh_before = hifi_calls[0], meshcast.mesh_sweep_cuda.launches
+        terms_before = meshcast.mesh_terms_cuda.launches
         out = gen_step(self, seed, frame_ids, step)
         if hifi_calls[0] > before:
             hifi_steps.append(step)
             mesh_in_steps[0] += meshcast.mesh_sweep_cuda.launches - mesh_before
+            terms_in_steps[0] += meshcast.mesh_terms_cuda.launches - terms_before
         return out
 
     meshcast.HifiSweeper.__call__, detect_loop.DetectTrainStep.generate = counting, recording
@@ -1882,6 +2096,7 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
           f"batches {hifi_calls[0]}, missing lines {missing}")
     # Each hifi batch sweeps its pixels and its keypoint segments.
     eval_mesh = launches["train_detect_hifi"][MESH] - mesh_in_steps[0]
+    eval_terms = launches["train_detect_hifi"][MESH_TERMS] - terms_in_steps[0]
     check(all(launches["train_detect_hifi"][k] == TRAIN_STEPS + 1
               for k in ("pixel_sweep", "rgb_epilogue"))
           and launches["train_detect_hifi"]["heatmap_targets"] == 0
@@ -1945,7 +2160,12 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
                   for r in report.values()),
           f"mesh sweep: an instantiation is missing, spills or takes more than "
           f"{MESH_MAX_REGISTERS} registers: {report}")
+    before = meshcast.mesh_terms_cuda.launches, meshcast.plain_mesh_terms.card_calls
     m = mesh.mesh_terms(w, o)
+    check((meshcast.mesh_terms_cuda.launches, meshcast.plain_mesh_terms.card_calls)
+          == (before[0] + 1, before[1]), "MeshCaster.mesh_terms on the card: not one launch of "
+          "the terms kernel")
+    terms_r = mesh_terms_report(card, hpipe.caster, w, o, (("pixels", px), ("segments", seg)), m)
     codes = mesh._on(dev)["codes"]
     mesh_r = {}
     for name, d in (("pixels", px), ("segments", seg)):
@@ -2119,6 +2339,7 @@ def hifi_phase(dev, card, counters, datagen, work, ck, scene):
              for k in ("ms", "call_ms", "plain_ms", "packed_ms")}
     return launches, {**total, "max_abs_err": max(r["max_abs_err"] for r in mesh_r.values()),
                       "bound": bound(bytes_, ops), "hifi_eval": eval_mesh,
+                      "hifi_eval_terms": eval_terms, "terms": terms_r,
                       "visited_bound_ms": bound(bytes_, pairs * MESH_PAIR_OPS
                                                 + passes * MESH_PASS_OPS)[0],
                       "plain_test_bound_ms": bound(bytes_, pairs * MESH_PLAIN_PAIR_OPS)[0],
@@ -2386,7 +2607,8 @@ def textures_phase(dev, card, counters, datagen, work, ck):
         want_l = {**dict.fromkeys(read(counters), 0), TEXTURED: len(chunks),
                   "pixel_sweep": len(chunks), "heatmap_targets": len(chunks),
                   RAYCAST_PACKED: len(chunks),
-                  MESH: 2 * len(chunks) if "--hifi" in argv else 0}
+                  MESH: 2 * len(chunks) if "--hifi" in argv else 0,
+                  MESH_TERMS: len(chunks) if "--hifi" in argv else 0}
         check(lines[-1].startswith(f"done: {frames} frames in ") and launches[path] == want_l,
               f"{path}: {lines[-1:]}, launches {launches[path]}, want {want_l}")
         phase("textures", f"generate --image-textures {' '.join(argv)} --format packed: {frames} "
@@ -4072,10 +4294,10 @@ def main() -> int:
         launches[k]["bench"] = bench_launches[k]
 
     # The mesh sweep kernel launched on every hifi path, and on no other.
-    mesh_by_path = {p: c[MESH] for p, c in {
-        "eval": eval_launches, "train_eval": train_launches, "generate_cli": gen_cli_launches,
-        "train_data_dir": data_dir_launches, **two_stage_launches,
-        "bench": bench_launches}.items()}
+    all_paths = {"eval": eval_launches, "train_eval": train_launches,
+                 "generate_cli": gen_cli_launches, "train_data_dir": data_dir_launches,
+                 **two_stage_launches, "bench": bench_launches}
+    mesh_by_path = {p: c[MESH] for p, c in all_paths.items()}
     mesh_by_path["hifi_eval"] = mesh_result.pop("hifi_eval")
     stray = {p: c for p, c in mesh_by_path.items() if p not in HIFI_PATHS and c}
     unlaunched = [p for p in HIFI_PATHS if not mesh_by_path[p] > 0]
@@ -4084,6 +4306,18 @@ def main() -> int:
           f" other paths: {stray or 'none'}")
     check(not stray and not unlaunched, f"mesh sweep launches: none on {unlaunched}, stray "
           f"{stray}")
+    # The terms kernel once a hifi render (half the mesh sweep's launches) on
+    # every path, the plain terms never on the card.
+    terms_by_path = {p: c[MESH_TERMS] for p, c in all_paths.items()}
+    terms_by_path["hifi_eval"] = mesh_result.pop("hifi_eval_terms")
+    plain_terms = {p: c[PLAIN_TERMS] for p, c in all_paths.items() if c[PLAIN_TERMS]}
+    odd = {p: (n, mesh_by_path[p]) for p, n in terms_by_path.items() if 2 * n != mesh_by_path[p]}
+    phase("mesh-terms", f"terms kernel launches on the hifi paths "
+          f"{ {p: terms_by_path[p] for p in HIFI_PATHS} }, half the mesh sweep's on all "
+          f"{len(terms_by_path)} paths: {not odd}; plain_mesh_terms on the card: "
+          f"{plain_terms or 'none'}")
+    check(not odd and not plain_terms, f"mesh terms launches: (terms, mesh sweep) {odd}, "
+          f"plain_mesh_terms on the card {plain_terms}")
 
     # The caster's packed mode launched once a render on every path (as the
     # pixel sweep, or the exact mode under analytic normals), the exact and
@@ -4181,6 +4415,18 @@ def main() -> int:
           f"{100 * mesh_result['visited_bound_ms'] / mesh_result['ms']:.1f}%; the plain test's "
           f"bound {mesh_result['plain_test_bound_ms']:.4f} ms), launches {mesh_by_path} on "
           f"{card}")
+    terms_result = mesh_result.pop("terms")
+    terms_result["bound_ms"], terms_result["bound_by"] = terms_result.pop("bound")
+    phase("time", f"{MESH_TERMS}: kernel {terms_result['ms']:.4f} ms a hifi render of "
+          f"{HIFI_FRAMES} x {RES}^2 (profiler device time; "
+          f"{terms_result['ms_by']['events']:.4f} ms by CUDA events; the wrapper's call "
+          f"{terms_result['call_ms']:.4f} ms), plain {terms_result['plain_ms']:.4f} ms in "
+          f"{terms_result['plain_launches']} launches, bound {terms_result['bound_ms']:.4f} ms "
+          f"({terms_result['bound_by']}; roofline share "
+          f"{100 * terms_result['bound_ms'] / terms_result['ms']:.1f}%); HifiCaster.frame_world "
+          f"{terms_result['frame_world']['kernel']} with the kernel, "
+          f"{terms_result['frame_world']['plain']} with the plain terms; launches "
+          f"{terms_by_path} on {card}")
     paths = ("train_crop", "train_detect", "infer", "generate_sequence", "infer_sequence",
              "generate_hifi", "train_detect_hifi", "infer_hifi", *textured_by_path, *an_launches,
              "bench")
@@ -4203,6 +4449,10 @@ def main() -> int:
          "jnp_loop": MESH_JNP_LOOP, "launches": sum(mesh_by_path[p] for p in HIFI_PATHS
                                                     if p != "hifi_eval"),
          "launches_by_path": mesh_by_path, "library_ms": None, **mesh_result}] + [
+        {"name": MESH_TERMS, "route": "cuda", "source": SOURCES[MESH_TERMS],
+         "replaces": REPLACES[MESH_TERMS], "jnp_loop": MESH_TERMS_JNP,
+         "launches": sum(terms_by_path[p] for p in HIFI_PATHS if p != "hifi_eval"),
+         "launches_by_path": terms_by_path, "library_ms": None, **terms_result}] + [
         {"name": m, "route": "cuda", "source": SOURCES[m], "replaces": REPLACES[m],
          "jnp_loop": RAYCAST_JNP_LOOP[m], "launches": sum(caster_by_path[m].values()),
          "launches_by_path": caster_by_path[m], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

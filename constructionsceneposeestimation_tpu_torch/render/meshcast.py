@@ -42,6 +42,16 @@ tri_block), reduced into (B, groups, tile) with ``scatter_reduce(amin)``.
 The packed min does not depend on the order of visits, so both give the
 JAX sweep's result. ``MeshCaster.packed`` dispatches on the device of the
 rays: CUDA tensors launch the kernel, CPU tensors take the plain version.
+
+The sweep's inputs, each render's ``MeshTerms``, come from a second
+kernel, ``csrc/meshterms.cu`` (``mesh_terms_cuda``), which replaces the JAX
+caster's ``_world_corners`` and the head of its ``packed`` (a ``jnp``
+computation XLA fuses): one launch builds every triangle's corners (rigid,
+or the worker's two-bone skin), terms and sphere and every block's box
+from the static ``TermTables`` (``term_tables``), a thread a triangle slot.
+Plain version: ``plain_mesh_terms``, ~130 PyTorch ops.
+``MeshCaster.mesh_terms`` dispatches on the device of the origin as
+``packed`` does on the rays'.
 """
 
 from __future__ import annotations
@@ -97,6 +107,9 @@ FILL_GROUPS = 264
 # by CULL_REL, plus SPHERE_ABS.
 SPHERE_REL = 1e-5
 SPHERE_ABS = 1e-4
+# csrc/meshterms.cu stages a skinned instance's bone transforms in shared
+# memory: at most MAX_BONES bones (the worker has 10).
+MAX_BONES = 32
 WORDS = KERNEL_TRI_BLOCK // 32  # kept words a (patch, block)
 
 
@@ -147,6 +160,52 @@ class MeshClass(NamedTuple):
     n_blocks: int  # blocks an instance
     n_faces: int  # faces before the padding
     skin: Dict[str, np.ndarray] | None  # the worker's LBS tables and bone rows
+
+
+class TermTables(NamedTuple):
+    """The static tables csrc/meshterms.cu builds each block's corners from
+    (``term_tables``): one vertex index space over every class, in class
+    order, which the faces index and every vertex table shares."""
+
+    blocks: Tensor  # (n_blocks, 3) int32: instance, first face row, skinned row or -1
+    faces: Tensor  # (F, 3) int32 vertex rows, each class's padded faces in turn
+    verts: Tensor  # (V, 3) f32 template vertices (a rigid class's local frame)
+    v_loc: Tensor  # (V, 2, 3) f32 a skinned vertex in its two bones' frames, else 0
+    weights: Tensor  # (V, 2) f32 its two bones' weights, else 0
+    bone_ids: Tensor  # (V, 2) int32 its two bones, columns of bone_rows, else 0
+    bone_rows: Tensor  # (H, bones) int32 each skinned instance's primitive rows
+    inst_rows: int  # instances the world must hold: the largest block instance + 1
+    prim_rows: int  # primitives the world must hold: the largest bone row + 1
+
+
+def term_tables(classes: Sequence[MeshClass], tri_block: int) -> Dict[str, np.ndarray]:
+    """``TermTables``' arrays for ``classes``, in ``MeshCaster.corners``'
+    block order (class, instance, block), as numpy: block j of instance i
+    of a class reads the faces from row first = the class's first row + j
+    tri_block on and, for the skinned class, bone_rows[i]."""
+    verts, v_loc, weights, bone_ids, faces, blocks = [], [], [], [], [], []
+    bone_rows = np.zeros((0, 0), np.int32)
+    v0 = f0 = 0
+    for c in classes:
+        V = len(c.verts)
+        verts.append(c.verts)
+        skin = c.skin or {"v_loc": np.zeros((V, 2, 3)), "weights": np.zeros((V, 2)),
+                          "bone_ids": np.zeros((V, 2))}
+        v_loc.append(skin["v_loc"])
+        weights.append(skin["weights"])
+        bone_ids.append(skin["bone_ids"])
+        faces.append(c.faces + v0)
+        for i, inst in enumerate(c.ids):
+            row = -1 if c.skin is None else i
+            blocks += [(inst, f0 + j * tri_block, row) for j in range(c.n_blocks)]
+        if c.skin is not None:
+            bone_rows = c.skin["bone_rows"]
+        v0, f0 = v0 + V, f0 + len(c.faces)
+    cat = lambda xs, dtype: np.ascontiguousarray(np.concatenate(xs), dtype)
+    return {"blocks": np.asarray(blocks, np.int32), "faces": cat(faces, np.int32),
+            "verts": cat(verts, np.float32), "v_loc": cat(v_loc, np.float32),
+            "weights": cat(weights, np.float32), "bone_ids": cat(bone_ids, np.int32),
+            "bone_rows": np.ascontiguousarray(bone_rows, np.int32)}
 
 
 def _aabb_hit_any(ray_o: Tensor, ray_d: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
@@ -566,6 +625,121 @@ def mesh_sweep_cuda(terms: Tensor, lo: Tensor, hi: Tensor, spheres: Tensor, code
 mesh_sweep_cuda.launches = 0
 
 
+def plain_mesh_terms(mesh: "MeshCaster", world, ray_o: Tensor) -> MeshTerms:
+    """Plain version of csrc/meshterms.cu (``mesh_terms_cuda``):
+    ``mesh``'s ``MeshTerms`` for the origin ``ray_o`` (B, 3), from the
+    corners of ``MeshCaster.corners``, in PyTorch ops on any device."""
+    plain_mesh_terms.card_calls += int(ray_o.is_cuda)
+    c0, c1, c2 = mesh.corners(world)
+    e1, e2 = c1 - c0, c2 - c0
+    s = ray_o[:, None, None, :] - c0
+    cross = lambda a, b: torch.linalg.cross(a, b, dim=-1)
+    qv = cross(s, e1)
+    tn = torch.sum(e2 * qv, dim=-1)
+    cr = cross(e2, e1)
+    terms = torch.cat([cr, cross(e2, s), qv, tn[..., None]], dim=-1)
+    blk_lo = torch.minimum(torch.minimum(c0, c1), c2).amin(dim=2)
+    blk_hi = torch.maximum(torch.maximum(c0, c1), c2).amax(dim=2)
+    # The boxes are exact f32 bounds: inflate them, or a ray grazing a
+    # silhouette triangle could pass the triangle test yet miss the slab.
+    eps = 1e-5 * torch.amax(blk_hi - blk_lo, dim=-1, keepdim=True)
+    return MeshTerms(terms.transpose(2, 3).contiguous(), blk_lo - eps, blk_hi + eps,
+                     triangle_spheres(c0, c1, c2, cr, ray_o), ray_o)
+
+
+# Calls on CUDA tensors: 0 wherever the kernel serves.
+plain_mesh_terms.card_calls = 0
+
+
+def mesh_terms_cuda(tables: TermTables, inst_rot: Tensor, inst_pos: Tensor, prim_rot: Tensor,
+                    prim_pos: Tensor, ray_o: Tensor, tri_block: int) -> MeshTerms:
+    """Launch csrc/meshterms.cu: ``plain_mesh_terms``' ``MeshTerms`` for
+    the world's inst_rot (B, I, 3, 3), inst_pos (B, I, 3), prim_rot (B, P,
+    3, 3), prim_pos (B, P, 3) and the origin ray_o (B, 3), from ``tables``
+    (``MeshCaster``'s, on the card). Raises, before any launch, unless
+    ``tri_block`` is ``KERNEL_TRI_BLOCK``, the kernel's compile-time width,
+    every tensor is a contiguous CUDA tensor of its type and shape, the
+    world holds the tables' instance and primitive rows and a skinned
+    instance has at most MAX_BONES bones."""
+    if tri_block != KERNEL_TRI_BLOCK:
+        raise ValueError(f"mesh terms: the kernel's tri_block is {KERNEL_TRI_BLOCK}, not "
+                         f"{tri_block}")
+    B = ray_o.shape[0] if ray_o.dim() == 2 else -1
+    I = inst_rot.shape[1] if inst_rot.dim() == 4 else -1
+    P = prim_rot.shape[1] if prim_rot.dim() == 4 else -1
+    if I < tables.inst_rows or P < tables.prim_rows:
+        raise ValueError(f"mesh terms: the world holds {I} instances and {P} primitives, the "
+                         f"tables read {tables.inst_rows} and {tables.prim_rows}")
+    nb, V = tables.blocks.shape[0], tables.verts.shape[0]
+    H, bones = tables.bone_rows.shape
+    if bones > MAX_BONES:
+        raise ValueError(f"mesh terms: {bones} bones an instance, the kernel takes {MAX_BONES}")
+    specs = [("terms blocks", tables.blocks, torch.int32, (nb, 3)),
+             ("terms faces", tables.faces, torch.int32, (tables.faces.shape[0], 3)),
+             ("terms verts", tables.verts, torch.float32, (V, 3)),
+             ("terms v_loc", tables.v_loc, torch.float32, (V, 2, 3)),
+             ("terms weights", tables.weights, torch.float32, (V, 2)),
+             ("terms bone_ids", tables.bone_ids, torch.int32, (V, 2)),
+             ("terms bone_rows", tables.bone_rows, torch.int32, (H, bones)),
+             ("terms inst_rot", inst_rot, torch.float32, (B, I, 3, 3)),
+             ("terms inst_pos", inst_pos, torch.float32, (B, I, 3)),
+             ("terms prim_rot", prim_rot, torch.float32, (B, P, 3, 3)),
+             ("terms prim_pos", prim_pos, torch.float32, (B, P, 3)),
+             ("terms ray_o", ray_o, torch.float32, (B, 3))]
+    # Types and shapes first, whatever the device; then device and layout.
+    for name, t, dtype, shape in specs:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} of shape {shape}, got {t.dtype} of "
+                             f"shape {tuple(t.shape)}")
+    for name, t, dtype, shape in specs:
+        kernels.check_cuda(name, t, dtype, shape)
+    new = lambda *shape: torch.empty(B, nb, *shape, dtype=torch.float32, device=ray_o.device)
+    terms, spheres = new(N_TERMS, KERNEL_TRI_BLOCK), new(4, KERNEL_TRI_BLOCK)
+    lo, hi = new(3), new(3)
+    kernels.launch("cspe_mesh_terms", *tables[:7], inst_rot, inst_pos, prim_rot, prim_pos, ray_o,
+                   B, nb, I, P, bones, terms, spheres, lo, hi)
+    mesh_terms_cuda.launches += 1
+    return MeshTerms(terms, lo, hi, spheres, ray_o)
+
+
+mesh_terms_cuda.launches = 0
+
+
+def terms_gap(m: MeshTerms, ref: MeshTerms, corners: Tuple[Tensor, Tensor, Tensor]
+              ) -> Dict[str, float]:
+    """The largest gap between two ``MeshTerms`` of one world and origin,
+    each part in units of 2^-23 C D. C is the largest |coordinate| of the
+    slot's corners (with the origin's, for the parts that subtract it; of
+    the block's slots for its box): the scale both versions round the
+    corners at. D is the part's largest derivative by a corner: |e1| + |e2|
+    for cr, |e2| + |s| for au, |s| + |e1| for qv, |e2||s| + |e2||e1| +
+    |s||e1| for tn, 1 for the sphere's centre and radius and the box. A
+    corner moved by a few ulps of C moves each part by a few units. The
+    radii are compared where both are >= 0; a gap of 0 is 0 units, at the
+    padding's D = 0 too. ``corners`` are ``ref``'s
+    (``MeshCaster.corners``)."""
+    c0, c1, c2 = corners
+    o = ref.origin[:, None, None]
+    Cc = torch.stack([c.abs().amax(-1) for c in corners]).amax(0)  # (B, nb, T)
+    Co = torch.maximum(Cc, o.abs().amax(-1))
+    e1, e2, s = c1 - c0, c2 - c0, o - c0
+    n1, n2, ns = (torch.linalg.norm(x, dim=-1) for x in (e1, e2, s))
+    units = lambda gap, d: float(torch.where(gap == 0, 0.0, gap / (2.0 ** -23 * d)).amax())
+    scale = {"cr": Cc * (n1 + n2), "au": Co * (n2 + ns), "qv": Co * (ns + n1),
+             "tn": Co * (n2 * ns + n2 * n1 + ns * n1)}
+    out = {}
+    for i, (part, d) in enumerate(scale.items()):
+        rows = slice(3 * i, 3 * i + 3)
+        out[part] = units((m.terms[:, :, rows] - ref.terms[:, :, rows]).abs().amax(2), d)
+    out["centre"] = units((m.spheres[:, :, :3] - ref.spheres[:, :, :3]).abs().amax(2), Co)
+    real = (m.spheres[:, :, 3] >= 0) & (ref.spheres[:, :, 3] >= 0)
+    out["radius"] = units(torch.where(real, m.spheres[:, :, 3] - ref.spheres[:, :, 3], 0.0).abs(),
+                          Cc)
+    out["box"] = units(torch.maximum((m.lo - ref.lo).abs(), (m.hi - ref.hi).abs()),
+                       Cc.amax(-1, keepdim=True))
+    return out
+
+
 class MeshCaster:
     """The culled triangle sweep over every roster instance of a meshed
     class (``make_mesh_caster``). ``packed(world, ray_o (B,
@@ -584,6 +758,7 @@ class MeshCaster:
         self.codes = np.concatenate([np.repeat(c.ids + 2, c.n_blocks)
                                      for c in classes]).astype(np.int32)
         self.n_blocks = len(self.codes)
+        self.tables = term_tables(classes, tri_block)
         self._dev = {}
 
     def _on(self, device) -> dict:
@@ -591,11 +766,15 @@ class MeshCaster:
         key = str(device)
         if key not in self._dev:
             t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+            tab = self.tables
             self._dev[key] = {
                 "codes": t(self.codes),
                 "classes": [(t(c.verts), t(c.faces.astype(np.int64)), t(c.ids),
                              None if c.skin is None else {k: t(a) for k, a in c.skin.items()})
-                            for c in self.classes]}
+                            for c in self.classes],
+                "tables": TermTables(**{k: t(a) for k, a in tab.items()},
+                                     inst_rows=int(tab["blocks"][:, 0].max()) + 1,
+                                     prim_rows=int(tab["bone_rows"].max(initial=-1)) + 1)}
         return self._dev[key]
 
     def corners(self, world) -> Tuple[Tensor, Tensor, Tensor]:
@@ -629,22 +808,15 @@ class MeshCaster:
         d . au), qv = s x e1 (3; v_num = d . qv) and tn = e2 . qv (t_num), s
         = o - v0; each block's inflated AABB, lo and hi (B, n_blocks, 3);
         each triangle's bounding sphere (``triangle_spheres``); and
-        ``ray_o`` itself, the origin they hold."""
-        c0, c1, c2 = self.corners(world)
-        e1, e2 = c1 - c0, c2 - c0
-        s = ray_o[:, None, None, :] - c0
-        cross = lambda a, b: torch.linalg.cross(a, b, dim=-1)
-        qv = cross(s, e1)
-        tn = torch.sum(e2 * qv, dim=-1)
-        cr = cross(e2, e1)
-        terms = torch.cat([cr, cross(e2, s), qv, tn[..., None]], dim=-1)
-        blk_lo = torch.minimum(torch.minimum(c0, c1), c2).amin(dim=2)
-        blk_hi = torch.maximum(torch.maximum(c0, c1), c2).amax(dim=2)
-        # The boxes are exact f32 bounds: inflate them, or a ray grazing a
-        # silhouette triangle could pass the triangle test yet miss the slab.
-        eps = 1e-5 * torch.amax(blk_hi - blk_lo, dim=-1, keepdim=True)
-        return MeshTerms(terms.transpose(2, 3).contiguous(), blk_lo - eps, blk_hi + eps,
-                         triangle_spheres(c0, c1, c2, cr, ray_o), ray_o)
+        ``ray_o`` itself, the origin they hold. A CUDA origin launches
+        csrc/meshterms.cu (``mesh_terms_cuda``), a CPU one takes
+        ``plain_mesh_terms``."""
+        if not ray_o.is_cuda:
+            return plain_mesh_terms(self, world, ray_o)
+        pose = (world[k].contiguous() for k in ("inst_rot", "inst_pos", "prim_rot", "prim_pos"))
+        m = mesh_terms_cuda(self._on(ray_o.device)["tables"], *pose, ray_o.contiguous(),
+                            self.tri_block)
+        return m._replace(origin=ray_o)
 
     def layout(self, n: int) -> RayLayout:
         """How ``n`` rays a frame go in groups (``ray_layout``)."""

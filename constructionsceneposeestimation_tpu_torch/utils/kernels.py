@@ -45,6 +45,7 @@ SIGNATURES = {
                         _P],
     "cspe_raycast": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                      _P],
+    "cspe_mesh_terms": [_P] * 12 + [_I] * 5 + [_P] * 5,
 }
 
 

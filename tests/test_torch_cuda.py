@@ -21,7 +21,11 @@ and its tolerances are those of the full walk. The sweep's 2e-4 bound on
 relative t excludes grazing rays (disc
 ~ 0 on a quadric, or a flip to the surface behind), which measured 7.2e-6
 of 9.7M hit pixels at 64 x 512^2: up to 1e-4 of the hit pixels may exceed
-it."""
+it. The mesh terms kernel rounds the corners in FMA chains where its plain
+version runs torch.einsum: each part is held within 8 units of
+``meshcast.terms_gap`` (ulps of the corners' scale times the part's
+derivative by a corner), the exact zeros of cr and the -1 radii bit for
+bit, and the sweep over its terms to the sweep over the plain ones."""
 
 import numpy as np
 import pytest
@@ -442,6 +446,65 @@ def test_mesh_sweep_kept_covers_the_passing_pairs(mesh_scene, size):
         rows += mine.shape[0] * mine.shape[1]
     assert rows > 0 and agree / rows > 0.99
     assert int(kept[~visited[:, :, None, :, None].expand_as(kept)].abs().sum()) == 0
+
+
+def test_mesh_terms_kernel_matches_plain(mesh_scene):
+    """csrc/meshterms.cu (through ``MeshCaster.mesh_terms``) against
+    ``plain_mesh_terms`` on the same world and origin: each part within
+    8 units of ``terms_gap`` (a few ulps of the corners' scale times the
+    part's derivative: einsum and FMA chains round the corners apart), and
+    bit for bit where both are exact: cr = 0 and radius -1 on the same
+    slots."""
+    roster, w, cam, _ = mesh_scene
+    mesh = meshcast.make_mesh_caster(roster)
+    before = meshcast.mesh_terms_cuda.launches, meshcast.plain_mesh_terms.card_calls
+    m = mesh.mesh_terms(w, cam)
+    assert meshcast.mesh_terms_cuda.launches == before[0] + 1 and m.origin is cam
+    ref = meshcast.plain_mesh_terms(mesh, w, cam)
+    assert meshcast.plain_mesh_terms.card_calls == before[1] + 1
+    gap = meshcast.terms_gap(m, ref, mesh.corners(w))
+    assert max(gap.values()) <= 8.0, gap
+    flat, want = ((x.terms[:, :, :3] == 0).all(2) for x in (m, ref))
+    assert torch.equal(flat, want) and bool(want.any())
+    assert torch.equal(m.spheres[:, :, 3][want], ref.spheres[:, :, 3][want])
+    assert bool((m.spheres[:, :, 3][~want] > 0).all())
+    for got in m[:4]:
+        assert got.is_contiguous() and bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("size", [128, 512])
+def test_mesh_sweep_over_kernel_terms_matches_plain_terms(mesh_scene, size):
+    """The mesh sweep kernel over csrc/meshterms.cu's terms against the same
+    kernel over ``plain_mesh_terms``', pixels and keypoint segments, to the
+    bars of ``_check_mesh``."""
+    roster, w, cam, tgt = mesh_scene
+    intr = camera.intrinsics_from_apertures(12.0, 25.0, size, size)
+    mesh = meshcast.make_mesh_caster(roster, grid_hw=(size, size))
+    px = camera.pixel_rays(intr, camera.look_at_matrix(cam, tgt)).reshape(4, -1, 3)
+    kp = world.world_keypoints(w["inst_rot"], w["inst_pos"], w["kpts_local"]).reshape(4, -1, 3)
+    terms = mesh.mesh_terms(w, cam), meshcast.plain_mesh_terms(mesh, w, cam)
+    codes = mesh._on(cam.device)["codes"]
+    for d in (px, (kp - cam[:, None]).contiguous()):
+        lay = mesh.layout(d.shape[1])
+        k, p = (meshcast.mesh_sweep_cuda(m.terms, m.lo, m.hi, m.spheres, codes, cam, d, lay)
+                for m in terms)
+        tk, ck = raycast._unpack(k)
+        tp, cp = raycast._unpack(p)
+        hk, hp = tk < raycast.INF * 0.99, tp < raycast.INF * 0.99
+        both = hk & hp
+        assert (hk == hp).float().mean() > 0.9995 and int(both.sum()) > 0
+        rel = (torch.abs(tk - tp) / tp)[both]
+        n = int(both.sum())
+        assert int((rel > 2e-4).sum()) / n < 1e-4
+        assert int((rel > 1e-5).sum()) / n < 0.005
+        assert int((ck[both] != cp[both]).sum()) / n < 1e-3
+
+
+def test_mesh_terms_kernel_has_no_spills(dev):
+    from constructionsceneposeestimation_tpu_torch.utils import kernels
+    report = kernels.ptxas_report("meshterms.cu")
+    assert set(report) == {"mesh_terms_kernel"}, report
+    assert all(r["spill_bytes"] == 0 for r in report.values()), report
 
 
 def test_mesh_sweep_kernel_has_no_spills(dev):
