@@ -171,7 +171,10 @@ Run from the root of a checkout. Phases, each reported on its own line:
    the values, sky exact, |d| > 1 on <= 1e-3 of the ground pixels within
    an AO row's reach, |d| > 2 on at most 1e-3 more of the values than the
    untextured kernel against its plain version on the same inputs: texel
-   bin flips; noise on: the [rgb] statistics); textured generate's fields
+   bin flips; noise on: the [rgb] statistics); its time beside the
+   untextured kernel's, its bound on the pixels that the kernel's plan
+   (``rgb_kernel.texture_plan_plain``) sends through the texture stage, its
+   registers and spill stores (ptxas); textured generate's fields
    bit-equal to untextured generate's but the RGB; a procedural | textured
    PNG through ``utils/viz.save_png``; textured and untextured generate in
    turns; ``generate --image-textures --format packed --heatmaps`` (64
@@ -323,13 +326,16 @@ HIFI_FRAMES, HIFI_MIX = 32, 4
 TEX_FRAMES = 64
 TEXTURED = "rgb_textured"
 # csrc/rgb.cu's textured variant, operations beyond the untextured pixel's:
-# on every hit pixel the mask ladder's coordinates (r_xy 3, theta 3, the
-# ground's u and v 3, class compares 6) and the renormalize (12); on a
+# on every hit pixel the ground's u and v 3, the class compares 6 and the
+# renormalize 12; r_xy 3 on a tree pixel and theta 3 on a trunk or garment
+# pixel, the rungs that read them (rgb_kernel.texture_plan_plain); on a
 # pixel that samples (mix weight > 0, or the vest) the (u, v) select 3,
 # the bins and the texel's address 11, tint and clamp 6, the mix 12; on a
 # pixel with a normal map the second address 11, du and dv 6, the tangent
 # frame 12 and perturbation 12, the specular 25 and its add 3.
-RGB_TEX_HIT_OPS = 27
+RGB_TEX_HIT_OPS = 21
+RGB_TEX_R_XY_OPS = 3
+RGB_TEX_THETA_OPS = 3
 RGB_TEX_SAMPLE_OPS = 32
 RGB_TEX_MAP_OPS = 69
 # [distributed]: tools/check_sharded_step.py under torch.distributed.run,
@@ -488,12 +494,18 @@ SWEEP_KIND_OPS = {0: 12, 1: 27, 2: 44, 3: 97, 4: 37, 5: 57, 6: 97, 7: 79, 8: 83}
 # ground pixel. One ray and hit point (pinhole coordinates 4, ray 12,
 # normalise 9, finite test and select 2, hit point 6) is 33 of them: the
 # function needs it once a pixel, the neighbours' being their own work, so
-# the bound charges 259 - 2 x 33 a pixel and, on a ground pixel, the AO rows
-# it lies within reach of (render/rgb_kernel.ao_rows_needed). The count of
-# every AO row on every ground pixel with three rays stands beside it.
+# the bound charges 259 - 2 x 33 a hit pixel and, on a ground pixel, the AO
+# rows it lies within reach of (render/rgb_kernel.ao_rows_needed). The count
+# of every AO row on every ground pixel with three rays stands beside it.
 RGB_PIXEL_OPS = 259
 RGB_RAY_OPS = 33
 RGB_AO_ROW_OPS = 11
+# A sky pixel (t not finite) needs only its ray direction (pinhole
+# coordinates 4, ray 12, normalise 9), the finite test 1, the sky gradient
+# (clamp 2, scale and offset 2, the dome's floor and product 2) and three
+# channels of product 1, clamp 2, gamma chain 12, scale and round 2; every
+# RGB bound charges a sky pixel that.
+RGB_SKY_OPS = 83
 # csrc/rgb.cu's tier variants against the default pixel: a given normal
 # skips the screen-space normal (6 differences, the cross product 9, its
 # normalise 8 and scale 3, the camera test 6 and flip 3); a flat albedo
@@ -2369,67 +2381,67 @@ def textured_rgb_inputs(pipe, sweeper, world, inputs, M):
             rgb_kernel.ao_table(pipe.roster, world["inst_pos"]))
 
 
-def texture_stage_pixels(p_fn, t):
-    """(hit, sampled, mapped) (B, H, W) masks of the texture stage on the
-    plain textured call ``p_fn``'s inputs: hit pixels, those that sample
-    the texel table (mix weight > 0, or the vest) and those with a normal
-    map, read from the mask ladder's inputs and the map weights."""
+def texture_stage_pixels(t, inst, table, par):
+    """(hit, sampled, mapped, r_xy, theta) (B, H, W) masks of the texture
+    stage: hit pixels, those that sample the texel table (mix weight > 0,
+    or the vest), those with a normal map, and those whose ladder takes
+    r_xy and theta, from the textured kernel's plan
+    (``rgb_kernel.texture_plan_plain``)."""
     import torch
-    from constructionsceneposeestimation_tpu_torch.render import textures
-    seen = {}
-    apply = textures.apply_image_textures
-
-    def capture(albedo, lx, ly, lz, pwx, pwy, cls, tex, phase_):
-        out = apply(albedo, lx, ly, lz, pwx, pwy, cls, tex, phase_)
-        seen.update(lz=lz, cls=cls, w_nr=out[1][3])
-        return out
-
-    textures.apply_image_textures = capture
-    try:
-        p_fn()
-    finally:
-        textures.apply_image_textures = apply
-    hit = torch.isfinite(t)
-    cls, lz = seen["cls"], seen["lz"]
-    sampled = hit & ((cls == -1) | (cls == 1) | ((cls == 4) & (lz < 0.55))
-                     | ((cls == 5) & (lz < 1.58)))
-    return hit, sampled, hit & (seen["w_nr"] > 0)
+    from constructionsceneposeestimation_tpu_torch.render import rgb_kernel
+    plan = rgb_kernel.texture_plan_plain(t, inst, table, par)
+    return (torch.isfinite(t), plan.slot >= 0, plan.w_nr > 0, plan.takes_r_xy,
+            plan.takes_theta)
 
 
 def rgb_variant_bound(variant, t, inst, table, ao, par, texels=None, normal=None,
                       shadow_t=None):
     """(bound_ms, bound_by, operations, bytes) of a variant of csrc/rgb.cu
     ("textured" or one of ``rgb_kernel.VARIANTS``) on these inputs: the
-    default pixel's work as [rgb] charges it (one ray a pixel, the AO rows
-    within reach of each ground pixel) less the screen-space normal where a
-    normal is given and the local frame, patterns and AO where the albedo is
-    flat, plus the shadow gate and the texture stage on the pixels that
-    take it; the bytes of t, the instance id and the u8 out, the tables, 12
-    bytes a pixel of normals and 4 of shadow_t where read, and the texel
-    table once."""
+    default work as [rgb] charges it (the sky path on a sky pixel; one ray
+    a hit pixel, the AO rows within reach of each ground pixel) less the
+    screen-space normal where a normal is given and the local frame,
+    patterns and AO where the albedo is flat, plus the shadow gate and the
+    texture stage on the hit pixels that take them; the bytes of t, the
+    instance id and the u8 out, the tables, 12 bytes a pixel of normals and
+    4 of shadow_t where read, and the texel table once."""
+    import torch
     from constructionsceneposeestimation_tpu_torch.render import rgb_kernel
     parts = variant.split("+")
     n_px = t.numel()
-    ops = n_px * (RGB_PIXEL_OPS - 2 * RGB_RAY_OPS)
+    n_hit = int(torch.isfinite(t).sum())
+    flat = "flat" in parts
+    ops = rgb_default_ops(t, inst, ao, par, ao_rows=not flat)
+    if flat:
+        ops -= n_hit * RGB_PROCEDURAL_OPS
     nbytes = n_px * (4 + 4 + 3) + 4 * (table.numel() + ao.numel() + par.numel())
     if "normal" in parts:
-        ops -= n_px * RGB_SCREEN_NORMAL_OPS
+        ops -= n_hit * RGB_SCREEN_NORMAL_OPS
         nbytes += 12 * n_px
     if "shadow" in parts:
-        ops += n_px * RGB_SHADOW_OPS
+        ops += n_hit * RGB_SHADOW_OPS
         nbytes += 4 * n_px
-    if "flat" in parts:
-        ops -= n_px * RGB_PROCEDURAL_OPS
-    else:
-        ops += int(rgb_kernel.ao_rows_needed(t, inst, ao, par).sum()) * RGB_AO_ROW_OPS
     if "textured" in parts:
-        kw = {"normal": normal, "shadow_t": shadow_t}
-        hit, sampled, mapped = texture_stage_pixels(
-            lambda: rgb_kernel.plain_rgb(t, inst, table, ao, par, texels, **kw), t)
-        ops += (int(hit.sum()) * RGB_TEX_HIT_OPS + int(sampled.sum()) * RGB_TEX_SAMPLE_OPS
+        hit, sampled, mapped, r_xy, theta = texture_stage_pixels(t, inst, table, par)
+        ops += (n_hit * RGB_TEX_HIT_OPS + int(r_xy.sum()) * RGB_TEX_R_XY_OPS
+                + int(theta.sum()) * RGB_TEX_THETA_OPS + int(sampled.sum()) * RGB_TEX_SAMPLE_OPS
                 + int(mapped.sum()) * RGB_TEX_MAP_OPS)
         nbytes += 4 * texels.numel()
     return (*bound(nbytes, ops), ops, nbytes)
+
+
+def rgb_default_ops(t, inst, ao, par, ao_rows=True):
+    """Operations of the default RGB kernel's function on these inputs: the
+    sky path on each sky pixel, one ray and the untextured pixel's work on
+    each hit pixel and, with ``ao_rows``, the AO rows within reach of each
+    ground pixel (``rgb_kernel.ao_rows_needed``)."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.render import rgb_kernel
+    n_hit = int(torch.isfinite(t).sum())
+    ops = n_hit * (RGB_PIXEL_OPS - 2 * RGB_RAY_OPS) + (t.numel() - n_hit) * RGB_SKY_OPS
+    if ao_rows:
+        ops += int(rgb_kernel.ao_rows_needed(t, inst, ao, par).sum()) * RGB_AO_ROW_OPS
+    return ops
 
 
 def textures_phase(dev, card, counters, datagen, work, ck):
@@ -2453,10 +2465,10 @@ def textures_phase(dev, card, counters, datagen, work, ck):
     from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
     from constructionsceneposeestimation_tpu_torch.core import camera as cam_mod
     from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
-    from constructionsceneposeestimation_tpu_torch.render import meshcast, rgb_kernel, textures
+    from constructionsceneposeestimation_tpu_torch.render import meshcast, rgb_kernel
     from constructionsceneposeestimation_tpu_torch.scene import world as world_mod
     from constructionsceneposeestimation_tpu_torch.train import detect_loop
-    from constructionsceneposeestimation_tpu_torch.utils import viz
+    from constructionsceneposeestimation_tpu_torch.utils import kernels, viz
 
     launches = {}
     cfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES, batch_size=B))
@@ -2509,24 +2521,28 @@ def textures_phase(dev, card, counters, datagen, work, ck):
     t, inst, table, ao = textured_rgb_inputs(pipe, pipe.sweeper, world, inputs, M)
     k_fn = lambda: rgb_kernel.rgb_cuda(t, inst, table, ao, par_on, texels)
     p_fn = lambda: rgb_kernel.plain_rgb(t, inst, table, ao, par_on, texels)
-    # The bound charges the untextured pixel's work (as [rgb] does) plus the
-    # texture stage's, on the pixels this run's data sends through it.
-    hit, sampled, mapped = texture_stage_pixels(p_fn, t)
+    # The bound charges the untextured work (as [rgb] does: the sky path on
+    # a sky pixel) plus the texture stage's, on the pixels this run's data
+    # sends through it.
+    hit, sampled, mapped, r_xy, theta = texture_stage_pixels(t, inst, table, par_on)
     n_px = B * RES * RES
     tex_bound = rgb_variant_bound("textured", t, inst, table, ao, par_on, texels)
+    regs = kernels.ptxas_report("rgb.cu")["rgb_kernel<true, 0>"]
     result = {"max_abs_err": err, "ms": device_ms(k_fn, "rgb_kernel<true, 0>"),
               "call_ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, iters=2, warmup=1),
-              "bound_ms": tex_bound[0], "bound_by": tex_bound[1]}
+              "bound_ms": tex_bound[0], "bound_by": tex_bound[1], **regs}
     untex_ms = device_ms(lambda: rgb_kernel.rgb_cuda(t, inst, table, ao, par_on),
                          "rgb_kernel<false, 0>")
     phase("textures", f"textured RGB kernel, {B} x {RES}^2: {result['ms']:.4f} ms device time "
           f"(call {result['call_ms']:.4f} ms; untextured {untex_ms:.4f} ms in the same window), "
           f"plain {result['plain_ms']:.4f} ms; pixels hit {int(hit.sum()) / n_px:.4f}, sampling "
-          f"{int(sampled.sum()) / n_px:.4f}, normal-mapped {int(mapped.sum()) / n_px:.4f}; bound "
+          f"{int(sampled.sum()) / n_px:.4f}, normal-mapped {int(mapped.sum()) / n_px:.4f}, taking "
+          f"r_xy {int(r_xy.sum()) / n_px:.4f}, theta {int(theta.sum()) / n_px:.4f}; bound "
           f"{tex_bound[0]:.4f} ms ({tex_bound[1]}: {tex_bound[2]:.4e} operations, "
-          f"{tex_bound[3] / 1e6:.1f} MB); roofline share {100 * tex_bound[0] / result['ms']:.1f}% "
+          f"{tex_bound[3] / 1e6:.1f} MB); roofline share {100 * tex_bound[0] / result['ms']:.1f}%; "
+          f"{regs['registers']} registers, {regs['spill_bytes']} bytes of spill stores (ptxas) "
           f"on {card}")
-    del t, inst, table, ao, hit, sampled, mapped
+    del t, inst, table, ao, hit, sampled, mapped, r_xy, theta
 
     # Labels bit-equal to the untextured render of the same frames; the
     # textured variant launches once, the untextured RGB kernel not at all.
@@ -3807,8 +3823,7 @@ def main() -> int:
             rgb_bytes = (n_px * (4 + 4 + 3)
                          + 4 * (table.numel() + ao.numel() + par.numel()))
             n_ground = int(ground.sum())
-            rgb_ops = (n_px * (RGB_PIXEL_OPS - 2 * RGB_RAY_OPS)
-                       + int(needed.sum()) * RGB_AO_ROW_OPS)
+            rgb_ops = rgb_default_ops(t, inst, ao, par)
             old_ops = n_px * RGB_PIXEL_OPS + n_ground * ao.shape[1] * RGB_AO_ROW_OPS
             kept = rgb_kernel.ao_cull_plain(t, inst, ao, par)  # (B, H, cells_x, A)
             cw = rgb_kernel.TILE[0]

@@ -92,27 +92,57 @@
 // rough/spec_w term of shading.shade. Plain version: plain_rgb with its
 // `texels`. After the procedural patterns a hit pixel takes, by class and
 // local coordinates, a texture slot, (u, v) and a weight (the mask ladder
-// of render/textures.py), samples the dense (13, 128, 128, 4) texel table
-// (textures.dense_table: each texel the clipped rank-12 sum, computed once)
-// with one 16-byte load, tints, mixes or weaves, and on the leaf crown and
-// the three garments samples the *_nr slot (normal offsets and roughness)
-// with a second load. Every hit pixel's normal is then renormalized, and
-// where the map applies perturbed in the chart-free tangent frame first;
-// the shade adds the Blinn-Phong term (accurate powf) on those pixels.
-// Bins are the floor modulo of floor(u * 128) (((i % B) + B) % B), as
-// jnp's `%` and torch.remainder: world u is often negative. A pixel of
+// of render/textures.py; render/rgb_kernel.texture_plan_plain mirrors it),
+// samples the dense (13, 128, 128, 4) texel table (textures.dense_table:
+// each texel the clipped rank-12 sum, computed once) with one 16-byte load,
+// tints, mixes or weaves, and on the leaf crown and the three garments
+// samples the *_nr slot (normal offsets and roughness) with a second load,
+// issued beside the first. Every hit pixel's normal is then renormalized,
+// and where the map applies perturbed in the chart-free tangent frame
+// first; the shade adds the Blinn-Phong term (accurate powf) on those
+// pixels. Bins are the floor modulo of floor(u * 128) (((i % B) + B) % B),
+// as jnp's `%` and torch.remainder: world u is often negative. A pixel of
 // mix weight 0 keeps its albedo exactly, so it skips the first load unless
 // it is the vest's (weight 0, but its weave needs the sample); a pixel of
 // map weight 0 adds an exact 0 and skips the second. Its bound: the same
 // device-memory bytes as the untextured kernel (t and instance in, u8
 // out) plus the 3.4 MB table once, which then stays in the 50 MB L2; the
-// operations of the untextured pixel plus the texture work of the mapped
-// pixels. The variant takes its own register cap: __launch_bounds__(256,
-// 4), 64 registers, for the extra live values of the texture stage (ptxas:
-// 62, no spills). Measured by chip_smoke.py on an H100 SXM (NVIDIA H100
-// 80GB HBM3, 700 W), device time a launch at 64 x 512^2 on the datagen
-// path's inputs: 0.593 ms, beside the untextured 0.407 to 0.410 ms in the
-// same window; its operations bound is 0.059 ms.
+// operations of the untextured hit pixel plus the texture work of the hit
+// pixels that take it, and on a sky pixel only its ray, sky gradient and
+// gamma chains (chip_smoke.py's rgb_variant_bound; bytes-bound at 64 x
+// 512^2 since the sky pixels are charged their path, PERF.md §6).
+//
+// Design of the variant, for the same IEEE operations in the same order a
+// pixel as its first build (whose images it gives bit for bit):
+// - A sky pixel (t not finite) takes its colour from its ray alone, on a
+//   path of its own: no normal, albedo, hash noise, texture or shade, none
+//   of which reaches its colour. The hit pixels' path is the untextured
+//   kernel's text, so the untextured instantiations are the same machine
+//   code as before the variant was redesigned.
+// - The mask ladder takes r_xy only on trees and theta (atan2f) only on
+//   trunks and garments, the rungs that read them.
+// - The default's register cap, __launch_bounds__(256, 8): 32 registers
+//   (ptxas: 20 to 40 bytes of spill stores), 64 warps an SM.
+// Measured by tools/kernel_variants.py on an H100 SXM (NVIDIA H100 80GB
+// HBM3, 700.00 W), device time a launch at 64 x 512^2 on the datagen path's
+// inputs, two turns each in one window (PERF.md §6): 0.4488 and 0.4491 ms,
+// beside the untextured 0.4107 and 0.4106 and the first build's 0.5990
+// (62 registers under a cap of 4 blocks); textured+normal 0.3959 and
+// 0.3955 (first build 0.5139, 0.5179), textured+shadow 0.4552 and 0.4554
+// (0.6324, 0.6323), textured+normal+shadow 0.3951 and 0.4069 (0.5514,
+// 0.5513). Caps, each bit-equal: 4 blocks (62 registers, no spills) 0.5337,
+// 5 (48, none) 0.4810, 6 (40, 16 B) 0.4581, 8 0.4490. Each stage by its
+// absence: the texture stage 0.063 ms (the texel loads 0.020, theta and
+// r_xy 0.002), the renormalize 0.010, powf 0.007 to 0.014; the sky path
+// saves 0.048. In the first build the same stages cost 0.09 (loads 0.044,
+// theta and r_xy 0.019), 0.015 and 0.012, and its cap ~0.07. Tried and
+// dropped with their code as slower: the mask ladder run as soon as the
+// table row is known, with both loads issued there as cp.async copies into
+// shared memory (8 KB a block) to land during the sync, the AO walk and
+// the normal: 0.4650 ms against 0.4517 for plain loads where they are used
+// (0.4540 to 0.4613 with the ladder after the sync, after the AO walk or
+// before the patterns); at 64 warps an SM the other warps hide the loads,
+// and the early ladder only lengthens what a thread holds across the sync.
 //
 // The tier variants (annotate.render_frame's analytic_normals, sun_shadows
 // and procedural_textures=False, which the JAX package shades in jnp,
@@ -159,7 +189,7 @@ constexpr int kTileH = 8;
 constexpr int kTiles = 4;                       // tiles a block walks, top to bottom
 constexpr int kRows = kTileH * kTiles;          // rows a block covers
 constexpr int kMinBlocks = 8;                   // blocks an SM: at most 32 registers
-constexpr int kMinBlocksTex = 4;                // the textured variant: at most 64
+constexpr int kMinBlocksTex = 8;                // the textured variant: at most 32
 constexpr int kMinBlocksTier = 8;               // the untextured tier variants
 // The texel table's bins a side (render/rgb_kernel.TEX_BINS) and its slots
 // (render/textures.TEX).
@@ -253,37 +283,41 @@ __device__ void procedural_albedo(float* alb, float x, float y, float z, float c
   }
 }
 
-// The texel of slot `tex` at (u, v): floor(u * B) and floor(v * B) taken
-// modulo B as a floor modulo (u * B is exact, B being a power of two).
-__device__ __forceinline__ float4 texel(const float4* __restrict__ texels, int tex, float u,
-                                        float v) {
+// The texel index of slot `tex` at (u, v): floor(u * B) and floor(v * B)
+// taken modulo B as a floor modulo (u * B is exact, B being a power of two).
+__device__ __forceinline__ int texel_index(int tex, float u, float v) {
   int ub = (int)floorf(u * (float)kTexBins);
   int vb = (int)floorf(v * (float)kTexBins);
   ub = ((ub % kTexBins) + kTexBins) % kTexBins;
   vb = ((vb % kTexBins) + kTexBins) % kTexBins;
-  return __ldg(texels + (tex * kTexBins + ub) * kTexBins + vb);
+  return (tex * kTexBins + ub) * kTexBins + vb;
 }
 
 // textures.apply_image_textures on one hit pixel: the procedural albedo
 // `alb` becomes the textured one; (du, dv, rough, w_nr) are the normal-map
-// offsets, roughness and map weight (all 0 where no map applies). The
-// (u, v) arithmetic is uncontracted, in PyTorch's order, so a bin edge
-// moves only with the ulps of the local coordinates.
-__device__ void image_textures(float* alb, float lx, float ly, float lz, float pwx, float pwy,
-                               float cls, float phase, const float4* __restrict__ texels,
-                               float& du, float& dv, float& rough, float& w_nr) {
-  const float r_xy = sqrtf(lx * lx + ly * ly);
-  const float theta = __fadd_rn(__fmul_rn(atan2f(ly, lx), (float)(0.5 / kPi)), 0.5f);
+// offsets, roughness and map weight (left at 0 where no map applies). The
+// mask ladder (render/rgb_kernel.texture_plan_plain mirrors it) takes r_xy
+// only on trees and theta only on trunks and garments, where it reads them;
+// both texel loads go out before either is used. The (u, v) arithmetic is
+// uncontracted, in PyTorch's order, so a bin edge moves only with the ulps
+// of the local coordinates.
+__device__ __forceinline__ void image_textures(float* alb, float lx, float ly, float lz, float pwx,
+                                               float pwy, float cls, float phase,
+                                               const float4* __restrict__ texels, float& du,
+                                               float& dv, float& rough, float& w_nr) {
+  const auto theta = [&] {
+    return __fadd_rn(__fmul_rn(atan2f(ly, lx), (float)(0.5 / kPi)), 0.5f);
+  };
   float u = __fadd_rn(__fmul_rn(pwx, (float)(1.0 / 6.0)), phase);
   float v = __fmul_rn(pwy, (float)(1.0 / 6.0));
   int tex = kGround, nr_tex = -1;
   float w = cls == -1.0f ? 0.45f : 0.0f;
   float tint[3] = {1.0f, 1.0f, 1.0f};
   bool vest = false;
-  w_nr = 0.0f;
   if (cls == 1.0f) {
+    const float r_xy = sqrtf(lx * lx + ly * ly);
     if (r_xy < 0.45f && lz < 3.2f) {  // trunk
-      u = __fadd_rn(theta, phase);
+      u = __fadd_rn(theta(), phase);
       v = __fmul_rn(lz, (float)(1.0 / 2.5));
       tex = kBark;
       w = 0.85f;
@@ -302,14 +336,14 @@ __device__ void image_textures(float* alb, float lx, float ly, float lz, float p
     w = 0.5f;
   } else if (cls == 5.0f) {
     if (lz > 1.02f && lz < 1.48f) {
-      u = __fadd_rn(__fmul_rn(theta, 4.0f), phase);
+      u = __fadd_rn(__fmul_rn(theta(), 4.0f), phase);
       v = __fmul_rn(lz, 2.0f);
       tex = kTwill;
       nr_tex = kTwillNr;
       w_nr = 1.0f;
       vest = true;
     } else if (lz <= 1.02f) {
-      u = __fadd_rn(__fmul_rn(theta, 2.0f), phase);
+      u = __fadd_rn(__fmul_rn(theta(), 2.0f), phase);
       v = __fmul_rn(lz, 1.2f);
       tex = kDenim;
       w = 1.0f;
@@ -317,7 +351,7 @@ __device__ void image_textures(float* alb, float lx, float ly, float lz, float p
       w_nr = 1.0f;
       set3(tint, 0.83f, 1.15f, 2.90f);
     } else if (lz >= 1.48f && lz < 1.58f) {
-      u = __fadd_rn(__fmul_rn(theta, 3.0f), phase);
+      u = __fadd_rn(__fmul_rn(theta(), 3.0f), phase);
       v = __fmul_rn(lz, 1.6f);
       tex = kCotOx;
       w = 1.0f;
@@ -326,25 +360,27 @@ __device__ void image_textures(float* alb, float lx, float ly, float lz, float p
       set3(tint, 0.95f, 1.08f, 1.33f);
     }
   }
-  if (w != 0.0f || vest) {
-    const float4 s = texel(texels, tex, u, v);
-    const float c[3] = {clampf(__fmul_rn(tint[0], s.x), 0.0f, 1.0f),
-                        clampf(__fmul_rn(tint[1], s.y), 0.0f, 1.0f),
-                        clampf(__fmul_rn(tint[2], s.z), 0.0f, 1.0f)};
-    if (vest) {
-      const float weave = __fadd_rn(0.6f, __fmul_rn(0.8f, c[0]));
-      for (int i = 0; i < 3; ++i) alb[i] = __fmul_rn(alb[i], weave);
-    } else {
-      for (int i = 0; i < 3; ++i)
-        alb[i] = __fadd_rn(__fmul_rn(alb[i], __fsub_rn(1.0f, w)), __fmul_rn(c[i], w));
-    }
+  // A pixel of mix weight 0 keeps its albedo exactly and samples nothing,
+  // unless it is the vest's, whose weave needs the sample.
+  if (w == 0.0f && !vest) return;
+  const int i = texel_index(tex, u, v);
+  const float4 s = __ldg(texels + i);
+  const float4 m = nr_tex >= 0 ? __ldg(texels + i + (nr_tex - tex) * kTexBins * kTexBins)
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float c[3] = {clampf(__fmul_rn(tint[0], s.x), 0.0f, 1.0f),
+                      clampf(__fmul_rn(tint[1], s.y), 0.0f, 1.0f),
+                      clampf(__fmul_rn(tint[2], s.z), 0.0f, 1.0f)};
+  if (vest) {
+    const float weave = __fadd_rn(0.6f, __fmul_rn(0.8f, c[0]));
+    for (int k = 0; k < 3; ++k) alb[k] = __fmul_rn(alb[k], weave);
+  } else {
+    for (int k = 0; k < 3; ++k)
+      alb[k] = __fadd_rn(__fmul_rn(alb[k], __fsub_rn(1.0f, w)), __fmul_rn(c[k], w));
   }
-  du = dv = rough = 0.0f;
   if (nr_tex >= 0) {
-    const float4 s = texel(texels, nr_tex, u, v);
-    du = __fmul_rn(__fsub_rn(__fmul_rn(2.0f, s.x), 1.0f), w_nr);
-    dv = __fmul_rn(__fsub_rn(__fmul_rn(2.0f, s.y), 1.0f), w_nr);
-    rough = s.z;
+    du = __fmul_rn(__fsub_rn(__fmul_rn(2.0f, m.x), 1.0f), w_nr);
+    dv = __fmul_rn(__fsub_rn(__fmul_rn(2.0f, m.y), 1.0f), w_nr);
+    rough = m.z;
   }
 }
 
@@ -529,7 +565,18 @@ rgb_kernel(const float* __restrict__ t, const int* __restrict__ inst,
       }
     }
 
-    if (in) {
+    if (TEX && in && !is_hit) {
+      // The textured variant's sky pixel: only its ray reaches its colour,
+      // so it builds no normal, albedo, noise or shade.
+      const float sky_base = __fmul_rn(__fadd_rn(0.85f, __fmul_rn(0.15f, clampf(rdz, 0.0f, 1.0f))),
+                                       fmaxf(p[20], 0.3f));
+      uint8_t* o = vec_out ? &s_out[ty][tx * 3] : out + ((size_t)b * n_pix + pix) * 3;
+      for (int ch = 0; ch < 3; ++ch) {
+        const float c = clampf(__fmul_rn(p[21 + ch], sky_base), 0.0f, 1.0f);
+        o[ch] = (uint8_t)rintf(__fmul_rn(gamma22(c), 255.0f));
+      }
+    }
+    if (in && (!TEX || is_hit)) {
       const size_t px = (size_t)b * n_pix + pix;
       float nx, ny, nz;
       if (given_n) {
@@ -574,8 +621,7 @@ rgb_kernel(const float* __restrict__ t, const int* __restrict__ inst,
         procedural_albedo(alb, lx, ly, lz, cls, p[24], p[26]);
         if constexpr (TEX) {
           float du = 0.0f, dv = 0.0f;
-          if (is_hit) image_textures(alb, lx, ly, lz, pwx, pwy, cls, p[24], texels, du, dv, rough,
-                                     w_nr);
+          image_textures(alb, lx, ly, lz, pwx, pwy, cls, p[24], texels, du, dv, rough, w_nr);
           perturb_normal(nx, ny, nz, du, dv, w_nr != 0.0f);
         }
       }

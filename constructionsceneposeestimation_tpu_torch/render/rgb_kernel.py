@@ -28,6 +28,10 @@ procedural branch) or contact AO; the hash noise stays.
 (``variant_name``), which ``launches`` and ``textured_launches`` do not
 include.
 
+``texture_plan_plain`` mirrors the textured kernel's mask ladder: each
+pixel's texture slot, texel bins and weights, which the kernel computes
+before its texel loads.
+
 The kernel culls the contact-AO rows per 32 x 1 row of a tile (a warp):
 it keeps the rows whose widened reach meets the xy box of the row's ground
 hit points, and every culled row's term is exactly 1 there.
@@ -47,6 +51,8 @@ Inputs shared by both versions, per frame:
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -154,6 +160,22 @@ def hit_points(t: Tensor, params: Tensor):
     return rd, tuple(p(13 + i) + ts * rd[i] for i in range(3))
 
 
+def table_rows(inst: Tensor, table: Tensor) -> Tensor:
+    """(B, H, W, 16): each pixel's table row (instances, then the ground on
+    inst -1 and the sky on inst -2)."""
+    n_inst = table.shape[1] - 2
+    idx = torch.where(inst >= 0, inst, n_inst - 1 - inst).long()
+    return table[torch.arange(inst.shape[0], device=inst.device)[:, None, None], idx]
+
+
+def local_coords(pw, tab: Tensor):
+    """(lx, ly, lz): the hit points ``pw`` in their instance's frame, from
+    the table rows ``tab`` (R (pw - position), as the kernel rounds it)."""
+    dw = tuple(pw[i] - tab[..., 12 + i] for i in range(3))
+    return tuple(tab[..., 3 + i] * dw[0] + tab[..., 6 + i] * dw[1] + tab[..., 9 + i] * dw[2]
+                 for i in range(3))
+
+
 def plain_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor,
               texels: Tensor | None = None, normal: Tensor | None = None,
               shadow_t: Tensor | None = None, procedural: bool = True) -> Tensor:
@@ -169,16 +191,11 @@ def plain_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor
     else:
         normal = (normal[..., 0], normal[..., 1], normal[..., 2])
 
-    n_inst = table.shape[1] - 2
-    idx = torch.where(inst >= 0, inst, n_inst - 1 - inst).long()
-    tab = table[torch.arange(B, device=dev)[:, None, None], idx]  # (B, H, W, 16)
+    tab = table_rows(inst, table)
     albedo = (tab[..., 0], tab[..., 1], tab[..., 2])
     rough = spec_w = ao_f = None
     if procedural:
-        dw = tuple(pw[i] - tab[..., 12 + i] for i in range(3))
-        lx = tab[..., 3] * dw[0] + tab[..., 6] * dw[1] + tab[..., 9] * dw[2]
-        ly = tab[..., 4] * dw[0] + tab[..., 7] * dw[1] + tab[..., 10] * dw[2]
-        lz = tab[..., 5] * dw[0] + tab[..., 8] * dw[1] + tab[..., 11] * dw[2]
+        lx, ly, lz = local_coords(pw, tab)
         cls = tab[..., 15]
         albedo = sh.procedural_albedo(albedo, lx, ly, lz, cls, p(24), p(26))
         if texels is not None:
@@ -201,6 +218,48 @@ def plain_rgb(t: Tensor, inst: Tensor, table: Tensor, ao: Tensor, params: Tensor
     planes = sh.shade(t, normal, pw, rd, albedo, lighting, ao=ao_f, rough=rough, spec_w=spec_w,
                       shadow_t=shadow_t)
     return sh.linear_to_srgb_u8(planes)
+
+
+class TexturePlan(NamedTuple):
+    """The textured kernel's mask ladder per pixel (``texture_plan_plain``),
+    each (B, H, W)."""
+
+    slot: Tensor  # int64 texture slot of the mix sample, -1 where none
+    ub: Tensor  # int64 texel bins of both samples (floor modulo TEX_BINS)
+    vb: Tensor
+    w: Tensor  # f32 mix weight (0 where the albedo stays)
+    nr_slot: Tensor  # int64 *_nr slot of the map sample, -1 where none
+    w_nr: Tensor  # f32 map weight (0 where no map applies)
+    takes_r_xy: Tensor  # bool: the ladder takes r_xy (tree pixels)
+    takes_theta: Tensor  # bool: the ladder takes theta (trunks and garments)
+
+
+def texture_plan_plain(t: Tensor, inst: Tensor, table: Tensor, params: Tensor) -> TexturePlan:
+    """What the textured kernel plans for each pixel before the texel loads,
+    on tensors: the slot, bins and mix weight of the first sample and the
+    slot and weight of the normal map's. A pixel that misses plans no
+    sample; a hit pixel of mix weight 0 samples only on the vest (whose
+    weave needs it); one of map weight 0 reads no map. Its local
+    coordinates and (u, v) take the kernel's operations in its order
+    (``local_coords``, ``textures.mask_ladder``); the kernel computes
+    r_xy only on trees and theta only on trunks and garments, where the
+    ladder reads them (``takes_r_xy``, ``takes_theta``)."""
+    B = t.shape[0]
+    pw = hit_points(t, params)[1]
+    tab = table_rows(inst, table)
+    lx, ly, lz = local_coords(pw, tab)
+    lad = textures.mask_ladder(lx, ly, lz, pw[0], pw[1], tab[..., 15],
+                               params[:, 24].reshape(B, 1, 1))
+    hit = torch.isfinite(t)
+    sampled = hit & ((lad.w != 0.0) | lad.vest)
+    mapped = hit & (lad.w_nr != 0.0)
+    tree = hit & (tab[..., 15] == 1.0)
+    trunk = tree & (lad.tex == float(textures.TEX["bark"]))
+    return TexturePlan(torch.where(sampled, lad.tex.long(), -1),
+                       textures.texel_bin(lad.u, TEX_BINS), textures.texel_bin(lad.v, TEX_BINS),
+                       torch.where(hit, lad.w, 0.0), torch.where(mapped, lad.nr_tex.long(), -1),
+                       torch.where(hit, lad.w_nr, 0.0), tree,
+                       trunk | (hit & (lad.vest | lad.legs | lad.shirt)))
 
 
 def ao_cull_plain(t: Tensor, inst: Tensor, ao: Tensor, params: Tensor) -> Tensor:

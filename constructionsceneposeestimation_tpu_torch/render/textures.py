@@ -20,8 +20,8 @@ clipped sum of K products, computed once (a fourth lane pads a texel to
 is then one 16-byte load. ``sample_texels`` is that load on tensors.
 
 ``apply_image_textures`` is the class-conditioned mapping (the JAX
-function with ``with_nr=True``): the mask ladder that picks a texture and
-its (u, v) per pixel, the garment tints, the mix over the procedural
+function with ``with_nr=True``): the mask ladder (``mask_ladder``) that
+picks a texture and its (u, v) per pixel, the garment tints, the mix over the procedural
 albedo, the vest's fabric weave, and the ``*_nr`` sample of the packed
 [nx, ny, roughness] composites. It works on (B, H, W) planes with a
 per-frame ``tex_phase``. Labels never read any of this.
@@ -77,7 +77,7 @@ def load_factors(path: str | Path = FACTORS_NPZ) -> TextureFactors:
     return TextureFactors(pack(U), pack(V), bins, rank, T)
 
 
-def _bin(x: Tensor, bins: int) -> Tensor:
+def texel_bin(x: Tensor, bins: int) -> Tensor:
     """floor(x * bins) modulo bins, the floor modulo (jnp's ``%``): every
     texture tiles, and negative coordinates are common."""
     return torch.remainder(torch.floor(x * bins).to(torch.int64), bins)
@@ -88,8 +88,8 @@ def sample(factors: TextureFactors, u: Tensor, v: Tensor, tex_id: Tensor) -> Pla
     coordinates (wrapped), planes of any shape. One channel at a time, so a
     gather holds (N, K) values, not (N, 3K)."""
     B, K = factors.bins, factors.rank
-    rows_u = tex_id.long() * B + _bin(u, B)
-    rows_v = tex_id.long() * B + _bin(v, B)
+    rows_u = tex_id.long() * B + texel_bin(u, B)
+    rows_v = tex_id.long() * B + texel_bin(v, B)
     out = []
     for c in range(3):
         F = factors.U[:, c * K:(c + 1) * K][rows_u]
@@ -111,31 +111,39 @@ def dense_table(factors: TextureFactors) -> Tensor:
 def sample_texels(texels: Tensor, u: Tensor, v: Tensor, tex_id: Tensor) -> Planes3:
     """``sample`` through the dense (T, B, B, 4) table: one texel a pixel."""
     B = texels.shape[1]
-    idx = (tex_id.long() * B + _bin(u, B)) * B + _bin(v, B)
+    idx = (tex_id.long() * B + texel_bin(u, B)) * B + texel_bin(v, B)
     s = texels.reshape(-1, 4)[idx.reshape(-1)].reshape(idx.shape + (4,))
     return s[..., 0], s[..., 1], s[..., 2]
 
 
-def apply_image_textures(albedo: Planes3, lx: Tensor, ly: Tensor, lz: Tensor, pwx: Tensor,
-                         pwy: Tensor, class_id: Tensor, texels: Tensor, tex_phase: Tensor):
-    """Class-conditioned image texturing over the procedural albedo ->
-    ``(albedo, (du, dv, rough, w_nr))``.
+class Ladder(NamedTuple):
+    """The mask ladder's choice per pixel (``mask_ladder``)."""
 
-    (lx, ly, lz): the hit in the owning instance's frame; (pwx, pwy): in
-    the world frame (ground UVs); ``class_id`` float (-1 ground, -2 sky);
-    ``tex_phase`` broadcasts against the planes. Mapping:
+    u: Tensor  # texel coordinates of both samples
+    v: Tensor
+    tex: Tensor  # float slot of the mix sample (``ground`` where none)
+    w: Tensor  # mix weight (0 where the albedo stays)
+    vest: Tensor  # bool: the twill weave multiplies the albedo
+    legs: Tensor  # bool: denim, tinted LEGS_TINT
+    shirt: Tensor  # bool: cot_ox, tinted SHIRT_TINT
+    nr_tex: Tensor  # float *_nr slot of the map sample (0 where none)
+    w_nr: Tensor  # map weight (0 where no map applies)
+
+
+def mask_ladder(lx: Tensor, ly: Tensor, lz: Tensor, pwx: Tensor, pwy: Tensor,
+                class_id: Tensor, tex_phase: Tensor) -> Ladder:
+    """The class-conditioned mapping of ``apply_image_textures``: per pixel
+    the texture slot and its (u, v), the mix weight, the garment masks, and
+    the ``*_nr`` slot and map weight.
 
       ground:       ``ground`` planar 6 m tiles, 45% over the base
       tree trunk:   ``bark`` cylindrical, 85%
-      tree crown:   ``leaf`` planar 1.5 m tiles, 50%
+      tree crown:   ``leaf`` planar 1.5 m tiles, 50%; ``leaf_nr`` 0.8
       dumper low:   ``dirt`` grime, 50%
-      worker legs:  ``denim`` wrap, tinted, replacing the base
-      worker vest:  ``twill`` weave multiplying the hi-vis base
-      worker chest: ``cot_ox`` shirt, tinted, replacing the base
-
-    The second sample reads the matching ``*_nr`` slot at the same (u, v)
-    on the leaf crown and the three garments: tangent-space normal offsets
-    du, dv in [-1, 1] and roughness, weighted by ``w_nr`` (0 elsewhere)."""
+      worker legs:  ``denim`` wrap, tinted, replacing the base; ``denim_nr``
+      worker vest:  ``twill`` weave multiplying the hi-vis base; ``twill_nr``
+      worker chest: ``cot_ox`` shirt, tinted, replacing the base; ``cot_ox_nr``
+    """
     r_xy = torch.sqrt(lx * lx + ly * ly)
     theta = torch.atan2(ly, lx) * (0.5 / math.pi) + 0.5  # [0, 1)
     phase = tex_phase
@@ -165,22 +173,40 @@ def apply_image_textures(albedo: Planes3, lx: Tensor, ly: Tensor, lz: Tensor, pw
     place(legs, theta * 2.0 + phase, lz * 1.2, TEX["denim"], 1.0)
     place(shirt, theta * 3.0 + phase, lz * 1.6, TEX["cot_ox"], 1.0)
 
-    tex_rgb = sample_texels(texels, u, v, tex)
-    tint = [torch.where(legs, a, torch.where(shirt, b, 1.0))
-            for a, b in zip(LEGS_TINT, SHIRT_TINT)]
-    tex_rgb = tuple(torch.clamp(t_ * s, 0.0, 1.0) for t_, s in zip(tint, tex_rgb))
-    out = tuple(a * (1.0 - w) + t_ * w for a, t_ in zip(albedo, tex_rgb))
-    # The vest's weave multiplies the hi-vis base instead of replacing it.
-    weave = 0.6 + 0.8 * tex_rgb[0]
-    out = tuple(torch.where(vest, a * weave, o) for a, o in zip(albedo, out))
-
     nr_tex = torch.zeros_like(class_id)
     w_nr = torch.zeros_like(lx)
     for mask, tid, ww in ((crown, TEX["leaf_nr"], 0.8), (legs, TEX["denim_nr"], 1.0),
                           (vest, TEX["twill_nr"], 1.0), (shirt, TEX["cot_ox_nr"], 1.0)):
         nr_tex = torch.where(mask, float(tid), nr_tex)
         w_nr = torch.where(mask, ww, w_nr)
-    nx_s, ny_s, rough = sample_texels(texels, u, v, nr_tex)
-    du = (2.0 * nx_s - 1.0) * w_nr
-    dv = (2.0 * ny_s - 1.0) * w_nr
-    return out, (du, dv, rough, w_nr)
+    return Ladder(u, v, tex, w, vest, legs, shirt, nr_tex, w_nr)
+
+
+def apply_image_textures(albedo: Planes3, lx: Tensor, ly: Tensor, lz: Tensor, pwx: Tensor,
+                         pwy: Tensor, class_id: Tensor, texels: Tensor, tex_phase: Tensor):
+    """Class-conditioned image texturing over the procedural albedo ->
+    ``(albedo, (du, dv, rough, w_nr))``.
+
+    (lx, ly, lz): the hit in the owning instance's frame; (pwx, pwy): in
+    the world frame (ground UVs); ``class_id`` float (-1 ground, -2 sky);
+    ``tex_phase`` broadcasts against the planes. ``mask_ladder`` picks each
+    pixel's texture, (u, v) and weight; the garments are tinted, the mix
+    replaces a share of the albedo, the vest's weave multiplies it.
+
+    The second sample reads the matching ``*_nr`` slot at the same (u, v)
+    on the leaf crown and the three garments: tangent-space normal offsets
+    du, dv in [-1, 1] and roughness, weighted by ``w_nr`` (0 elsewhere)."""
+    lad = mask_ladder(lx, ly, lz, pwx, pwy, class_id, tex_phase)
+    tex_rgb = sample_texels(texels, lad.u, lad.v, lad.tex)
+    tint = [torch.where(lad.legs, a, torch.where(lad.shirt, b, 1.0))
+            for a, b in zip(LEGS_TINT, SHIRT_TINT)]
+    tex_rgb = tuple(torch.clamp(t_ * s, 0.0, 1.0) for t_, s in zip(tint, tex_rgb))
+    out = tuple(a * (1.0 - lad.w) + t_ * lad.w for a, t_ in zip(albedo, tex_rgb))
+    # The vest's weave multiplies the hi-vis base instead of replacing it.
+    weave = 0.6 + 0.8 * tex_rgb[0]
+    out = tuple(torch.where(lad.vest, a * weave, o) for a, o in zip(albedo, out))
+
+    nx_s, ny_s, rough = sample_texels(texels, lad.u, lad.v, lad.nr_tex)
+    du = (2.0 * nx_s - 1.0) * lad.w_nr
+    dv = (2.0 * ny_s - 1.0) * lad.w_nr
+    return out, (du, dv, rough, lad.w_nr)

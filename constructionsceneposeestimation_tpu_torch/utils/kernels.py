@@ -117,6 +117,24 @@ def ptxas_report(source: str = "rgb.cu") -> dict:
     return parse_ptxas(proc.stdout + proc.stderr)
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled one (``_ZN...``, as ptxas and
+    cuobjdump print it), with a template's arguments: e.g.
+    ``rgb_kernel<false, 0>``."""
+    # The nested name: <length><identifier> pieces, then the template
+    # arguments (Lb0E false, Li7E 7, Lin1E -1).
+    mangled = mangled.removeprefix("_ZN")
+    pos, kernel = 0, None
+    while (d := re.match(r"\d+", mangled[pos:])) and kernel is None:
+        ident = mangled[pos + d.end():pos + d.end() + int(d.group())]
+        pos += d.end() + len(ident)
+        kernel = ident if ident.endswith("_kernel") else None
+    args = re.findall(r"L([bi])(n?\d+)E", mangled[pos:]) if mangled[pos:pos + 1] == "I" else []
+    conv = {"b0": "false", "b1": "true"}
+    targs = [conv.get(k + v, v.replace("n", "-")) for k, v in args]
+    return f"{kernel}<{', '.join(targs)}>" if targs else kernel
+
+
 def parse_ptxas(report: str) -> dict:
     """The registers and spill-store bytes of each kernel in ``nvcc -Xptxas
     -v`` output (see ``ptxas_report``)."""
@@ -124,18 +142,7 @@ def parse_ptxas(report: str) -> dict:
     for line in report.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?_ZN(\w+)", line)
         if m:
-            # The nested name: <length><identifier> pieces, then the
-            # template arguments (Lb0E false, Li7E 7, Lin1E -1).
-            mangled, pos, kernel = m.group(1), 0, None
-            while (d := re.match(r"\d+", mangled[pos:])) and kernel is None:
-                ident = mangled[pos + d.end():pos + d.end() + int(d.group())]
-                pos += d.end() + len(ident)
-                kernel = ident if ident.endswith("_kernel") else None
-            args = re.findall(r"L([bi])(n?\d+)E", mangled[pos:]) if mangled[pos:pos + 1] == "I" \
-                else []
-            conv = {"b0": "false", "b1": "true"}
-            targs = [conv.get(k + v, v.replace("n", "-")) for k, v in args]
-            name = f"{kernel}<{', '.join(targs)}>" if targs else kernel
+            name = kernel_name(m.group(1))
         elif name and "spill stores" in line:
             out.setdefault(name, {})["spill_bytes"] = int(
                 line.split("bytes spill stores")[0].split(",")[-1])

@@ -691,7 +691,9 @@ def test_rgb_tier_variant_matches_plain(scene, variant, noise):
 def test_rgb_default_kernel_keeps_its_registers(dev):
     """The default instantiation keeps 32 registers and no spills beside
     its tier variants (ptxas's report of csrc/rgb.cu); each variant stays
-    within its launch bounds' cap."""
+    within its launch bounds' cap (8 blocks an SM for the textured ones: 32
+    registers), and the textured ones spill at most the 40 bytes of stores
+    measured when their cap was chosen."""
     from constructionsceneposeestimation_tpu_torch.utils import kernels
     report = kernels.ptxas_report("rgb.cu")
     assert report["rgb_kernel<false, 0>"] == {"registers": 32, "spill_bytes": 0}
@@ -699,8 +701,10 @@ def test_rgb_default_kernel_keeps_its_registers(dev):
         for tier in range(8):
             if tex and tier & rgb_kernel.TIER_FLAT:
                 continue
-            assert report[f"rgb_kernel<{str(tex).lower()}, {tier}>"]["registers"] <= (
-                64 if tex else 40), (tex, tier)
+            r = report[f"rgb_kernel<{str(tex).lower()}, {tier}>"]
+            assert r["registers"] <= (32 if tex else 40), (tex, tier)
+            if tex:
+                assert r["spill_bytes"] <= 40, tier
 
 
 def test_rgb_tier_refuses_missing_planes(scene):

@@ -3,37 +3,46 @@
 hold another build of the kernels against this one bit for bit.
 
     python3 tools/kernel_variants.py [--against CSRC_DIR] [--only NAME,...]
-                                     [--iters 20] [--out build/kernel_variants.json]
+                                     [--kernels rgb,heatmap,mesh] [--iters 20]
+                                     [--out build/kernel_variants.json]
 
 Builds ``csrc/`` as it stands ("this"), each variant of ``VARIANTS`` (a copy
 of ``csrc/`` with a few lines of text replaced: the tiles a block and the
 launch bounds of ``csrc/rgb.cu``, its stages taken out one at a time to time
 each by its absence, the warps a block of ``csrc/heatmap.cu``, the sets a
-block and the warps a set of ``csrc/meshsweep.cu``'s segment walk), and
-``--against``, a
+block and the warps a set of ``csrc/meshsweep.cu``'s segment walk; the
+textured variant's stages and register cap), and ``--against``, a
 directory of other sources with some of the same C entry points (an
 earlier ``csrc/``), each into a library of its own under
 ``build/kernel_variants/``. On the datagen path's inputs (64 frames at
 512^2, built as ``chip_smoke.py`` builds them; for the RGB kernel's
 untextured tier variants also the exact caster's normals and the sun-shadow
-rays' t, as ``annotate.render_frame`` builds them) and the mesh sweep's (32
+rays' t, as ``annotate.render_frame`` builds them; for its textured
+variant the dense texel table, as ``chip_smoke.py``'s ``[textures]`` phase
+builds it, and the hifi sweeper's t and instance on the same frames) and the
+mesh sweep's (32
 hifi frames at 512^2, pixel rays in 32 x 32 tiles and keypoint segments,
 built as ``chip_smoke.py``'s ``[mesh]`` phase builds them) it then:
 
 - holds each library's RGB images (hash noise off and on, and each tier
-  variant with the noise on), heatmaps and mesh sweeps (each walk of
+  variant with the noise on; the textured variant in its four
+  instantiations, tiers 0 to 3, noise off and on, on the proxy and the
+  hifi inputs), heatmaps and mesh sweeps (each walk of
   ``MESH_WALKS``) against this build's: bit-equal or not; for RGB the
   pixels that differ, split into sky, ground and objects, and the max |d|
   in u8 levels; for heatmaps the max |d|; for the mesh sweep the rays that
-  differ;
+  differ; and, with ``--against``, whether each library's kernels are the
+  same machine code as ``--against``'s (``cuobjdump -sass``) or not;
 - times each library's ``rgb_kernel`` (the default and, where the library
-  has ``cspe_rgb_tier``, each tier variant), ``heatmap_kernel`` and mesh
+  has ``cspe_rgb_tier``, each tier variant; the textured variant in its
+  four instantiations on the proxy inputs), ``heatmap_kernel`` and mesh
   sweep (the patch walk on the pixels, the split and segment walks on the
   segments) by ``torch.profiler`` device time over ``--iters`` launches,
   in turns: this, the others, the others again in reverse, this. A
   library is held and timed on the entry points and walks it has (an
   earlier ``cspe_mesh_sweep`` refuses a walk it lacks).
 
+``--kernels`` names the kernels held and timed (all three by default).
 Prints a line for each comparison and time, with the card's name and power
 limit and each kernel's registers and spills (``ptxas -v``), and writes them to
 ``--out`` as JSON. Needs a CUDA device; imports nothing of JAX.
@@ -43,7 +52,9 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import difflib
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -62,6 +73,12 @@ BOUNDS = ("__launch_bounds__(kTileW * kTileH,\n"
 # The untextured tier masks timed (render/rgb_kernel.TIERS), by name.
 TIERS = {"default": 0, "normal": 1, "shadow": 2, "normal+shadow": 3, "flat": 4,
          "flat+shadow": 6, "flat+normal+shadow": 7}
+# The source of each kernel the tool holds and times (--kernels); a library
+# holds only those of the run, and has the entry points of those alone.
+SOURCES = {"rgb": "rgb.cu", "heatmap": "heatmap.cu", "mesh": "meshsweep.cu"}
+# The textured variant's instantiations (tiers 0 to 3), by name.
+TEX_TIERS = {"textured": 0, "textured+normal": 1, "textured+shadow": 2,
+             "textured+normal+shadow": 3}
 # The mesh sweep's [mesh] inputs: frames and the sample seed.
 MESH_B, MESH_SEED = 32, 3000
 # The walks held and timed on each kind of mesh ray (render/meshcast.WALKS),
@@ -70,6 +87,20 @@ MESH_WALKS = {"pixels": ("4x8",), "segments": ("split", "segments")}
 MESH_KERNELS = {"split": "mesh_sweep_kernel<", "4x8": "mesh_sweep_patch_kernel",
                 "segments": "mesh_sweep_segment_kernel"}
 SEG_BOUNDS = "__launch_bounds__(kSegThreads, 3) mesh_sweep_segment_kernel"
+# Texts of csrc/rgb.cu's textured variant that its variants replace.
+TEXEL = "__ldg(texels + i)"
+NR_TEXEL = "__ldg(texels + i + (nr_tex - tex) * kTexBins * kTexBins)"
+CONST_TEXEL = "make_float4(0.5f, 0.5f, 0.5f, 0.0f)"
+THETA = "return __fadd_rn(__fmul_rn(atan2f(ly, lx), (float)(0.5 / kPi)), 0.5f);"
+R_XY = "const float r_xy = sqrtf(lx * lx + ly * ly);"
+RENORM = "const float rn = 1.0f / sqrtf(fmaxf(px * px + py * py + pz * pz, 1e-12f));"
+TEX_STAGE = "image_textures(alb, lx, ly, lz, pwx, pwy, cls, p[24], texels, du, dv, rough, w_nr);"
+TEX_BOUND = "constexpr int kMinBlocksTex = 8;"
+# The gamma chain and rounding of a pixel's colour, on the hit pixels' path
+# and on a textured variant's sky path.
+GAMMA = "gamma22(c), 255.0f));"
+GAMMA_SITES = ("clampf(color, 0.0f, 1.0f);\n        rgb[ch] = (uint8_t)rintf(__fmul_rn(",
+               "0.0f, 1.0f);\n        o[ch] = (uint8_t)rintf(__fmul_rn(")
 # name: [(source, text, replacement)]; every text must occur once.
 VARIANTS = {
     **{f"rgb_tiles{n}": [("rgb.cu", "constexpr int kTiles = 4;", f"constexpr int kTiles = {n};")]
@@ -78,8 +109,7 @@ VARIANTS = {
     "rgb_bounds_threads": [("rgb.cu", BOUNDS, "__launch_bounds__(kTileW * kTileH)")],
     **{f"rgb_blocks{n}": [("rgb.cu", "constexpr int kMinBlocks = 8;",
                            f"constexpr int kMinBlocks = {n};")] for n in (1, 5, 6)},
-    "rgb_no_gamma": [("rgb.cu", "rintf(__fmul_rn(gamma22(c), 255.0f))",
-                      "rintf(__fmul_rn(c, 255.0f))")],
+    "rgb_no_gamma": [("rgb.cu", site + GAMMA, site + "c, 255.0f));") for site in GAMMA_SITES],
     "rgb_no_noise": [("rgb.cu", TEX, "const float tex = 1.0f;")],
     "rgb_no_ao": [("rgb.cu", "for (int a0 = 0; a0 < n_ao; a0 += kTileW)",
                    "for (int a0 = 0; a0 < 0; a0 += kTileW)")],
@@ -91,6 +121,22 @@ VARIANTS = {
                            "rgb_kernel<false, kRuntimeTier>;")],
     **{f"rgb_tier_blocks{n}": [("rgb.cu", "constexpr int kMinBlocksTier = 8;",
                                 f"constexpr int kMinBlocksTier = {n};")] for n in (6, 7)},
+    # The textured variant's stages, each taken out to time it by its
+    # absence: both texel loads (a constant texel), the mask ladder's theta
+    # and r_xy, the renormalize of the normal, the specular powf, the whole
+    # texture stage (the renormalize kept), the sky pixels' own path (they
+    # take the hit pixels' path); and its register cap at 4, 5 or 6 blocks
+    # an SM (64, 48, 40 registers) in place of 8.
+    "rgb_tex_no_texel": [("rgb.cu", TEXEL, CONST_TEXEL), ("rgb.cu", NR_TEXEL, CONST_TEXEL)],
+    "rgb_tex_no_theta": [("rgb.cu", THETA, "return __fmul_rn(ly, 0.1f);"),
+                         ("rgb.cu", R_XY, "const float r_xy = fabsf(lx) + fabsf(ly);")],
+    "rgb_tex_no_renorm": [("rgb.cu", RENORM, "const float rn = 1.0f;")],
+    "rgb_tex_no_pow": [("rgb.cu", "powf(ndoth, shin)", "__fmul_rn(ndoth, shin)")],
+    "rgb_tex_no_stage": [("rgb.cu", TEX_STAGE, "")],
+    "rgb_tex_no_sky_path": [("rgb.cu", "if (TEX && in && !is_hit) {", "if (false) {"),
+                            ("rgb.cu", "if (in && (!TEX || is_hit)) {", "if (in) {")],
+    **{f"rgb_tex_blocks{n}": [("rgb.cu", TEX_BOUND, f"constexpr int kMinBlocksTex = {n};")]
+       for n in (4, 5, 6)},
     **{f"hm_warps{n}": [("heatmap.cu", "constexpr int kWarps = 16;",
                          f"constexpr int kWarps = {n};")] for n in (8, 32)},
     # The segment walk with 2 or 8 warps sharing a set in place of 4, or
@@ -113,10 +159,10 @@ VARIANTS = {
 }
 
 
-def build(name: str, csrc: Path, edits):
+def build(name: str, csrc: Path, edits, sources):
     """Copy ``csrc`` to build/kernel_variants/<name>/, apply ``edits`` and
-    compile it into one library with the package's nvcc flags. Returns the
-    library's path and ptxas's report."""
+    compile its ``sources`` into one library with the package's nvcc
+    flags. Returns the library's path and ptxas's report."""
     work = ROOT / "build" / "kernel_variants" / name
     shutil.rmtree(work, ignore_errors=True)
     shutil.copytree(csrc, work)
@@ -128,11 +174,43 @@ def build(name: str, csrc: Path, edits):
         f.write_text(text.replace(old, new))
     lib = work / "lib.so"
     cmd = [kernels.nvcc(), *kernels.ARCH_FLAGS, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
-           "-o", str(lib), *map(str, sorted(work.glob("*.cu")))]
+           "-o", str(lib), *(str(work / f) for f in sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
     return lib, proc.stdout + proc.stderr
+
+
+def sass(path: Path) -> dict:
+    """{kernel: its machine code as ``cuobjdump -sass`` lists it} of the
+    library at ``path``; the addresses are a function's own, so two builds
+    of the same code give the same text."""
+    cuobjdump = Path(kernels.nvcc()).parent / "cuobjdump"
+    proc = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {path}: {proc.stderr}")
+    out, name = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = kernels.kernel_name(m.group(1))
+            out[name] = []
+        elif name is not None and line.strip():
+            out[name].append(line.strip())
+    return {k: "\n".join(v) for k, v in out.items()}
+
+
+def sass_match(a: str, b) -> str:
+    """"same" where two kernels' machine code is the same text, else
+    "differs" and the lines that do."""
+    if a == b:
+        return "same"
+    if b is None:
+        return "absent"
+    x, y = a.splitlines(), b.splitlines()
+    n = sum(1 for d in difflib.unified_diff(y, x, n=0, lineterm="")
+            if d[:1] in "+-" and d[:3] not in ("+++", "---"))
+    return f"differs ({n} lines of {len(y)})"
 
 
 def load(path: Path):
@@ -177,9 +255,13 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--against", help="a directory of CUDA sources with the same entry points")
     ap.add_argument("--only", help="comma-separated names of VARIANTS to build (default all)")
+    ap.add_argument("--kernels", default="rgb,heatmap,mesh",
+                    help="comma-separated kernels to hold and time: rgb, heatmap, mesh")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", default="build/kernel_variants.json")
     args = ap.parse_args()
+    kinds_run = set(args.kernels.split(","))
+    srcs = sorted(SOURCES[k] for k in kinds_run)
     import torch
 
     if not torch.cuda.is_available():
@@ -189,7 +271,7 @@ def main() -> int:
     from constructionsceneposeestimation_tpu_torch.core import camera as cam_mod
     from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
     from constructionsceneposeestimation_tpu_torch.render import (annotate, meshcast, raycast,
-                                                                 rgb_kernel)
+                                                                 rgb_kernel, textures)
     from constructionsceneposeestimation_tpu_torch.scene import world as world_mod
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -197,33 +279,56 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
     print(f"card: {card} | torch {torch.__version__} | CUDA {torch.version.cuda}", flush=True)
 
-    names = args.only.split(",") if args.only else list(VARIANTS)
+    names = [n for n in args.only.split(",") if n] if args.only is not None else list(VARIANTS)
     builds = {"this": (kernels.CSRC, []), **{n: (kernels.CSRC, VARIANTS[n]) for n in names}}
     if args.against:
         builds["against"] = (Path(args.against).resolve(), [])
     with ThreadPoolExecutor(max_workers=8) as pool:
-        built = dict(zip(builds, pool.map(lambda kv: build(kv[0], *kv[1]), builds.items())))
+        built = dict(zip(builds, pool.map(lambda kv: build(kv[0], *kv[1], srcs),
+                                          builds.items())))
     libs = {name: load(p) for name, (p, _) in built.items()}
     regs = {name: kernels.parse_ptxas(r) for name, (_, r) in built.items()}
     print(f"built {len(libs)} libraries; registers a thread: {json.dumps(regs)}", flush=True)
+    # Each library's machine code against --against's, kernel by kernel.
+    sass_same = {}
+    if args.against:
+        theirs = sass(built["against"][0])
+        for name, (path, _) in built.items():
+            if name == "against":
+                continue
+            mine = sass(path)
+            sass_same[name] = {k: sass_match(mine[k], theirs.get(k)) for k in sorted(mine)}
+            print(f"[sass] {name} vs against, each kernel's machine code: "
+                  f"{json.dumps(sass_same[name])}", flush=True)
 
     # The datagen kernels' inputs, as chip_smoke.py builds them.
     dev = torch.device("cuda", 0)
     cfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES, batch_size=B))
     pipe = Pipeline(cfg, device=dev)
+    hpipe = Pipeline(cfg, device=dev, hifi_mesh=True)
     intr = pipe.intr
     inputs = pipe.sample_inputs(SEED, list(range(B)))
     world = world_mod.build_world(pipe.roster, inputs.pose)
     M = cam_mod.look_at_matrix(inputs.cam_pos, inputs.target)
-    t, code = raycast._unpack(pipe.sweeper(world, inputs.cam_pos, M))
-    t = torch.where(t < raycast.INF * 0.99, t, float("inf")).reshape(B, RES, RES)
-    inst = (code - 2).reshape(B, RES, RES)
-    depth = t * torch.sum(cam_mod.pixel_rays(intr, M) * (-M[:, :, 0])[:, None, None, :], -1)
-    clipped = depth >= cfg.camera.clipping[1]
-    t = torch.where(clipped, float("inf"), t).contiguous()
-    inst = torch.where(clipped, -2, inst).to(torch.int32).contiguous()
+
+    def pixels(sweeper):
+        """The RGB kernel's t and instance from ``sweeper``'s pixel sweep,
+        the far clip applied."""
+        t, code = raycast._unpack(sweeper(world, inputs.cam_pos, M))
+        t = torch.where(t < raycast.INF * 0.99, t, float("inf")).reshape(B, RES, RES)
+        inst = (code - 2).reshape(B, RES, RES)
+        depth = t * torch.sum(cam_mod.pixel_rays(intr, M) * (-M[:, :, 0])[:, None, None, :], -1)
+        clipped = depth >= cfg.camera.clipping[1]
+        return (torch.where(clipped, float("inf"), t).contiguous(),
+                torch.where(clipped, -2, inst).to(torch.int32).contiguous())
+
+    # The proxy geometry's pixels, and the hifi tier's on the same frames
+    # (held for the textured variant, as chip_smoke.py's [textures] does).
+    geoms = {"proxy": pixels(pipe.sweeper), "hifi": pixels(hpipe.sweeper)}
+    t, inst = geoms["proxy"]
     table = rgb_kernel.instance_table(pipe.roster, world["inst_rot"], world["inst_pos"])
     ao = rgb_kernel.ao_table(pipe.roster, world["inst_pos"])
+    texels = textures.dense_table(textures.load_factors()).to(dev)
     lit_off = inputs.lighting._replace(tex_strength=torch.zeros_like(inputs.lighting.tex_strength))
     pars = {"noise off": rgb_kernel.rgb_params(M, inputs.cam_pos, intr, lit_off),
             "noise on": rgb_kernel.rgb_params(M, inputs.cam_pos, intr, inputs.lighting)}
@@ -250,7 +355,6 @@ def main() -> int:
     del rd, p_hit
 
     # The mesh sweep's inputs.
-    hpipe = Pipeline(cfg, device=dev, hifi_mesh=True)
     hin = hpipe.sample_inputs(MESH_SEED, range(MESH_B))
     hw = world_mod.build_world(hpipe.roster, hin.pose)
     mesh, o = hpipe.caster.mesh, hin.cam_pos.contiguous()
@@ -261,21 +365,29 @@ def main() -> int:
     m = mesh.mesh_terms(hw, o)
     codes = mesh._on(dev)["codes"]
 
-    def rgb(lib, par, tier=0):
+    def rgb(lib, par, tier=0, tex=False, geom="proxy"):
+        """One image of ``lib``'s RGB kernel: tier ``tier``, textured where
+        ``tex``, on geometry ``geom``'s pixels."""
+        gt, gi = geoms[geom]
         out = torch.empty(B, RES, RES, 3, dtype=torch.uint8, device=dev)
+        tx = texels if tex else None
         if tier == 0:
-            call(lib, "cspe_rgb", t, inst, table, table.shape[1], ao, ao.shape[1], par, None, B,
+            call(lib, "cspe_rgb", gt, gi, table, table.shape[1], ao, ao.shape[1], par, tx, B,
                  RES, RES, out)
         else:
-            call(lib, "cspe_rgb_tier", t, inst, table, table.shape[1], ao, ao.shape[1], par, None,
+            call(lib, "cspe_rgb_tier", gt, gi, table, table.shape[1], ao, ao.shape[1], par, tx,
                  normal if tier & 1 else None, shadow if tier & 2 else None, tier, B, RES, RES,
                  out)
         return out
 
     def tiers(lib):
-        if not hasattr(lib, "cspe_rgb"):
+        """{name: (tier, textured)} of the RGB instantiations ``lib`` has."""
+        if "rgb" not in kinds_run or not hasattr(lib, "cspe_rgb"):
             return {}
-        return TIERS if hasattr(lib, "cspe_rgb_tier") else {"default": 0}
+        if not hasattr(lib, "cspe_rgb_tier"):
+            return {"default": (0, False)}
+        return {**{n: (tier, False) for n, tier in TIERS.items()},
+                **{n: (tier, True) for n, tier in TEX_TIERS.items()}}
 
     def sweep(lib, d, walk):
         lay = mesh.layout(d.shape[1])
@@ -287,7 +399,7 @@ def main() -> int:
 
     def walks(lib):
         """The (kind, walk) pairs the library's cspe_mesh_sweep takes."""
-        if not hasattr(lib, "cspe_mesh_sweep"):
+        if "mesh" not in kinds_run or not hasattr(lib, "cspe_mesh_sweep"):
             return []
         out = []
         for kind, ws in MESH_WALKS.items():
@@ -305,28 +417,32 @@ def main() -> int:
              float(cfg.pipeline.heatmap_stride), two_s2, out)
         return out
 
-    report = {"card": card, "registers": regs, "compare": {}, "ms": {}}
-    kinds = {"sky": inst == -2, "ground": inst == -1, "objects": inst >= 0}
-    ref = {k: rgb(libs["this"], p) for k, p in pars.items()}
-    ref_hm = heat(libs["this"])
+    report = {"card": card, "registers": regs, "sass_same": sass_same, "compare": {}, "ms": {}}
+    kinds = {g: {"sky": gi == -2, "ground": gi == -1, "objects": gi >= 0}
+             for g, (_, gi) in geoms.items()}
+    ref = {}
+    ref_hm = heat(libs["this"]) if "heatmap" in kinds_run else None
     ref_mesh = {(k, v): sweep(libs["this"], rays[k], v) for k, v in walks(libs["this"])}
     for name, lib in libs.items():
         if name == "this":
             continue
         res = {}
-        cases = [(k, p, 0) for k, p in pars.items() if tiers(lib)] + [
-            (f"{n}, noise on", pars["noise on"], tier) for n, tier in tiers(lib).items() if tier]
-        for k, p, tier in cases:
+        cases = [(k, p, 0, False, "proxy") for k, p in pars.items() if tiers(lib)] + [
+            (f"{n}, noise on", pars["noise on"], tier, False, "proxy")
+            for n, (tier, tex) in tiers(lib).items() if tier and not tex] + [
+            (f"{n}, {g}, {k}", p, tier, True, g) for n, (tier, tex) in tiers(lib).items() if tex
+            for g in geoms for k, p in pars.items()]
+        for k, p, tier, tex, g in cases:
             if k not in ref:
-                ref[k] = rgb(libs["this"], p, tier)
-            img = rgb(lib, p, tier)
+                ref[k] = rgb(libs["this"], p, tier, tex, g)
+            img = rgb(lib, p, tier, tex, g)
             diff = (img != ref[k]).any(-1)
             n = int(diff.sum())
             res[f"rgb {k}"] = {
                 "bit_equal": n == 0, "pixels_differ": n, "of": diff.numel(),
                 "max_abs_u8": int((img.int() - ref[k].int()).abs().max()),
-                **{f"on {kk}": int((diff & m).sum()) for kk, m in kinds.items()}}
-        if hasattr(lib, "cspe_heatmap"):
+                **{f"on {kk}": int((diff & m).sum()) for kk, m in kinds[g].items()}}
+        if "heatmap" in kinds_run and hasattr(lib, "cspe_heatmap"):
             hm = heat(lib)
             res["heatmaps"] = {"bit_equal": bool(torch.equal(hm, ref_hm)),
                                "max_abs": float((hm - ref_hm).abs().max())}
@@ -344,11 +460,11 @@ def main() -> int:
     for name in order + order[1:][::-1] + order[:1]:
         lib = libs[name]
         r = report["ms"].setdefault(name, {})
-        for tn, tier in tiers(lib).items():
-            key = "rgb_kernel" if tier == 0 else f"rgb_kernel {tn}"
+        for tn, (tier, tex) in tiers(lib).items():
+            key = "rgb_kernel" if tn == "default" else f"rgb_kernel {tn}"
             r.setdefault(key, []).append(device_ms(
-                lambda: rgb(lib, pars["noise on"], tier), "rgb_kernel", args.iters))
-        if hasattr(lib, "cspe_heatmap"):
+                lambda: rgb(lib, pars["noise on"], tier, tex), "rgb_kernel", args.iters))
+        if "heatmap" in kinds_run and hasattr(lib, "cspe_heatmap"):
             r.setdefault("heatmap_kernel", []).append(
                 device_ms(lambda: heat(lib), "heatmap_kernel", args.iters))
         for k, v in walks(lib):
