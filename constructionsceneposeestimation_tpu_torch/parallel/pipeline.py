@@ -45,6 +45,13 @@ three. The camera-mix coin has a stream of its own, so the mix leaves
 every other draw as it was. The few thousand uniforms a batch consumes are
 drawn on the host and moved to the device in one copy; the sampling
 arithmetic then runs on the device.
+
+Spans (``utils/profiling.annotate``; free with no profiler active): a batch
+is ``gen.batch``; its sampling ``gen.sample``, split into the host draws
+(``gen.sample.draws``), the one copy (``gen.sample.upload``) and the
+device arithmetic (``gen.sample.scene``); its render ``gen.render``, split
+into ``render_frame``'s stages (``render/annotate.py``) and
+``gen.render.heatmaps``.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from ..sample import camera_sampler, lighting as lighting_mod, placement
 from ..sample import sequence as seq_mod
 from ..scene import assets, world as world_mod
 from ..utils import prng
+from ..utils.profiling import annotate as span
 from . import mesh as mesh_mod
 
 Tensor = torch.Tensor
@@ -156,40 +164,45 @@ class Pipeline:
         """Scenes (one per cadence group present), cameras and lights.
         ``ladder`` (cam_pos, target) replaces the DR cameras, or with
         ``camera_mix`` a frame's coin chooses between the two."""
-        cfg = self.cfg
-        fids = [int(f) for f in frame_ids]
-        cadence = cfg.randomization.cadence_frames
-        groups = sorted({f // cadence for f in fids})
-        gidx = [groups.index(f // cadence) for f in fids]
+        with span("gen.sample"):
+            cfg = self.cfg
+            with span("gen.sample.draws"):
+                fids = [int(f) for f in frame_ids]
+                cadence = cfg.randomization.cadence_frames
+                groups = sorted({f // cadence for f in fids})
+                gidx = [groups.index(f // cadence) for f in fids]
 
-        scene = placement.stack_draws([
-            placement.scene_draws(prng.scene_generator(seed, g * cadence, cadence),
-                                  cfg.scene, cfg.randomization) for g in groups])
-        frame = []
-        for f in fids:
-            gen = prng.frame_generator(seed, f)
-            frame.append(torch.cat([camera_sampler.camera_draws(gen, 1)[0],
-                                    lighting_mod.lighting_draws(gen, 1)[0]]))
-        host = dict(scene, frame=torch.stack(frame), gidx=torch.tensor(gidx, dtype=torch.float32))
-        if ladder is not None:
-            n = ladder[0].shape[0]
-            idx = torch.tensor([f % n for f in fids])
-            host["ladder_cam"], host["ladder_tgt"] = ladder[0][idx], ladder[1][idx]
-            if camera_mix is not None:
-                host["coin"] = torch.cat([torch.rand(1, generator=prng.mix_generator(seed, f))
-                                          for f in fids])
-        dev = _to_device(host, self.device)
+                scene = placement.stack_draws([
+                    placement.scene_draws(prng.scene_generator(seed, g * cadence, cadence),
+                                          cfg.scene, cfg.randomization) for g in groups])
+                frame = []
+                for f in fids:
+                    gen = prng.frame_generator(seed, f)
+                    frame.append(torch.cat([camera_sampler.camera_draws(gen, 1)[0],
+                                            lighting_mod.lighting_draws(gen, 1)[0]]))
+                host = dict(scene, frame=torch.stack(frame),
+                            gidx=torch.tensor(gidx, dtype=torch.float32))
+                if ladder is not None:
+                    n = ladder[0].shape[0]
+                    idx = torch.tensor([f % n for f in fids])
+                    host["ladder_cam"], host["ladder_tgt"] = ladder[0][idx], ladder[1][idx]
+                    if camera_mix is not None:
+                        host["coin"] = torch.cat([
+                            torch.rand(1, generator=prng.mix_generator(seed, f)) for f in fids])
+            dev = _to_device(host, self.device)
 
-        poses, _ = placement.randomize_scene(dev, self.roster, cfg.scene, cfg.randomization,
-                                             articulate_crane=True)
-        n_cam = camera_sampler.CAMERA_DRAWS
-        cam_pos, target = camera_sampler.cameras_from_draws(dev["frame"][:, :n_cam], cfg.camera)
-        if ladder is not None:
-            use = (dev["coin"] < camera_mix) if camera_mix is not None else None
-            cam_pos, target = camera_sampler.mix_cameras(
-                use, dev["ladder_cam"], dev["ladder_tgt"], cam_pos, target)
-        lit = lighting_mod.lighting_from_draws(dev["frame"][:, n_cam:], cfg.lighting)
-        return FrameInputs(poses.index(dev["gidx"].long()), cam_pos, target, lit)
+            with span("gen.sample.scene"):
+                poses, _ = placement.randomize_scene(dev, self.roster, cfg.scene,
+                                                     cfg.randomization, articulate_crane=True)
+                n_cam = camera_sampler.CAMERA_DRAWS
+                cam_pos, target = camera_sampler.cameras_from_draws(dev["frame"][:, :n_cam],
+                                                                    cfg.camera)
+                if ladder is not None:
+                    use = (dev["coin"] < camera_mix) if camera_mix is not None else None
+                    cam_pos, target = camera_sampler.mix_cameras(
+                        use, dev["ladder_cam"], dev["ladder_tgt"], cam_pos, target)
+                lit = lighting_mod.lighting_from_draws(dev["frame"][:, n_cam:], cfg.lighting)
+                return FrameInputs(poses.index(dev["gidx"].long()), cam_pos, target, lit)
 
     def sample_sequence_inputs(self, seed: int, frame_ids: Sequence[int],
                                seq_len: int) -> FrameInputs:
@@ -197,64 +210,71 @@ class Pipeline:
         endpoint scenes, camera flight and light once, from its own streams
         (``prng.clip_generator``); each frame interpolates its clip's
         endpoints and flight at t = (f % seq_len) / max(seq_len - 1, 1)."""
-        cfg = self.cfg
-        fids = [int(f) for f in frame_ids]
-        clips = sorted({f // seq_len for f in fids})
-        draws_a, draws_b, cams, lights = [], [], [], []
-        for c in clips:
-            gen = prng.clip_generator(seed, c, prng.CLIP_ENDPOINTS)
-            draws_a.append(placement.scene_draws(gen, cfg.scene, cfg.randomization))
-            draws_b.append(placement.resample_draws(gen, cfg.scene, cfg.randomization))
-            gen = prng.clip_generator(seed, c, prng.CLIP_CAMERA)
-            cams.append(torch.cat([camera_sampler.camera_draws(gen, 1)[0],
-                                   torch.rand(5, generator=gen)]))
-            lights.append(lighting_mod.lighting_draws(
-                prng.clip_generator(seed, c, prng.CLIP_LIGHT), 1)[0])
-        host = {f"{end}{k}": v for end, d in (("a.", draws_a), ("b.", draws_b))
-                for k, v in placement.stack_draws(d).items()}
-        host.update(cam=torch.stack(cams), light=torch.stack(lights),
-                    cidx=torch.tensor([clips.index(f // seq_len) for f in fids],
-                                      dtype=torch.float32),
-                    t=torch.tensor([f % seq_len for f in fids], dtype=torch.float32)
-                    / max(seq_len - 1, 1))
-        dev = _to_device(host, self.device)
-        end = lambda e: {k[2:]: v for k, v in dev.items() if k.startswith(e)}
-        pa, pb = seq_mod.sequence_endpoints(end("a."), end("b."), self.roster, cfg.scene,
-                                            cfg.randomization)
-        cidx, t = dev["cidx"].long(), dev["t"]
-        pose = seq_mod.interpolate_pose(pa.index(cidx), pb.index(cidx), t, self.roster)
-        n_cam = camera_sampler.CAMERA_DRAWS
-        cam = dev["cam"][cidx]
-        cam0, tgt0 = camera_sampler.cameras_from_draws(cam[:, :n_cam], cfg.camera)
-        cam_pos, target = seq_mod.sequence_camera(cam0, tgt0, cam[:, n_cam:] * 2.0 - 1.0, t,
-                                                  cfg.camera)
-        lit = lighting_mod.lighting_from_draws(dev["light"][cidx], cfg.lighting)
-        return FrameInputs(pose, cam_pos, target, lit)
+        with span("gen.sample"):
+            cfg = self.cfg
+            with span("gen.sample.draws"):
+                fids = [int(f) for f in frame_ids]
+                clips = sorted({f // seq_len for f in fids})
+                draws_a, draws_b, cams, lights = [], [], [], []
+                for c in clips:
+                    gen = prng.clip_generator(seed, c, prng.CLIP_ENDPOINTS)
+                    draws_a.append(placement.scene_draws(gen, cfg.scene, cfg.randomization))
+                    draws_b.append(placement.resample_draws(gen, cfg.scene, cfg.randomization))
+                    gen = prng.clip_generator(seed, c, prng.CLIP_CAMERA)
+                    cams.append(torch.cat([camera_sampler.camera_draws(gen, 1)[0],
+                                           torch.rand(5, generator=gen)]))
+                    lights.append(lighting_mod.lighting_draws(
+                        prng.clip_generator(seed, c, prng.CLIP_LIGHT), 1)[0])
+                host = {f"{end}{k}": v for end, d in (("a.", draws_a), ("b.", draws_b))
+                        for k, v in placement.stack_draws(d).items()}
+                host.update(cam=torch.stack(cams), light=torch.stack(lights),
+                            cidx=torch.tensor([clips.index(f // seq_len) for f in fids],
+                                              dtype=torch.float32),
+                            t=torch.tensor([f % seq_len for f in fids], dtype=torch.float32)
+                            / max(seq_len - 1, 1))
+            dev = _to_device(host, self.device)
+            with span("gen.sample.scene"):
+                end = lambda e: {k[2:]: v for k, v in dev.items() if k.startswith(e)}
+                pa, pb = seq_mod.sequence_endpoints(end("a."), end("b."), self.roster,
+                                                    cfg.scene, cfg.randomization)
+                cidx, t = dev["cidx"].long(), dev["t"]
+                pose = seq_mod.interpolate_pose(pa.index(cidx), pb.index(cidx), t, self.roster)
+                n_cam = camera_sampler.CAMERA_DRAWS
+                cam = dev["cam"][cidx]
+                cam0, tgt0 = camera_sampler.cameras_from_draws(cam[:, :n_cam], cfg.camera)
+                cam_pos, target = seq_mod.sequence_camera(cam0, tgt0, cam[:, n_cam:] * 2.0 - 1.0,
+                                                          t, cfg.camera)
+                lit = lighting_mod.lighting_from_draws(dev["light"][cidx], cfg.lighting)
+                return FrameInputs(pose, cam_pos, target, lit)
 
     def render(self, frame_ids: Tensor, inputs: FrameInputs,
                include_heatmaps: bool = True) -> FrameBatch:
-        cfg = self.cfg
-        pc = cfg.pipeline
-        world = world_mod.build_world(self.roster, inputs.pose)
-        ann = annotate.render_frame(
-            self.roster, self.caster, self.sweeper, world, inputs.cam_pos, inputs.target,
-            self.intr, inputs.lighting, shade_rgb=pc.write_rgb,
-            bug_compatible=pc.bug_compatible_schema, far_clip=cfg.camera.clipping[1],
-            texels=self.texels(), procedural_textures=self.procedural_textures)
-        B = frame_ids.shape[0]
-        if include_heatmaps:
-            hms = heatmap_ops.frame_heatmaps(
-                ann.kpt_uv, ann.kpt_visible, self.roster.tensor("inst_kpt_channel", self.device),
-                self.num_channels, self.hm_h, self.hm_w, pc.heatmap_sigma, pc.heatmap_stride)
-        else:
-            hms = torch.zeros(B, 0, self.hm_h, self.hm_w, device=self.device)
-        return FrameBatch(
-            frame_id=frame_ids, rgb=ann.rgb, depth=ann.depth, instance=ann.instance,
-            camera_pose7=ann.camera_pose7, inst_visible=ann.inst_visible,
-            inst_pixel_count=ann.inst_pixel_count, bbox2d=ann.bbox2d, center=ann.center,
-            size=ann.size, euler_deg=ann.euler_deg, kpt_uv=ann.kpt_uv,
-            kpt_visible=ann.kpt_visible, kpt_in_image=ann.kpt_in_image, heatmaps=hms,
-            pointcloud_count=ann.pointcloud_count)
+        with span("gen.render"):
+            cfg = self.cfg
+            pc = cfg.pipeline
+            with span("gen.render.world"):
+                world = world_mod.build_world(self.roster, inputs.pose)
+            ann = annotate.render_frame(
+                self.roster, self.caster, self.sweeper, world, inputs.cam_pos, inputs.target,
+                self.intr, inputs.lighting, shade_rgb=pc.write_rgb,
+                bug_compatible=pc.bug_compatible_schema, far_clip=cfg.camera.clipping[1],
+                texels=self.texels(), procedural_textures=self.procedural_textures)
+            B = frame_ids.shape[0]
+            with span("gen.render.heatmaps"):
+                if include_heatmaps:
+                    hms = heatmap_ops.frame_heatmaps(
+                        ann.kpt_uv, ann.kpt_visible,
+                        self.roster.tensor("inst_kpt_channel", self.device), self.num_channels,
+                        self.hm_h, self.hm_w, pc.heatmap_sigma, pc.heatmap_stride)
+                else:
+                    hms = torch.zeros(B, 0, self.hm_h, self.hm_w, device=self.device)
+            return FrameBatch(
+                frame_id=frame_ids, rgb=ann.rgb, depth=ann.depth, instance=ann.instance,
+                camera_pose7=ann.camera_pose7, inst_visible=ann.inst_visible,
+                inst_pixel_count=ann.inst_pixel_count, bbox2d=ann.bbox2d, center=ann.center,
+                size=ann.size, euler_deg=ann.euler_deg, kpt_uv=ann.kpt_uv,
+                kpt_visible=ann.kpt_visible, kpt_in_image=ann.kpt_in_image, heatmaps=hms,
+                pointcloud_count=ann.pointcloud_count)
 
     def make_generate_fn(self, ladder: bool = False, include_heatmaps: bool = True,
                          camera_mix: float | None = None):
@@ -268,9 +288,10 @@ class Pipeline:
         cams = self.ladder() if ladder or camera_mix is not None else None
 
         def generate(seed: int, frame_ids: Sequence[int]) -> FrameBatch:
-            fids = torch.as_tensor([int(f) for f in frame_ids], dtype=torch.int32)
-            inputs = self.sample_inputs(seed, fids.tolist(), cams, camera_mix)
-            return self.render(fids.to(self.device), inputs, include_heatmaps)
+            with span("gen.batch"):
+                fids = torch.as_tensor([int(f) for f in frame_ids], dtype=torch.int32)
+                inputs = self.sample_inputs(seed, fids.tolist(), cams, camera_mix)
+                return self.render(fids.to(self.device), inputs, include_heatmaps)
 
         return generate
 
@@ -281,9 +302,10 @@ class Pipeline:
         they are."""
 
         def generate(seed: int, frame_ids: Sequence[int]) -> FrameBatch:
-            fids = torch.as_tensor([int(f) for f in frame_ids], dtype=torch.int32)
-            inputs = self.sample_sequence_inputs(seed, fids.tolist(), seq_len)
-            return self.render(fids.to(self.device), inputs, include_heatmaps)
+            with span("gen.batch"):
+                fids = torch.as_tensor([int(f) for f in frame_ids], dtype=torch.int32)
+                inputs = self.sample_sequence_inputs(seed, fids.tolist(), seq_len)
+                return self.render(fids.to(self.device), inputs, include_heatmaps)
 
         return generate
 
@@ -342,12 +364,13 @@ class HostCopy:
 
 def _to_device(host: Dict[str, Tensor], device: torch.device) -> Dict[str, Tensor]:
     """Move a dict of float tensors to ``device`` in one copy."""
-    flat = torch.cat([v.reshape(-1) for v in host.values()]).to(device)
-    out, i = {}, 0
-    for k, v in host.items():
-        out[k] = flat[i:i + v.numel()].reshape(v.shape)
-        i += v.numel()
-    return out
+    with span("gen.sample.upload"):
+        flat = torch.cat([v.reshape(-1) for v in host.values()]).to(device)
+        out, i = {}, 0
+        for k, v in host.items():
+            out[k] = flat[i:i + v.numel()].reshape(v.shape)
+            i += v.numel()
+        return out
 
 
 def quality_stats(batch: FrameBatch, min_points: int) -> Dict[str, Tensor]:

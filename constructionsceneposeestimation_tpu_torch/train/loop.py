@@ -30,6 +30,11 @@ per-rank means average to the global mean as they are, the shards being
 equal. The ``loss`` metric is reduced, so every rank reports the global
 loss. The backbone normalizes with GroupNorm, per sample: there are no
 batch statistics to synchronise.
+
+Spans (``utils/profiling.annotate``; free with no profiler active): a step
+is ``train.step``, holding the generate's ``gen.batch``, the augment draws
+(``train.augment``) and ``BatchStep``'s halves (``train.forward_backward``,
+``train.update``).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from ..ops import preprocess
 from ..parallel import mesh as mesh_mod
 from ..parallel import pipeline as pipeline_mod
 from ..scene import world as world_mod
+from ..utils.profiling import annotate as span
 from . import losses
 
 Tensor = torch.Tensor
@@ -145,16 +151,18 @@ class BatchStep:
         """Preprocess with the augment, forward, loss, backward: leaves the
         gradients in the parameters and returns the loss, detached. Reads
         ``batch.rgb`` and ``batch.heatmaps`` only."""
-        pc = self.cfg.pipeline
-        images = preprocess.preprocess_frame(batch.rgb, pc.render_height, pc.render_width,
-                                             augment=True, draws=draws)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(state.model, images, batch.heatmaps)
-        loss.backward()
-        return loss.detach()
+        with span("train.forward_backward"):
+            pc = self.cfg.pipeline
+            images = preprocess.preprocess_frame(batch.rgb, pc.render_height, pc.render_width,
+                                                 augment=True, draws=draws)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss = self.loss(state.model, images, batch.heatmaps)
+            loss.backward()
+            return loss.detach()
 
     def update(self, state: TrainState) -> TrainState:
-        return apply_update(state)
+        with span("train.update"):
+            return apply_update(state)
 
     def __call__(self, state: TrainState, batch: pipeline_mod.FrameBatch,
                  draws: preprocess.AugmentDraws):
@@ -186,12 +194,14 @@ class TrainStep:
         pc = self.cfg.pipeline
         fids = [int(f) for f in frame_ids]
         batch = self.gen(seed, fids)
-        draws = preprocess.augment_draws(seed, fids, pc.render_height, pc.render_width,
-                                         self.pipe.device)
+        with span("train.augment"):
+            draws = preprocess.augment_draws(seed, fids, pc.render_height, pc.render_width,
+                                             self.pipe.device)
         return batch, draws
 
     def __call__(self, state: TrainState, seed: int, frame_ids):
-        return self.train_on_batch(state, *self.generate(seed, frame_ids))
+        with span("train.step"):
+            return self.train_on_batch(state, *self.generate(seed, frame_ids))
 
 
 def make_train_step(cfg: Config, model: nn.Module, pipe: pipeline_mod.Pipeline) -> TrainStep:
@@ -224,13 +234,14 @@ class ShardedBatchStep(BatchStep):
         return losses.heatmap_mse(pred, targets, w) / self.world
 
     def forward_backward(self, state: TrainState, batch, draws) -> Tensor:
-        pc = self.cfg.pipeline
-        images = preprocess.preprocess_frame(batch.rgb, pc.render_height, pc.render_width,
-                                             augment=True, draws=draws)
-        state.optimizer.zero_grad(set_to_none=True)
-        part = self.loss(state.model, images, batch.heatmaps)
-        (part * self.world).backward()
-        return self._sum(part)
+        with span("train.forward_backward"):
+            pc = self.cfg.pipeline
+            images = preprocess.preprocess_frame(batch.rgb, pc.render_height, pc.render_width,
+                                                 augment=True, draws=draws)
+            state.optimizer.zero_grad(set_to_none=True)
+            part = self.loss(state.model, images, batch.heatmaps)
+            (part * self.world).backward()
+            return self._sum(part)
 
     def __call__(self, state: TrainState, batch: pipeline_mod.FrameBatch,
                  draws: preprocess.AugmentDraws):
@@ -251,9 +262,10 @@ class ShardedTrainStep(TrainStep):
         self.train_on_batch = ShardedBatchStep(cfg, pipe.roster, mesh)
 
     def __call__(self, state: TrainState, seed: int, frame_ids):
-        ids = [int(f) for f in frame_ids]
-        rows = [ids[i] for i in mesh_mod.batch_sharding(self.mesh, len(ids))]
-        return self.train_on_batch(state, *self.generate(seed, rows))
+        with span("train.step"):
+            ids = [int(f) for f in frame_ids]
+            rows = [ids[i] for i in mesh_mod.batch_sharding(self.mesh, len(ids))]
+            return self.train_on_batch(state, *self.generate(seed, rows))
 
 
 def make_sharded_train_step(cfg: Config, model: nn.Module, pipe: pipeline_mod.Pipeline,

@@ -1,0 +1,6 @@
+"""``idle_in_render_ms.gen``'s reading, in cells where ``frames_per_s`` is not an
+end-to-end metric, so that the layer moves ``batch_ms_p95``."""
+
+from harness.manifest import reader
+
+read = reader("idle_in_render_ms.gen")
