@@ -18,6 +18,10 @@ Run from the root of a checkout. Phases, each reported on its own line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the CUDA kernels of ``constructionsceneposeestimation_tpu_torch/csrc``;
+   ``[draws]``: the replay kernel (``csrc/draws.cu``) bit-equal to the host
+   loop it replays (``sample/replay.host_draws``) at 512 frames and at the
+   training step's 32 frames with coins, once a ``sample_inputs``, its
+   time beside that loop's and its bounds (bytes, the seeding chain);
 3. each datagen kernel against its plain PyTorch version on the card, at
    the main path's shapes (512^2, batches of 64 frames), with the stated
    tolerances; the tile-culled sweep must also be bit-equal to the same
@@ -238,8 +242,8 @@ Run from the root of a checkout. Phases, each reported on its own line:
    benchmark's shape (a warm-up chain of 4 steps, then 4 timed steps of
    512 x 512^2): one JSON line with the JAX keys, a finite positive value
    and ``vs_baseline`` = round(value / 0.15, 1); the sweep, RGB and
-   heatmap kernels launched 8 times (once a generate call), the peak
-   kernel and every variant never; frames/s by CUDA events and by the host
+   heatmap kernels and the replay kernel launched 8 times (once a generate
+   call), the peak kernel and every variant never; frames/s by CUDA events and by the host
    clock, ms a step, peak memory; the three kernels on one batch of 512 x
    512^2 against their plain versions run in chunks of 64 (the bars of
    [sweep], [rgb] with noise off and [heatmap]); at the same shape the
@@ -441,6 +445,19 @@ RAYCAST_ORIGIN_OPS = 18
 RAYCAST_MERGE_OPS = 3
 RAYCAST_RAY_OPS = 28
 RAYCAST_NORMAL_OPS = 60
+# The replay kernel (csrc/draws.cu) replaces no Pallas kernel: the JAX
+# package folds jax.random keys on the accelerator, where the port's host
+# path draws from CPU generators, whose streams the kernel replays. Timed at
+# the i.i.d. cells' shape (512 frames, 52 scene groups). Its bound is
+# latency: a stream's seeding is DRAWS_CHAIN dependent steps, each a shift,
+# an xor and a multiply-add (DRAWS_STEP_CYCLES cycles of the SM clock, an
+# estimate), beside the bytes it moves.
+DRAWS = "draws"
+DRAWS_REPLACES = ("constructionsceneposeestimation_tpu/parallel/pipeline.py (jax.random "
+                  "folds of the scene and frame keys, on the accelerator)")
+DRAWS_FRAMES = 512
+DRAWS_CHAIN = 623
+DRAWS_STEP_CYCLES = 12
 # The line heads `train-eval` prints after training (the JAX cli.py:262-331).
 TRAIN_EVAL_LINES = (
     "decode-floor PCK@0.5:", "model PCK@0.5:", "assoc decode floor:",
@@ -3558,6 +3575,104 @@ def bench_kernels_vs_plain(pipe, gen, dev, card, chunk=B):
     check(hm_err < 2e-4, f"heatmap kernel disagrees with its plain version at {n} frames")
 
 
+def draws_phase(dev, card):
+    """``[draws]``: the replay kernel (csrc/draws.cu) at the i.i.d. cells'
+    shape (512 frames, 52 scene groups) and the training step's (32 frames
+    and their camera-mix coins): its registers and spills (ptxas), its
+    tensors bit-equal to the host loop's (``replay.host_draws``) at two
+    seeds and ids beyond 10^6, one launch a ``sample_inputs``, its device
+    time (profiler; CUDA events behind a sleep) and its wrapper's call,
+    ``Pipeline._replayed_draws`` and ``sample_inputs`` beside the host loop
+    they replaced (``_host_draws``, the CPU path's), host ms from an idle
+    card, and its bounds: the bytes it moves, and the seeding chain.
+    Returns the kernel's row of the kernels' JSON line."""
+    import torch
+    from constructionsceneposeestimation_tpu_torch.config import Config
+    from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
+    from constructionsceneposeestimation_tpu_torch.sample import replay
+    from constructionsceneposeestimation_tpu_torch.utils import kernels
+
+    regs = kernels.ptxas_report("draws.cu")
+    phase("draws", f"csrc/draws.cu, registers and spill bytes (ptxas): {regs}")
+    check(regs and all(r.get("spill_bytes", 0) == 0 for r in regs.values()),
+          f"draws kernel: {regs}")
+    pipe = Pipeline(Config(), device=dev)
+    lay, cfg = pipe.word_layout, pipe.cfg
+    cad = cfg.randomization.cadence_frames
+
+    def batch(fids):
+        groups = sorted({f // cad for f in fids})
+        gidx = [groups.index(f // cad) for f in fids]
+        table = [v for row in lay.table for v in row]
+        ids = torch.tensor(table + fids + groups, dtype=torch.int32, device=dev)
+        return groups, gidx, ids.split([len(table), len(fids), len(groups)])
+
+    cases = []
+    for n, coins, first in ((DRAWS_FRAMES, False, 0), (DRAWS_FRAMES, False, 10**6 + 3),
+                            (32, True, 3205)):
+        fids = list(range(first, first + n))
+        groups, _, (table, fid, gid) = batch(fids)
+        for seed in (SEED, 2**40 + 7):
+            out = replay.replay_cuda(lay, seed, table, fid, gid, coins)
+            host = replay.host_draws(seed, fids, groups, cad, cfg.scene, cfg.randomization,
+                                     coins)
+            same = list(out) == list(host) and all(torch.equal(out[k].cpu(), v)
+                                                   for k, v in host.items())
+            check(same, f"draws: the kernel differs from the host loop ({n} frames from "
+                  f"{first}, seed {seed}, coins {coins})")
+            cases.append(f"{n} frames from {first} ({len(groups)} groups{', coins' if coins else ''}) "
+                         f"at seed {seed}")
+    before = replay.replay_cuda.launches
+    for s in range(3):
+        pipe.sample_inputs(s, range(DRAWS_FRAMES))
+    launched = replay.replay_cuda.launches - before
+    phase("draws", f"bit-equal to the host loop (replay.host_draws): {'; '.join(cases)}; "
+          f"launches in 3 sample_inputs calls: {launched}")
+    check(launched == 3, f"draws: {launched} launches in 3 sample_inputs calls")
+
+    fids = list(range(DRAWS_FRAMES))
+    groups, gidx, (table, fid, gid) = batch(fids)
+    call = lambda: replay.replay_cuda(lay, SEED, table, fid, gid, False)
+    ms = device_ms(call, "draws_kernel", iters=20)
+    events_ms, _ = events_device_ms(call, iters=20)
+    call_ms = cuda_ms(call, iters=20)
+
+    def host_ms(fn, reps=5):
+        out = []
+        for s in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(100 + s)
+            out.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return sorted(out)[reps // 2]
+
+    replayed = host_ms(lambda s: pipe._replayed_draws(s, fids, groups, gidx, None, False))
+    loop = host_ms(lambda s: pipe._host_draws(s, fids, groups, gidx, None, False))
+    sample = host_ms(lambda s: pipe.sample_inputs(s, fids))
+    nbytes = 4 * (len(groups) * lay.floats + len(fids) * replay.FRAME_WORDS
+                  + len(lay.table) * replay.SEG_COLS + len(fids) + len(groups))
+    bytes_ms = bound(nbytes, 0)[0]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    mhz = float(smi.stdout.split()[0]) if smi.returncode == 0 else float("nan")
+    chain_ms = DRAWS_CHAIN * DRAWS_STEP_CYCLES / (mhz * 1e3)
+    phase("time", f"{DRAWS}: kernel {ms:.4f} ms (profiler device time; {events_ms:.4f} ms by CUDA "
+          f"events behind a sleep; the wrapper's call {call_ms:.4f} ms) for {len(groups)} scene "
+          f"groups ({lay.words} words each) and {len(fids)} frames ({replay.FRAME_WORDS} words); "
+          f"host ms from an idle card, median of 5: the card's draws (ids, copy, launch) "
+          f"{replayed:.3f}, the host loop they replaced {loop:.3f}, sample_inputs {sample:.3f}; "
+          f"bounds: bytes {bytes_ms:.6f} ms ({nbytes} B), the seeding chain {chain_ms:.4f} ms "
+          f"({DRAWS_CHAIN} steps x {DRAWS_STEP_CYCLES} cycles at {mhz:.0f} MHz, an estimate): "
+          f"{100 * chain_ms / ms:.1f}% of the chain's floor, on {card}")
+    return {"name": DRAWS, "route": "cuda",
+            "source": "constructionsceneposeestimation_tpu_torch/csrc/draws.cu",
+            "replaces": DRAWS_REPLACES, "ms": ms, "events_ms": events_ms, "call_ms": call_ms,
+            "plain_ms": loop, "replayed_draws_ms": replayed, "sample_inputs_ms": sample,
+            "bound_ms": max(bytes_ms, chain_ms), "bound_by": "the seeding chain (latency)",
+            "bytes_bound_ms": bytes_ms, "registers": regs, "library_ms": None}
+
+
 def bench_phase(dev, card, counters, datagen):
     """``[bench]``: the port's ``bench`` command in-process through the CLI's
     parser, at the JAX benchmark's shape (a warm-up chain of 4 steps, then
@@ -3581,6 +3696,7 @@ def bench_phase(dev, card, counters, datagen):
     from constructionsceneposeestimation_tpu_torch import bench, cli
     from constructionsceneposeestimation_tpu_torch.config import Config, PipelineConfig
     from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
+    from constructionsceneposeestimation_tpu_torch.sample import replay
     from constructionsceneposeestimation_tpu_torch.utils import profiling
 
     args = cli.build_parser().parse_args(["bench"])
@@ -3588,11 +3704,13 @@ def bench_phase(dev, card, counters, datagen):
     held_gb = torch.cuda.memory_allocated() / 1e9
     out = io.StringIO()
     reset(counters)
+    draws_before = replay.replay_cuda.launches
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         res = args.fn(args)
     wall_s = time.perf_counter() - t0
     got = read(counters)
+    draws = replay.replay_cuda.launches - draws_before
     lines = out.getvalue().splitlines()
     phase("bench", f"`cli bench` printed {len(lines)} line(s): {' | '.join(lines)}")
     check(len(lines) == 1, "bench printed other than one line")
@@ -3608,7 +3726,9 @@ def bench_phase(dev, card, counters, datagen):
     once = (*datagen, RAYCAST_PACKED)
     stray = {k: c for k, c in got.items() if k not in once and c}
     phase("bench", f"launches over {calls} generate calls (warm-up and timed): "
-          f"{ {k: got[k] for k in once} }; other kernels and variants: {stray or 'none'}")
+          f"{ {k: got[k] for k in once} }, {DRAWS} {draws}; other kernels and variants: "
+          f"{stray or 'none'}")
+    check(draws == calls, f"bench: the replay kernel launched {draws} times in {calls} calls")
     check(all(got[k] == calls for k in once),
           f"bench: a datagen kernel did not launch once a generate call: {got}")
     check(not stray, f"bench launched another kernel or variant: {stray}")
@@ -3737,6 +3857,8 @@ def main() -> int:
     lib_path = kernels.build(verbose=True)
     kernels.library()
     phase("build", f"{lib_path.name} in {time.time() - t0:.1f} s")
+    # 2b. [draws]: the replay kernel against the host loop, and its time.
+    draws_row = draws_phase(dev, card)
 
     cfg = Config(pipeline=PipelineConfig(render_width=RES, render_height=RES, batch_size=B))
     pipe = Pipeline(cfg, device=dev)
@@ -4475,7 +4597,7 @@ def main() -> int:
          "bound_by": r["bound"][1], "library_ms": None,
          **{k: v for k, v in r.items() if k not in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                                       "bound")}}
-        for m, r in raycast_results.items()]}
+        for m, r in raycast_results.items()] + [draws_row]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

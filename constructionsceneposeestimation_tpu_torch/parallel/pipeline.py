@@ -39,19 +39,23 @@ communication. ``gather_rows`` brings every rank's rows to every rank in
 frame order, for checks.
 
 Random numbers: each scene group and each frame has its own CPU
-``torch.Generator`` (utils/prng.py), so a frame's scene, camera and light
-do not depend on the batch it falls in; in sequence mode each clip has
-three. The camera-mix coin has a stream of its own, so the mix leaves
-every other draw as it was. The few thousand uniforms a batch consumes are
-drawn on the host and moved to the device in one copy; the sampling
+``torch.Generator`` stream (utils/prng.py), so a frame's scene, camera and
+light do not depend on the batch it falls in; in sequence mode each clip
+has three. The camera-mix coin has a stream of its own, so the mix leaves
+every other draw as it was. On the CPU the few thousand uniforms a batch
+consumes are drawn on the host and moved to the device in one copy. On the
+card the i.i.d. path uploads only the batch's frame and group ids and
+``csrc/draws.cu`` replays the same streams there, bit for bit
+(``sample/replay.py``); clips still draw on the host. The sampling
 arithmetic then runs on the device.
 
 Spans (``utils/profiling.annotate``; free with no profiler active): a batch
-is ``gen.batch``; its sampling ``gen.sample``, split into the host draws
-(``gen.sample.draws``), the one copy (``gen.sample.upload``) and the
-device arithmetic (``gen.sample.scene``); its render ``gen.render``, split
-into ``render_frame``'s stages (``render/annotate.py``) and
-``gen.render.heatmaps``.
+is ``gen.batch``; its sampling ``gen.sample``, split into the draws
+(``gen.sample.draws``: the host loops, or on the card the replay kernel's
+launch, ``gen.sample.draws.replay``; both hold the one copy,
+``gen.sample.upload``) and the device arithmetic (``gen.sample.scene``); its
+render ``gen.render``, split into ``render_frame``'s stages
+(``render/annotate.py``) and ``gen.render.heatmaps``.
 """
 
 from __future__ import annotations
@@ -67,7 +71,7 @@ from ..ops import heatmap as heatmap_ops
 from ..render import annotate, meshcast, raycast, shading, textures
 from ..render.sweep_kernel import PixelSweeper
 from ..sample import camera_sampler, lighting as lighting_mod, placement
-from ..sample import sequence as seq_mod
+from ..sample import replay, sequence as seq_mod
 from ..scene import assets, world as world_mod
 from ..utils import prng
 from ..utils.profiling import annotate as span
@@ -98,12 +102,14 @@ class FrameBatch(NamedTuple):
 
 
 class FrameInputs(NamedTuple):
-    """The sampled inputs of a batch: scene, camera and light per frame."""
+    """The sampled inputs of a batch: scene, camera and light per frame, and
+    from ``sample_inputs`` the frame ids on the pipeline's device."""
 
     pose: world_mod.ScenePose
     cam_pos: Tensor  # (B, 3)
     target: Tensor  # (B, 3)
     lighting: shading.Lighting
+    frame_id: Tensor | None = None  # (B,) int32
 
 
 @dataclasses.dataclass
@@ -144,6 +150,7 @@ class Pipeline:
         self.num_channels = assets.NUM_KEYPOINT_CHANNELS
         self._texels = (textures.dense_table(textures.load_factors())
                         if self.image_textures else None)
+        self.word_layout = replay.word_layout(self.cfg.scene, self.cfg.randomization)
 
     def texels(self) -> Tensor | None:
         """The texel table on the pipeline's device (moved there at the
@@ -163,33 +170,20 @@ class Pipeline:
                       camera_mix: float | None = None) -> FrameInputs:
         """Scenes (one per cadence group present), cameras and lights.
         ``ladder`` (cam_pos, target) replaces the DR cameras, or with
-        ``camera_mix`` a frame's coin chooses between the two."""
+        ``camera_mix`` a frame's coin chooses between the two. On the card the
+        draws are replayed there (``sample/replay.py``), on the CPU drawn by
+        the host loop; both give the same bits."""
         with span("gen.sample"):
             cfg = self.cfg
+            coins = ladder is not None and camera_mix is not None
             with span("gen.sample.draws"):
                 fids = [int(f) for f in frame_ids]
                 cadence = cfg.randomization.cadence_frames
                 groups = sorted({f // cadence for f in fids})
-                gidx = [groups.index(f // cadence) for f in fids]
-
-                scene = placement.stack_draws([
-                    placement.scene_draws(prng.scene_generator(seed, g * cadence, cadence),
-                                          cfg.scene, cfg.randomization) for g in groups])
-                frame = []
-                for f in fids:
-                    gen = prng.frame_generator(seed, f)
-                    frame.append(torch.cat([camera_sampler.camera_draws(gen, 1)[0],
-                                            lighting_mod.lighting_draws(gen, 1)[0]]))
-                host = dict(scene, frame=torch.stack(frame),
-                            gidx=torch.tensor(gidx, dtype=torch.float32))
-                if ladder is not None:
-                    n = ladder[0].shape[0]
-                    idx = torch.tensor([f % n for f in fids])
-                    host["ladder_cam"], host["ladder_tgt"] = ladder[0][idx], ladder[1][idx]
-                    if camera_mix is not None:
-                        host["coin"] = torch.cat([
-                            torch.rand(1, generator=prng.mix_generator(seed, f)) for f in fids])
-            dev = _to_device(host, self.device)
+                at = {g: i for i, g in enumerate(groups)}
+                gidx = [at[f // cadence] for f in fids]
+                draws = self._replayed_draws if self.device.type == "cuda" else self._host_draws
+                dev = draws(seed, fids, groups, gidx, ladder, coins)
 
             with span("gen.sample.scene"):
                 poses, _ = placement.randomize_scene(dev, self.roster, cfg.scene,
@@ -198,11 +192,48 @@ class Pipeline:
                 cam_pos, target = camera_sampler.cameras_from_draws(dev["frame"][:, :n_cam],
                                                                     cfg.camera)
                 if ladder is not None:
-                    use = (dev["coin"] < camera_mix) if camera_mix is not None else None
+                    use = (dev["coin"] < camera_mix) if coins else None
                     cam_pos, target = camera_sampler.mix_cameras(
                         use, dev["ladder_cam"], dev["ladder_tgt"], cam_pos, target)
                 lit = lighting_mod.lighting_from_draws(dev["frame"][:, n_cam:], cfg.lighting)
-                return FrameInputs(poses.index(dev["gidx"].long()), cam_pos, target, lit)
+                return FrameInputs(poses.index(dev["gidx"].long()), cam_pos, target, lit,
+                                   dev["frame_id"])
+
+    def _host_draws(self, seed: int, fids, groups, gidx, ladder,
+                    coins: bool) -> Dict[str, Tensor]:
+        """The host's draws (``replay.host_draws``), with the ladder entries
+        (f % n) gathered on the host, moved to the device in one copy."""
+        cfg = self.cfg
+        host = replay.host_draws(seed, fids, groups, cfg.randomization.cadence_frames,
+                                 cfg.scene, cfg.randomization, coins)
+        host["gidx"] = torch.tensor(gidx, dtype=torch.float32)
+        if ladder is not None:
+            n = ladder[0].shape[0]
+            idx = torch.tensor([f % n for f in fids])
+            host["ladder_cam"], host["ladder_tgt"] = ladder[0][idx], ladder[1][idx]
+        dev = _to_device(host, self.device)
+        dev["frame_id"] = torch.tensor(fids, dtype=torch.int32, device=self.device)
+        return dev
+
+    def _replayed_draws(self, seed: int, fids, groups, gidx, ladder,
+                        coins: bool) -> Dict[str, Tensor]:
+        """The card's draws: one copy of the word layout and the ids from
+        pinned memory (no synchronise), then the replay kernel; the ladder
+        entries (f % n) are gathered on the card."""
+        table = [v for row in self.word_layout.table for v in row]
+        B, G = len(fids), len(groups)
+        with span("gen.sample.upload"):
+            ids = torch.tensor(table + fids + groups + gidx, dtype=torch.int32).pin_memory()
+            ids = ids.to(self.device, non_blocking=True)
+        table, frame_id, group_id, gidx = ids.split([len(table), B, G, B])
+        with span("gen.sample.draws.replay"):
+            dev = replay.replay_cuda(self.word_layout, seed, table, frame_id, group_id, coins)
+        dev.update(frame_id=frame_id, gidx=gidx)
+        if ladder is not None:
+            idx = torch.remainder(frame_id, ladder[0].shape[0])
+            dev["ladder_cam"] = ladder[0].to(self.device).index_select(0, idx)
+            dev["ladder_tgt"] = ladder[1].to(self.device).index_select(0, idx)
+        return dev
 
     def sample_sequence_inputs(self, seed: int, frame_ids: Sequence[int],
                                seq_len: int) -> FrameInputs:
@@ -288,10 +319,12 @@ class Pipeline:
         cams = self.ladder() if ladder or camera_mix is not None else None
 
         def generate(seed: int, frame_ids: Sequence[int]) -> FrameBatch:
+            nonlocal cams
             with span("gen.batch"):
-                fids = torch.as_tensor([int(f) for f in frame_ids], dtype=torch.int32)
-                inputs = self.sample_inputs(seed, fids.tolist(), cams, camera_mix)
-                return self.render(fids.to(self.device), inputs, include_heatmaps)
+                if cams is not None and cams[0].device != self.device:
+                    cams = tuple(c.to(self.device) for c in cams)  # once, at the first batch
+                inputs = self.sample_inputs(seed, frame_ids, cams, camera_mix)
+                return self.render(inputs.frame_id, inputs, include_heatmaps)
 
         return generate
 

@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U64 = ctypes.c_uint64
 SIGNATURES = {
     "cspe_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "cspe_rgb": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P],
@@ -46,6 +47,7 @@ SIGNATURES = {
     "cspe_raycast": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                      _P],
     "cspe_mesh_terms": [_P] * 12 + [_I] * 5 + [_P] * 5,
+    "cspe_draws": [_P, _I, _P, _I, _I, _U64, _U64, _U64, _P, _I, _I, _I, _P, _P],
 }
 
 
