@@ -6,9 +6,10 @@ against the reference on each of ``--control-seeds`` (its smallest is the
 upper reading). A generate cell's control is the reference with its
 matrix products in TF32 and its RGB pass in bfloat16
 (``reference/precision.py``); a training cell's the reference with its
-body in fp8, and,
-beside it, the faults a training step can have, planted in the reference
-put in the program's place (``--faults``).
+body in fp8, and, beside it, the faults a training step can have, planted
+in the reference put in the program's place, and on several cards in the
+program on every rank (``--faults``). A cell of several cards runs one rank
+a card, this process rank 0.
 
     python3 perfbench/calibrate.py --workload <cell> --seeds 1,2,... \\
         --control-seeds 7,8,9 [--faults] [--out FILE]
@@ -28,6 +29,8 @@ HERE = Path(__file__).resolve().parent
 sys.path[:0] = [str(HERE), str(HERE.parent)]
 
 from harness import manifest, session  # noqa: E402
+
+LIMIT_S = 3000.0  # the life of a calibration's ranks on several cards
 
 
 def generate_readings(cell, seeds, control_seeds, device):
@@ -76,37 +79,62 @@ def worst_leaves(prog, ref, n=4):
     return out
 
 
-def training_readings(cell, seeds, control_seeds, faults, device):
+def training_readings(group, cell, seeds, control_seeds, faults, device):
+    """Every rank runs the program's first steps on each seed (a cell of
+    several cards on each of its ranks, ``group``); rank 0 runs the
+    reference and returns the readings, the other ranks None. With
+    ``faults``, each control seed also reads the faults planted in the
+    reference (half the batch, one frame altered) and, on several cards,
+    those planted in the program (``harness/faults``: the gradients not
+    averaged over the ranks, every rank training rank 0's rows)."""
     import torch
 
-    from harness import training
+    from harness import faults as program_faults, ranks, training
     from reference import training as ref_training
 
-    out = {"program": {}, "control": {}, "half": {}, "altered": {}, "leaves": {}}
+    planted = ("no_sync", "one_shard") if faults and group.world > 1 else ()
+    out = {"program": {}, "control": {}, "half": {}, "altered": {}, "leaves": {},
+           **{k: {} for k in planted}}
     pipe = None
     for seed in seeds + [s for s in control_seeds if s not in seeds]:
-        t = training.Trainer(cell, seed, device, pipe)
-        pipe = t.pipe
-        kept = t.check_steps(cell.mix["check_steps"])
-        del t
-        ref = ref_training.steps(cell, seed, kept["ids"], device)
-        if seed in seeds:
-            out["program"][seed] = training.train_numbers(kept, ref)
-            out["leaves"][f"program {seed}"] = worst_leaves(kept, ref)
-        if seed in control_seeds:
-            kinds = {"control": {"control": True}}
-            if faults:
-                kinds.update(half={"fault": "half"}, altered={"fault": "altered"})
-            for kind, kw in kinds.items():
-                other = ref_training.steps(cell, seed, kept["ids"], device, **kw)
-                out[kind][seed] = training.train_numbers(other, ref)
-                out["leaves"][f"{kind} {seed}"] = worst_leaves(other, ref)
-                del other
-        print(f"[calibrate] seed {seed}: " + json.dumps({k: v.get(seed) for k, v in out.items()}),
-              file=sys.stderr, flush=True)
-        del kept, ref
-        torch.cuda.empty_cache()
-    return out
+        ref = None
+        runs = [("program", None)] + [(k, program_faults.FAULTS[k]) for k in planted
+                                      if seed in control_seeds]
+        for kind, plant in runs:
+            group.barrier()
+            with ranks.planted(plant):
+                t = training.Trainer(cell, seed, device, pipe, sharded=group.world > 1)
+                pipe = t.pipe
+                kept = t.check_steps(cell.mix["check_steps"], group)
+            del t
+            if group.rank:
+                continue
+            if ref is None:
+                ref = ref_training.steps(cell, seed, kept["ids"], device)
+            out[kind][seed] = training.train_numbers(kept, ref)
+            out["leaves"][f"{kind} {seed}"] = worst_leaves(kept, ref)
+            if kind == "program" and seed in control_seeds:
+                kinds = {"control": {"control": True}}
+                if faults:
+                    kinds.update(half={"fault": "half"}, altered={"fault": "altered"})
+                for k, kw in kinds.items():
+                    other = ref_training.steps(cell, seed, kept["ids"], device, **kw)
+                    out[k][seed] = training.train_numbers(other, ref)
+                    out["leaves"][f"{k} {seed}"] = worst_leaves(other, ref)
+                    del other
+            del kept
+            torch.cuda.empty_cache()
+        if group.rank == 0:
+            print(f"[calibrate] seed {seed}: " + json.dumps(
+                {k: v.get(seed) for k, v in out.items() if k != "leaves"}),
+                file=sys.stderr, flush=True)
+        del ref
+    return out if group.rank == 0 else None
+
+
+def _follow_readings(group, cell, seeds, control_seeds, faults):
+    """Ranks 1 to n-1 of a calibration on several cards."""
+    training_readings(group, cell, seeds, control_seeds, faults, group.device)
 
 
 def main(argv):
@@ -120,16 +148,25 @@ def main(argv):
     session.set_environment()
     import torch
 
-    if not torch.cuda.is_available():
-        print("calibrate: needs a CUDA card", file=sys.stderr)
+    from harness import ranks
+
+    cell = manifest.load_cell(args.workload)
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
+        print(f"calibrate: needs {cell.chips} CUDA card(s)", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
-    cell = manifest.load_cell(args.workload)
     seeds = [int(s) for s in args.seeds.split(",") if s]
     control = [int(s) for s in args.control_seeds.split(",") if s]
     t0 = time.time()
-    if cell.mix["kind"] == "train":
-        res = training_readings(cell, seeds, control, args.faults, device)
+    if cell.mix["kind"] == "train" and cell.chips > 1:
+        with ranks.Ranks(cell.chips, "cuda", _follow_readings,
+                         (cell, seeds, control, args.faults), LIMIT_S) as held:
+            group = held.group()
+            res = training_readings(group, cell, seeds, control, args.faults, device)
+            group.close()
+            held.join(120.0)
+    elif cell.mix["kind"] == "train":
+        res = training_readings(ranks.Solo(), cell, seeds, control, args.faults, device)
     else:
         res = generate_readings(cell, seeds, control, device)
     res = {"workload": args.workload, "seconds": time.time() - t0,

@@ -3,7 +3,8 @@
     python3 perfbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 It refuses to run (exit 2, no result) without as many CUDA cards as the
-cell asks for. With ``--trace 0`` the result's metrics are the cell's
+cell asks for; a cell of several cards runs one rank a card, this process
+rank 0 (``ranks``). With ``--trace 0`` the result's metrics are the cell's
 end-to-end metrics; with ``--trace 1`` its per-layer metrics, read from a
 profiled sub-window by the readers in ``metrics/``.
 """
@@ -35,15 +36,17 @@ def _number(v):
 
 
 def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device,
-             clock: session.SetupClock, chips: int = 1) -> tuple[dict, dict]:
-    """(result, checks) of one run of ``cell`` on ``device``; the device
-    check is the caller's."""
+             clock: session.SetupClock, plant=None) -> tuple[dict, dict]:
+    """(result, checks) of one run of ``cell`` from ``device`` (rank 0's
+    card); the device check is the caller's. ``plant`` is a picklable
+    callable returning a context manager that every rank's part of the run
+    is made inside: a test's fault (``ranks.planted``)."""
     import importlib
 
     import torch
 
     driver = importlib.import_module(f"harness.{DRIVERS[cell.mix['kind']]}")
-    metrics, extra, numbers = driver.run(cell, seed, seconds, trace, device, clock)
+    metrics, extra, numbers = driver.run(cell, seed, seconds, trace, device, clock, plant=plant)
     out = {}
     if trace:
         tr = metrics["trace"]
@@ -60,7 +63,7 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device
     checks = {k: {"value": _number(c["value"]),
                   "limit": None if c["limit"] is None else _number(c["limit"])}
               for k, c in checks.items()}
-    dev = session.device_info(torch, device, chips)
+    dev = session.device_info(torch, device, cell.chips)
     dev["memory_peak_bytes"] = extra.pop("memory_peak_bytes", dev["memory_peak_bytes"])
     for k in ("busy_s", "window_s"):
         if k in extra:
@@ -79,11 +82,10 @@ def main(argv) -> int:
     import torch
 
     cell = manifest.load_cell(args.workload)
-    chips = {w["name"]: w for w in manifest.load_manifest()["workloads"]}[args.workload]["chips"]
-    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
-        print(f"perfbench: the cell needs {chips} CUDA card(s); "
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
+        print(f"perfbench: the cell needs {cell.chips} CUDA card(s); "
               f"torch.cuda.is_available() is {torch.cuda.is_available()}", file=sys.stderr)
         return 2
     result, checks = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                              torch.device("cuda", 0), clock, chips)
+                              torch.device("cuda", 0), clock)
     return session.finish(result, checks)

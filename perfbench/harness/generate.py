@@ -15,7 +15,7 @@ import sys
 
 import torch
 
-from . import compare, configure, tracing, window as win
+from . import compare, configure, ranks, tracing, window as win
 from .manifest import Cell
 from .session import SetupClock
 
@@ -102,9 +102,18 @@ class Stream:
 
 
 def run(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.device,
-        clock: SetupClock):
-    """(metrics, extra result keys, compared numbers) of one run; prints its
-    set-up parts on standard error."""
+        clock: SetupClock, plant=None):
+    """(metrics, extra result keys, compared numbers) of one run, made
+    inside ``plant`` (``ranks.planted``); prints its set-up parts on
+    standard error. A generate cell runs on one card."""
+    if cell.chips != 1:
+        raise ValueError(f"{cell.name}: a generate cell runs on one card")
+    with ranks.planted(plant):
+        return _run(cell, seed, seconds, trace, device, clock)
+
+
+def _run(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.device,
+         clock: SetupClock):
     import importlib
 
     mix, card = cell.mix, device.type == "cuda"

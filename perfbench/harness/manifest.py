@@ -1,8 +1,9 @@
 """The cell a run measures, found by name in ``BENCHMARK.json``: its
 configuration file, its traffic mix (``mixes/<traffic>.json``), the limits
-of its check (``limits/<cell>.json``) and the readers of its per-layer
-metrics (``metrics/<metric>.py``). A cell, a mix or a metric is added as a
-file of its own and an entry of the manifest; nothing here names one.
+of its check (``limits/<cell>.json``), the readers of its per-layer metrics
+(``metrics/<metric>.py``) and the model its configuration names
+(``models/<backbone>.py``). A cell, a mix, a metric or a model is added as
+a file of its own and an entry of the manifest; nothing here names one.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, NamedTuple
 
 from .session import HERE, ROOT
@@ -22,6 +24,7 @@ class Cell(NamedTuple):
     limits: dict  # {number: limit} of the check; empty where none is set
     end_to_end: list  # the manifest's entries that this cell reports
     per_layer: list
+    chips: int = 1  # the cards the cell runs on, one process a card
 
 
 def load_manifest(root: Path = ROOT) -> dict:
@@ -47,13 +50,28 @@ def load_cell(name: str, root: Path = ROOT, bench_dir: Path = HERE) -> Cell:
     limits = json.loads(limits_file.read_text()) if limits_file.exists() else {}
     return Cell(name, config, mix, limits,
                 [m for m in man["end_to_end"] if _reports(m, name)],
-                [m for m in man["per_layer"] if _reports(m, name)])
+                [m for m in man["per_layer"] if _reports(m, name)], w["chips"])
+
+
+def _module(path: Path, name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(metric: str, bench_dir: Path = HERE) -> Callable:
     """The ``read(trace)`` function of ``metrics/<metric>.py``."""
-    path = bench_dir / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"perfbench_metric_{metric}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _module(bench_dir / "metrics" / f"{metric}.py", f"perfbench_metric_{metric}").read
+
+
+def model(backbone: str, bench_dir: Path = HERE) -> ModuleType:
+    """``models/<backbone>.py``: its ``port(model_cfg, num_channels, device)``
+    builds the program's module, its ``reference(...)`` the plain float32
+    copy, and its optional ``weights(model, seed, device)`` draws the weights
+    where ``configure.draw_weights``'s rule does not fit; ``HEAD``, where it
+    is given, names the modules the control leaves at the head's dtype."""
+    path = bench_dir / "models" / f"{backbone}.py"
+    if not path.exists():
+        raise KeyError(f"no model file models/{backbone}.py for the configuration's backbone")
+    return _module(path, f"perfbench_model_{backbone}")

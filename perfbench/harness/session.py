@@ -58,8 +58,9 @@ class SetupClock:
     """The parts of ``setup_s``, from the process's start to the first
     timed batch; each part printed on standard error as it ends."""
 
-    def __init__(self, start: float | None = None):
+    def __init__(self, start: float | None = None, label: str = "setup"):
         self.start = process_start() if start is None else start
+        self.label = label
         self.last = self.start
         self.parts: dict[str, float] = {}
 
@@ -67,7 +68,7 @@ class SetupClock:
         now = time.time()
         self.parts[name] = now - self.last
         self.last = now
-        print(f"[setup] {name}: {self.parts[name]:.3f} s", file=sys.stderr, flush=True)
+        print(f"[{self.label}] {name}: {self.parts[name]:.3f} s", file=sys.stderr, flush=True)
         return self.parts[name]
 
     def total(self) -> float:

@@ -3,8 +3,10 @@ points, installed from here at run time, and a ``torch.profiler``
 sub-window of a few steady batches read back from its Chrome trace.
 
 Spans: ``Pipeline.sample_inputs``, ``Pipeline.sample_sequence_inputs``,
-``Pipeline.render``, ``BatchStep.forward_backward`` and ``BatchStep.update``
-are wrapped so that each call adds its host time to a total and, under the
+``Pipeline.render``, ``BatchStep.forward_backward``, ``BatchStep.update``
+and the data-parallel ``ShardedBatchStep.forward_backward`` (under the same
+name, ``forward_backward``; only a cell of several cards builds one) are
+wrapped so that each call adds its host time to a total and, under the
 profiler, opens a ``record_function`` range of the same name, which the
 idle gaps of ``breakdown`` are labelled by. Nothing of the port is edited.
 """
@@ -29,7 +31,8 @@ SPANS = (("parallel.pipeline", "Pipeline", "sample_inputs"),
          ("parallel.pipeline", "Pipeline", "sample_sequence_inputs"),
          ("parallel.pipeline", "Pipeline", "render"),
          ("train.loop", "BatchStep", "forward_backward"),
-         ("train.loop", "BatchStep", "update"))
+         ("train.loop", "BatchStep", "update"),
+         ("train.loop", "ShardedBatchStep", "forward_backward"))
 PACKAGE = "constructionsceneposeestimation_tpu_torch"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 WINDOW = "perfbench.window"

@@ -3,16 +3,23 @@ job in float32 with TF32 off, from the weights the harness draws from the
 seed and the batches the reference's own datagen makes again from the seed.
 
 Each step generates its frames (the frozen plain pipeline, camera mix
-included), draws their augment, preprocesses, runs the full-width backbone
-in float32 (no autocast), takes the focal loss, backpropagates and makes
-one AdamW update written out by its formula (decoupled decay, bias
-corrections, eps outside the square root) at optax's warmup-cosine learning
-rate for the update's count.
+included), draws their augment, preprocesses, runs the configuration's
+model (its file's plain ``reference`` copy) in float32 (no autocast), takes
+the focal loss, backpropagates and makes one AdamW update written out by
+its formula (decoupled decay, bias corrections, eps outside the square
+root) at optax's warmup-cosine learning rate for the update's count.
 
-``control=True`` runs every convolution of the backbone's body in fp8 as
-fp8 training does: e4m3 inputs and weights forward, e5m2 gradients of its
-output backward, one scale a tensor, the head left in float32: the
-precision below the body's bfloat16 that the configuration states.
+A cell of several cards trains its whole global batch here in one
+process: the frames are generated in chunks of one rank's rows, as the
+ranks generate them, the focal loss is normalised by the positives of the
+whole batch, as the port's data-parallel step normalises it, and the
+gradient is accumulated over the chunks before the one update.
+
+``control=True`` runs every convolution and linear layer of the model in
+fp8 as fp8 training does, but those its file names as its ``HEAD``: e4m3
+inputs and weights forward, e5m2 gradients of its output backward, one
+scale a tensor: the precision below the body's bfloat16 that the
+configuration states.
 """
 
 from __future__ import annotations
@@ -22,9 +29,8 @@ import math
 import torch
 import torch.nn.utils.parametrize as parametrize
 
-from harness import configure
+from harness import configure, manifest
 from reference.plain import config as ref_config
-from reference.plain.models import backbone
 from reference.plain.ops import preprocess
 from reference.plain.parallel import pipeline as ref_pipeline
 from reference.plain.train import losses
@@ -73,11 +79,13 @@ class _GradE5M2(torch.autograd.Function):
         return (g / s).to(torch.float8_e5m2).to(g.dtype) * s
 
 
-def quantize_body(model: torch.nn.Module) -> None:
-    """Every convolution of the body in fp8: e4m3 inputs and weights
-    forward, e5m2 gradients of its output backward."""
+def quantize_body(model: torch.nn.Module, head=()) -> None:
+    """Every convolution and linear layer but the modules ``head`` in fp8:
+    e4m3 inputs and weights forward, e5m2 gradients of its output
+    backward."""
+    layers = (torch.nn.modules.conv._ConvNd, torch.nn.Linear)
     for name, m in model.named_modules():
-        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)) and name != "head":
+        if isinstance(m, layers) and name not in head:
             parametrize.register_parametrization(m, "weight", _FP8())
             m.register_forward_pre_hook(lambda mod, args: (fp8(args[0]),) + args[1:])
             m.register_forward_hook(lambda mod, args, out: _GradE5M2.apply(out))
@@ -105,15 +113,9 @@ def steps(cell, seed: int, step_ids: list, device, control: bool = False,
         raise ValueError("the reference trains with the focal loss only")
     pipe = ref_pipeline.Pipeline(cfg, device=device, **cell.config["tier"])
     gen = pipe.make_generate_fn(ladder=False, camera_mix=tc.camera_mix or None)
-    mc = cell.config["model"]
-    model = backbone.HeatmapBackbone(
-        pipe.num_channels, stage_features=mc["stage_features"],
-        blocks_per_stage=mc["blocks_per_stage"], deconv_features=mc["deconv_features"],
-        output_stride=mc["output_stride"], use_skips=mc["use_skips"],
-        dtype=torch.float32).to(device).train()
-    configure.draw_weights(model, seed, device)
+    model = configure.build_model(cell, "reference", pipe.num_channels, seed, device).train()
     if control:
-        quantize_body(model)
+        quantize_body(model, getattr(manifest.model(cell.config["model"]["backbone"]), "HEAD", ()))
     params = [(leaf(n), p) for n, p in model.named_parameters()]
     start = {n: p.detach().clone() for n, p in params}
     state = {n: (torch.zeros_like(p), torch.zeros_like(p)) for n, p in params}
@@ -122,26 +124,34 @@ def steps(cell, seed: int, step_ids: list, device, control: bool = False,
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         for i, ids in enumerate(step_ids):
+            rows = len(ids) // cell.chips  # one rank's rows
             with torch.no_grad():
-                batch = gen(seed, ids)
+                parts = [gen(seed, ids[a:a + rows]) for a in range(0, len(ids), rows)]
+                rgb = torch.cat([b.rgb for b in parts])
+                heatmaps = torch.cat([b.heatmaps for b in parts])
+                del parts
                 if fault == "altered":
-                    batch.rgb[0] = 255 - batch.rgb[0]
-                    batch.heatmaps[0] = 1.0 - batch.heatmaps[0]
-                draws = preprocess.augment_draws(seed, ids, pc.render_height, pc.render_width,
-                                                 device)
-            out["rgb"].append(batch.rgb)
-            out["heatmaps"].append(batch.heatmaps)
-            images = preprocess.preprocess_frame(batch.rgb, pc.render_height, pc.render_width,
-                                                 augment=True, draws=draws)
-            pred = model(images.permute(0, 3, 1, 2)).contiguous()
-            if fault == "half":
-                half = pred.shape[0] // 2
-                loss = losses.focal_heatmap_loss(pred[:half], batch.heatmaps[:half])
-            else:
-                loss = losses.focal_heatmap_loss(pred, batch.heatmaps)
+                    rgb[0] = 255 - rgb[0]
+                    heatmaps[0] = 1.0 - heatmaps[0]
+            out["rgb"].append(rgb)
+            out["heatmaps"].append(heatmaps)
+            used = len(ids) // 2 if fault == "half" else len(ids)
+            n_pos = torch.sum(heatmaps[:used] > 0.9, dtype=torch.float32)
             model.zero_grad(set_to_none=True)
-            loss.backward()
-            out["loss"].append(float(loss.detach()))
+            total = 0.0
+            for a in range(0, used, rows):
+                b = min(a + rows, used)
+                with torch.no_grad():
+                    draws = preprocess.augment_draws(seed, ids[a:b], pc.render_height,
+                                                     pc.render_width, device)
+                images = preprocess.preprocess_frame(rgb[a:b], pc.render_height,
+                                                     pc.render_width, augment=True, draws=draws)
+                pred = model(images.permute(0, 3, 1, 2)).contiguous()
+                loss = losses.focal_heatmap_loss(pred, heatmaps[a:b], n_pos=n_pos)
+                loss.backward()
+                total += float(loss.detach())
+                del pred, loss, images, draws
+            out["loss"].append(total)
             if i == 0:
                 out["grads"] = {n: p.grad.detach().clone() for n, p in params}
                 norms = {n: float(torch.linalg.vector_norm(g)) for n, g in out["grads"].items()}
@@ -160,7 +170,6 @@ def steps(cell, seed: int, step_ids: list, device, control: bool = False,
                     bc1, bc2 = 1.0 - BETAS[0] ** (i + 1), 1.0 - BETAS[1] ** (i + 1)
                     denom = (v.sqrt() / math.sqrt(bc2)).add_(EPS)
                     p.addcdiv_(m, denom, value=-lr / bc1)
-            del pred, loss, images
         out["change"] = {n: p.detach() - start[n] for n, p in params}
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev

@@ -30,7 +30,8 @@ def test_cell_runs_and_checks(name):
 
 
 @pytest.mark.parametrize("name", ["world2-proxy-512.iid-b512", "world2-proxy-512.train-b32",
-                                  "world2-proxy-512.clips-b510"])
+                                  "world2-proxy-512.clips-b510",
+                                  "world2-proxy-512.train-ddp4-b128"])
 def test_traced_run(name):
     cell = tiny.tiny(name)
     result, checks = tiny.run(cell, trace=True)
@@ -58,8 +59,9 @@ def test_refuses_without_a_card():
 @pytest.mark.parametrize("name", tiny.cells())
 def test_cell_on_the_card(name):
     """The command as the driver runs it, at the cell's own size."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+    chips = tiny.manifest.load_cell(name).chips
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        pytest.skip(f"needs {chips} CUDA card(s)")
     out = subprocess.run([sys.executable, str(tiny.BENCH / "run.py"), "--workload", name,
                           "--seed", str(tiny.SEED), "--seconds", "5", "--trace", "0"],
                          cwd=tiny.ROOT, capture_output=True, text=True, timeout=600)

@@ -1,21 +1,21 @@
 """The check that decides ``correct``, shown to fail: the reference agrees
 with the port at 64^2 on the CPU; an output altered where it is produced,
 a step that leaves its state unchanged and a loss over half the batch each
-make a run come out not correct; so does the control, the reference in the
-precision below the configuration's. On the card the control runs at the
-cell's own size."""
-
-import contextlib
+make a run come out not correct, and on several ranks so do gradients left
+unaveraged and every rank training the same rows; so does the control, the
+reference in the precision below the configuration's. On the card the
+control runs at the cell's own size."""
 
 import pytest
 import torch
 
 import perfbench_tiny as tiny
-from harness import compare, generate, training
+from harness import compare, faults, generate, manifest, training
 from reference import training as ref_training
 
 GENERATE = [n for n in tiny.cells() if "train" not in n]
 TRAIN = [n for n in tiny.cells() if "train" in n]
+SHARDED = [n for n in TRAIN if manifest.load_cell(n).chips > 1]
 
 
 @pytest.mark.parametrize("name", GENERATE)
@@ -33,18 +33,6 @@ def test_reference_agrees_with_the_port(name):
     assert all(v == 0.0 for v in compare.frame_numbers(prog, ref, (lo, hi)).values())
 
 
-def _patched(cls, name, wrap):
-    @contextlib.contextmanager
-    def cm():
-        fn = cls.__dict__[name]
-        setattr(cls, name, wrap(fn))
-        try:
-            yield
-        finally:
-            setattr(cls, name, fn)
-    return cm()
-
-
 def _render_altered(field, change):
     """The port's ``Pipeline.render`` with one output field altered."""
     from constructionsceneposeestimation_tpu_torch.parallel.pipeline import Pipeline
@@ -54,7 +42,7 @@ def _render_altered(field, change):
             b = fn(self, *a, **kw)
             return b._replace(**{field: change(getattr(b, field))})
         return render
-    return _patched(Pipeline, "render", wrap)
+    return faults.patched(Pipeline, "render", wrap)
 
 
 ALTERED = {"depth": lambda x: x * 1.01, "instance": lambda x: torch.where(x >= 0, x + 1, x),
@@ -92,7 +80,7 @@ def _one_instance_shaded(levels: int):
 
     def wrap(fn):
         return lambda self, *a, **kw: change(fn(self, *a, **kw))
-    return _patched(Pipeline, "render", wrap)
+    return faults.patched(Pipeline, "render", wrap)
 
 
 def _window_of(batches: int):
@@ -108,7 +96,7 @@ def _window_of(batches: int):
                 w.mark()
             return w.finish()
         return run
-    return _patched(window, "run", wrap)
+    return faults.patched(window, "run", wrap)
 
 
 @pytest.mark.parametrize("name", GENERATE[:1])
@@ -139,33 +127,28 @@ def test_reference_lies_between_its_noise_ends(name):
     assert bool((lo < hi).any())
 
 
-def _batch_step(name, wrap):
-    from constructionsceneposeestimation_tpu_torch.train.loop import BatchStep
-
-    return _patched(BatchStep, name, wrap)
-
-
-def _state_unchanged(fn):
-    return lambda self, state: state
-
-
-def _half_batch(fn):
-    def loss(self, model, images, targets):
-        h = images.shape[0] // 2
-        return fn(self, model, images[:h], targets[:h])
-    return loss
-
-
 @pytest.mark.parametrize("fault", ["state_unchanged", "half_batch", "rgb_altered"])
 @pytest.mark.parametrize("name", TRAIN)
 def test_training_fault_is_not_correct(name, fault):
+    """Each fault planted in the port on every rank (``harness/faults``)."""
     cell = tiny.tiny(name)
-    plant = {"state_unchanged": lambda: _batch_step("update", _state_unchanged),
-             "half_batch": lambda: _batch_step("loss", _half_batch),
-             "rgb_altered": lambda: _render_altered("rgb", lambda x: 255 - x)}[fault]
-    with plant():
-        result, checks = tiny.run(cell)
+    result, checks = tiny.run(cell, plant=faults.FAULTS[fault])
     assert not result["correct"], (fault, checks)
+
+
+@pytest.mark.parametrize("fault", ["no_sync", "one_shard"])
+@pytest.mark.parametrize("name", SHARDED)
+def test_sharded_fault_is_not_correct(name, fault):
+    """On two gloo ranks: the gradients not averaged over the ranks fail
+    the gradient's numbers; every rank training rank 0's rows fails the
+    batch's."""
+    cell = tiny.tiny(name)
+    result, checks = tiny.run(cell, plant=faults.FAULTS[fault])
+    assert not result["correct"], (fault, checks)
+    failed = {k for k, c in checks.items() if c["value"] > c["limit"]}
+    want = {"no_sync": {"grad_gap", "grad_diff"},
+            "one_shard": {"batch_rgb_frame_gap", "batch_heatmap_gap"}}[fault]
+    assert failed & want, (fault, checks)
 
 
 def _generate_control(cell, device):
@@ -203,8 +186,6 @@ def test_control_is_not_correct_on_the_card(name, seed):
     """The control at the cell's own size on the card, on three seeds."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from harness import manifest
-
     cell = manifest.load_cell(name)
     tiny.SEED, saved = seed, tiny.SEED
     try:

@@ -70,3 +70,21 @@ def test_breakdown_names_the_stages():
                                   "idle during gen.render.sweep": 60e-6,
                                   "idle during gen.render": 200e-6})
 
+
+
+def test_allreduce_exposed_reads_its_exact_number():
+    """NCCL kernels in two batches of 500 us: 20 us under a compute kernel
+    and 50 alone; 40 with 10 of compute inside; two that overlap each other
+    over 150 us with 20 of compute inside: 210 us exposed, 0.105 ms a
+    batch. Without NCCL kernels the reader finds nothing."""
+    nccl = "ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgsStorage<4096ul>)"
+    ev = [_x("user_annotation", tracing.WINDOW, 0, 1000),
+          _x("kernel", "conv", 0, 100), _x("kernel", nccl, 80, 150),
+          _x("kernel", nccl, 300, 340), _x("kernel", "add", 320, 330),
+          _x("kernel", nccl, 500, 600), _x("kernel", nccl, 550, 650),
+          _x("kernel", "mul", 600, 620)]
+    read = manifest.reader("allreduce_exposed_ms.train")
+    assert read(tracing.Trace(ev, 2, tracing.Spans(), 2, frozenset())) == pytest.approx(
+        0.105, abs=1e-12)
+    plain = [e for e in ev if "nccl" not in e["name"]]
+    assert read(tracing.Trace(plain, 2, tracing.Spans(), 2, frozenset())) is None
