@@ -134,7 +134,8 @@ def _run_training(args):
         train=TrainConfig(batch_size=args.batch, steps=max(args.steps, 1), loss=args.loss,
                           camera_mix=args.camera_mix),
     )
-    model = pose_net.make_model(lite=args.lite, device=args.device, seed=args.seed)
+    model = pose_net.make_model(device=args.device, seed=args.seed,
+                                backbone=args.backbone.replace("-", "_"))
     pipe = pipeline_mod.Pipeline(cfg, device=args.device)
     mgr = _manager(args)
     state = _restore_latest(mgr, train_loop.create_train_state(cfg, model))
@@ -698,7 +699,12 @@ def _train_flags(p, steps: int, batch: int, inner: int) -> None:
     p.add_argument("--batch", type=int, default=batch)
     p.add_argument("--size", type=int, default=256)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--lite", action="store_true")
+    p.add_argument("--backbone", choices=["heatmap", "lite", "hrnet-w48"], default="heatmap",
+                   help="the pose backbone: the full-width HeatmapBackbone, its lite variant, "
+                        "or HRNet-W48 (BatchNorm: batch statistics in training, running ones "
+                        "in evaluation)")
+    p.add_argument("--lite", dest="backbone", action="store_const", const="lite",
+                   help="the same as --backbone lite")
     p.add_argument("--loss", choices=["mse", "focal"], default="focal",
                    help="heatmap loss (focal = the README headline config)")
     p.add_argument("--camera-mix", type=float, default=0.0,

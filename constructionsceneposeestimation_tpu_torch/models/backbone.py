@@ -13,6 +13,10 @@ carry over (``convert.pose_net_params``):
 * ``dtype=torch.bfloat16`` (the default, as in flax) runs the body under
   bf16 autocast; the head always runs in f32.
 
+``_Backbone.forward`` opens the span ``model.forward`` around the body and
+the head (``utils/profiling.annotate``: a flag check with no profiler
+active), as every backbone built on it does (``models/hrnet.py`` too).
+
 The convolutions are cuDNN's: the JAX package leaves them to XLA, outside
 any Pallas kernel.
 """
@@ -25,6 +29,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils.profiling import annotate as span
 
 Tensor = torch.Tensor
 GN_EPS = 1e-6
@@ -99,11 +105,12 @@ class _Backbone(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         """images (B, 3, H, W) f32 -> raw heatmaps (B, C, H/s, W/s) f32."""
-        with torch.autocast(x.device.type, dtype=torch.bfloat16,
-                            enabled=self.dtype == torch.bfloat16):
-            x = self.body(x)
-        with torch.autocast(x.device.type, enabled=False):
-            return self.head(x.float())
+        with span("model.forward"):
+            with torch.autocast(x.device.type, dtype=torch.bfloat16,
+                                enabled=self.dtype == torch.bfloat16):
+                x = self.body(x)
+            with torch.autocast(x.device.type, enabled=False):
+                return self.head(x.float())
 
 
 class HeatmapBackbone(_Backbone):
@@ -187,7 +194,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """flax's default initialization, drawn from a CPU generator seeded with
     ``seed`` (so the weights do not depend on the device): kernels
     LeCun-normal (a normal truncated at 2 std, std sqrt(1 / fan_in) / 0.8796),
-    biases 0, GroupNorm scale 1 and bias 0."""
+    biases 0, GroupNorm's and BatchNorm's scale 1 and bias 0, BatchNorm's
+    running mean 0, running variance 1 and count of batches 0."""
     gen = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
@@ -200,7 +208,9 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
             w.copy_(sample)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.GroupNorm):
+        elif isinstance(m, (nn.GroupNorm, nn.BatchNorm2d)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+            if isinstance(m, nn.BatchNorm2d):
+                m.reset_running_stats()
     return model

@@ -14,7 +14,7 @@ import torch
 from ..ops import decode as decode_ops
 from ..ops import pnp as pnp_ops
 from ..scene import assets
-from . import backbone
+from . import backbone as backbones, hrnet
 
 Tensor = torch.Tensor
 
@@ -29,27 +29,41 @@ def class_channel_slices() -> Dict[str, tuple]:
     return {n: (lo, hi + 1) for n, (lo, hi) in out.items()}
 
 
+BACKBONES = ("heatmap", "lite", "hrnet_w48")
+
+
 def make_model(num_channels: int | None = None, lite: bool = False, output_stride: int = 4,
                device: str | torch.device = "cuda", seed: int = 0,
-               dtype: torch.dtype = torch.bfloat16) -> backbone._Backbone:
-    """The backbone with flax's default initialization drawn from ``seed``,
-    on ``device`` (the card unless the caller asks for the CPU), in eval
-    mode. On the card the weights take the channels-last layout that cuDNN's
-    bf16 convolutions prefer."""
+               dtype: torch.dtype = torch.bfloat16,
+               backbone: str = "heatmap") -> backbones._Backbone:
+    """The backbone ``backbone`` (``BACKBONES``: the full-width
+    ``HeatmapBackbone``, ``LiteBackbone``, or HRNet-W48 at its published
+    widths; ``lite=True`` means "lite") with flax's default initialization
+    drawn from ``seed``, on ``device`` (the card unless the caller asks for
+    the CPU), in eval mode. On the card the weights take the channels-last
+    layout that cuDNN's bf16 convolutions prefer."""
     num_channels = num_channels or assets.NUM_KEYPOINT_CHANNELS
     if lite:
-        if output_stride != 4:
-            raise ValueError("LiteBackbone is stride-4 only")
-        model = backbone.LiteBackbone(num_channels, dtype=dtype)
+        if backbone not in ("heatmap", "lite"):
+            raise ValueError(f"lite=True asks for the lite backbone, not {backbone!r}")
+        backbone = "lite"
+    if backbone not in BACKBONES:
+        raise ValueError(f"no backbone {backbone!r} (have: {', '.join(BACKBONES)})")
+    if backbone != "heatmap" and output_stride != 4:
+        raise ValueError(f"the {backbone} backbone is stride-4 only")
+    if backbone == "lite":
+        model = backbones.LiteBackbone(num_channels, dtype=dtype)
+    elif backbone == "hrnet_w48":
+        model = hrnet.HRNet(num_channels, width=48, dtype=dtype)
     else:
-        model = backbone.HeatmapBackbone(num_channels, output_stride=output_stride, dtype=dtype)
-    model = backbone.init_weights(model, seed).to(device).eval()
+        model = backbones.HeatmapBackbone(num_channels, output_stride=output_stride, dtype=dtype)
+    model = backbones.init_weights(model, seed).to(device).eval()
     if model.head.weight.is_cuda:
         model = model.to(memory_format=torch.channels_last)
     return model
 
 
-def forward(model: backbone._Backbone, images: Tensor) -> Tensor:
+def forward(model: backbones._Backbone, images: Tensor) -> Tensor:
     """images (B, H, W, 3) -> raw heatmaps (B, C, H/s, W/s), contiguous and
     channel-major as ops.decode and ops.heatmap expect. The NHWC input is
     handed over as a channels-last NCHW view, with no copy; the output is

@@ -28,8 +28,22 @@ across the ranks, outside the gradient) and each rank's loss is scaled by
 the world size, so the ranks' gradient mean is the global gradient; MSE's
 per-rank means average to the global mean as they are, the shards being
 equal. The ``loss`` metric is reduced, so every rank reports the global
-loss. The backbone normalizes with GroupNorm, per sample: there are no
-batch statistics to synchronise.
+loss.
+
+Normalization: ``HeatmapBackbone`` and ``LiteBackbone`` use GroupNorm,
+per sample, so there the sharded step's numbers are the global batch's.
+HRNet (``models/hrnet.py``) uses BatchNorm: ``create_train_state`` puts
+the model in train mode, where a batch is normalized by its own
+statistics and the running ones are updated; evaluation (``.eval()``)
+normalizes by the running ones. Under ``make_sharded_train_step`` each
+rank normalizes its rows by their own statistics, as the published recipe
+(``nn.BatchNorm2d`` under ``DataParallel``) does: no SyncBatchNorm, so the
+step is the single-device step run on each rank's rows, the loss still
+over the global positives. DDP keeps DDP's default ``broadcast_buffers``:
+before each forward rank 0's running statistics are copied to every rank,
+so the statistics that are kept are rank 0's, as ``DataParallel`` keeps
+the one copy its first replica updates. FSDP2 broadcasts no buffer: each
+rank keeps the running statistics of its own rows.
 
 Spans (``utils/profiling.annotate``; free with no profiler active): a step
 is ``train.step``, holding the generate's ``gen.batch``, the augment draws

@@ -35,6 +35,7 @@ PARENT = {
     "gen.render.heatmaps": "gen.render",
     "gen.batch": "train.step", "train.augment": "train.step",
     "train.forward_backward": "train.step", "train.update": "train.step",
+    "model.forward": "train.forward_backward",
 }
 GEN_SPANS = {n for n in PARENT if n.startswith("gen.")}
 TRAIN_SPANS = set(PARENT) | {"train.step"}
